@@ -1,0 +1,379 @@
+"""Port of ``repro/kernels/registry.py`` for the ``softmax_attention`` and
+``rmsnorm`` patterns: pattern-DB entries -> executable variants.
+
+Each pattern maps to an ordered set of :class:`Variant`\\ s — ``fused_torch``
+(the system's own fused PyTorch rewrite, counterpart of ``fused_jnp``) and
+``cuda`` (the hand-written Hopper kernel through
+:mod:`repro_torch.kernels.ops`, counterpart of ``pallas``) — that the
+substitution engine (:mod:`repro_torch.core.substitution`) splices into an
+exported program in place of the matched span.  Registration order is the
+reference's, so gene implementation indices map 1:1.
+
+A variant *binds* to a concrete call site: ``Variant.bind(site)`` inspects
+the site's shapes and dtypes (from the export graph's ``node.meta["val"]``)
+and which outputs are used, and either returns an adapter whose outputs
+match the site's, or raises :class:`VariantUnavailable` with the reason —
+the substitution report then records the fallback to the reference path.
+The ``cuda`` variants reject what their kernels do not take (head dims that
+are not multiples of 8 up to 256, dtypes other than f32/bf16).
+"""
+from __future__ import annotations
+
+import math
+import operator
+from dataclasses import dataclass, field
+from typing import Any, Callable, Mapping, NamedTuple, Optional
+
+import torch
+
+__all__ = ["Aval", "CallSite", "KernelRegistry", "Variant",
+           "VariantUnavailable", "auto_variant_order", "default_registry"]
+
+
+class VariantUnavailable(Exception):
+    """A variant's availability predicate rejected the call site."""
+
+
+class Aval(NamedTuple):
+    """Shape and dtype of one value of the exported graph."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @classmethod
+    def of(cls, val: Any) -> "Aval":
+        return cls(tuple(int(s) for s in val.shape), val.dtype)
+
+
+@dataclass(frozen=True)
+class CallSite:
+    """What a variant binds against: one matched region, concretized.
+
+    ``kind`` is ``"span"`` (a run of ``call_function`` nodes of the export
+    graph).  ``in_avals`` follow the span's inputs in first-use order (NOT
+    the module's call order — see :func:`_attention_roles`), ``out_avals``
+    its outputs in graph order.  ``nodes``/``in_nodes`` are the FX nodes, for
+    structural operand-role inference.
+    """
+
+    pattern: str
+    kind: str
+    in_avals: tuple
+    out_avals: tuple
+    out_used: tuple
+    params: Mapping = field(default_factory=dict)
+    backend: str = "cpu"
+    nodes: tuple = ()
+    in_nodes: tuple = ()
+
+
+@dataclass(frozen=True)
+class Variant:
+    """One executable implementation of a pattern."""
+
+    pattern: str
+    name: str
+    bind: Callable[[CallSite], Callable[..., tuple]]
+    description: str = ""
+
+    def available(self, site: CallSite) -> bool:
+        try:
+            self.bind(site)
+            return True
+        except VariantUnavailable:
+            return False
+
+
+class KernelRegistry:
+    """Ordered pattern -> variants store (registration order is the gene
+    implementation order ``("ref",) + names``)."""
+
+    def __init__(self) -> None:
+        self._by_pattern: dict[str, dict[str, Variant]] = {}
+
+    def register(self, variant: Variant, replace: bool = False) -> None:
+        slot = self._by_pattern.setdefault(variant.pattern, {})
+        if variant.name in slot and not replace:
+            raise ValueError(f"variant {variant.pattern}:{variant.name} "
+                             f"already registered")
+        slot[variant.name] = variant
+
+    def patterns(self) -> tuple[str, ...]:
+        return tuple(self._by_pattern)
+
+    def variants_for(self, pattern: str) -> tuple[Variant, ...]:
+        return tuple(self._by_pattern.get(pattern, {}).values())
+
+    def variant_names(self, pattern: str) -> tuple[str, ...]:
+        return tuple(self._by_pattern.get(pattern, {}))
+
+    def get(self, pattern: str, name: str) -> Variant:
+        try:
+            return self._by_pattern[pattern][name]
+        except KeyError:
+            raise KeyError(
+                f"unknown variant {pattern}:{name}; registered for "
+                f"{pattern!r}: {self.variant_names(pattern)}") from None
+
+
+# ---------------------------------------------------------------------------
+# binding helpers
+# ---------------------------------------------------------------------------
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: the matrix-product ops of the (pre-decomposition) export graph
+_DOT_OPS = (torch.ops.aten.matmul.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.mm.default)
+
+
+def _require(cond: bool, why: str) -> None:
+    if not cond:
+        raise VariantUnavailable(why)
+
+
+def _floats(avals) -> bool:
+    return all(a.dtype.is_floating_point for a in avals)
+
+
+def _cast(x: torch.Tensor, aval: Aval) -> torch.Tensor:
+    return x.to(aval.dtype) if x.dtype != aval.dtype else x
+
+
+def _kernel_adapter(fn: Callable, site: CallSite) -> Callable:
+    """Mark an adapter that launches a kernel: it cannot run on meta
+    tensors, so it declares its outputs (the site's, which it casts to)
+    for :func:`repro_torch.core.variants.check_adapter`."""
+    fn.out_avals = tuple(a if u else None
+                         for a, u in zip(site.out_avals, site.out_used))
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# softmax_attention: causal attention block
+# ---------------------------------------------------------------------------
+
+
+def _attention_roles(site: CallSite) -> tuple:
+    """Indices of (q, k, v) among the site inputs.
+
+    A span's inputs arrive in first-use order, which need not be the call
+    order.  Trace each matrix-product operand back to the unique span input
+    it derives from: the first product's lhs is q, its rhs is k, the last
+    product's rhs is v.
+    """
+    if site.kind != "span" or not site.nodes:
+        return (0, 1, 2)
+    dots = [n for n in site.nodes if n.target in _DOT_OPS]
+    _require(len(dots) >= 2, "attention span needs score and output matmuls")
+    inputs = set(site.in_nodes)
+    span = set(site.nodes)
+
+    def sole_root(node, what: str):
+        out, stack, seen = set(), [node], set()
+        while stack:
+            x = stack.pop()
+            if x in seen:
+                continue
+            seen.add(x)
+            if x in inputs:
+                out.add(x)
+            elif x in span:
+                stack.extend(x.all_input_nodes)
+        _require(len(out) == 1, f"cannot identify the {what} operand")
+        return next(iter(out))
+
+    qn = sole_root(dots[0].args[0], "q")
+    kn = sole_root(dots[0].args[1], "k")
+    vn = sole_root(dots[-1].args[1], "v")
+    _require(len({qn, kn, vn}) == 3, "attention operands are entangled")
+    index = {n: i for i, n in enumerate(site.in_nodes)}
+    return (index[qn], index[kn], index[vn])
+
+
+def _attention_site(site: CallSite):
+    _require(site.kind in ("span", "call"),
+             f"attention binds span/call sites, not {site.kind}")
+    _require(len(site.in_avals) == 3, "attention needs exactly (q, k, v)")
+    _require(sum(site.out_used) == 1 and len(site.out_avals) >= 1,
+             "attention produces one used output")
+    roles = _attention_roles(site)
+    q, k, v = (site.in_avals[i] for i in roles)
+    _require(_floats((q, k, v)), "attention needs floating inputs")
+    _require(q.ndim == k.ndim == v.ndim, "q/k/v rank mismatch")
+    _require(q.ndim in (2, 4), "attention supports (S,D) or (B,S,H,D)")
+    _require(k.shape == v.shape, "k/v shape mismatch")
+    _require(q.shape[-1] == k.shape[-1], "q/k head-dim mismatch")
+    _require(q.shape[-1] <= 512, "head dim too large for the kernels")
+    out = site.out_avals[list(site.out_used).index(True)]
+    _require(out.shape == q.shape[:-1] + (v.shape[-1],),
+             "output shape is not attention-like")
+    if q.ndim == 4:
+        _require(q.shape[2] % k.shape[2] == 0, "Hq must be a multiple of Hkv")
+        _require(q.shape[0] == k.shape[0], "batch mismatch")
+    return q, k, v, out, roles
+
+
+def _out_tuple(site: CallSite, o: torch.Tensor) -> tuple:
+    """The adapter's output tuple: the one used output, None elsewhere."""
+    return tuple(o if used else None for used in site.out_used)
+
+
+def _bind_attention_fused(site: CallSite):
+    """GQA attention without materializing the KV-head repeat: query heads
+    are grouped under their KV head and broadcast against it; f32 scores,
+    softmax and products."""
+    q_av, k_av, v_av, out_av, roles = _attention_site(site)
+    scale = 1.0 / math.sqrt(q_av.shape[-1])
+
+    def attend(q, k, v):                  # (B,S,H,D) layout
+        b, sq, hq, d = q.shape
+        sk, hkv = k.shape[1], k.shape[2]
+        g = hq // hkv
+        qg = q.float().permute(0, 2, 1, 3).reshape(b, hkv, g * sq, d)
+        kh = k.float().permute(0, 2, 3, 1)                  # (B,Hkv,D,Sk)
+        s = torch.matmul(qg, kh).reshape(b, hkv, g, sq, sk) * scale
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+        p = torch.softmax(s, dim=-1).reshape(b, hkv, g * sq, sk)
+        o = torch.matmul(p, v.float().transpose(1, 2))      # (B,Hkv,G*Sq,D)
+        return o.reshape(b, hq, sq, -1).transpose(1, 2)
+
+    def fn(*xs):
+        q, k, v = (xs[i] for i in roles)
+        if q.ndim == 2:
+            o = attend(q[None, :, None], k[None, :, None], v[None, :, None])
+            o = o[0, :, 0]
+        else:
+            o = attend(q, k, v)
+        return _out_tuple(site, _cast(o, out_av))
+    return fn
+
+
+def _bind_attention_cuda(site: CallSite):
+    from repro_torch.kernels import ops
+
+    q_av, k_av, v_av, out_av, roles = _attention_site(site)
+    d = q_av.shape[-1]
+    _require(d % 8 == 0 and 8 <= d <= 256,
+             f"cuda flash kernel takes head dims that are multiples of 8 up "
+             f"to 256, not {d}")
+    _require(q_av.dtype == k_av.dtype == v_av.dtype
+             and q_av.dtype in _KERNEL_DTYPES,
+             "cuda flash kernel takes f32 or bf16 q/k/v of one dtype")
+    if q_av.ndim == 4:
+        _require(q_av.shape[0] * q_av.shape[2] <= 65535,
+                 "cuda flash kernel takes B*Hq <= 65535")
+
+    def fn(*xs):
+        q, k, v = (xs[i] for i in roles)
+        if q.ndim == 2:
+            o = ops.flash_attention(q[None, :, None], k[None, :, None],
+                                    v[None, :, None], causal=True)[0, :, 0]
+        else:
+            o = ops.flash_attention(q, k, v, causal=True)
+        return _out_tuple(site, _cast(o, out_av))
+    return _kernel_adapter(fn, site)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm: (x, scale) -> normalized x, (1 + scale) weighting
+# ---------------------------------------------------------------------------
+
+
+def _rmsnorm_site(site: CallSite):
+    _require(site.kind in ("span", "call"),
+             f"rmsnorm binds span/call sites, not {site.kind}")
+    _require(len(site.in_avals) == 2, "rmsnorm needs exactly (x, scale)")
+    _require(sum(site.out_used) == 1, "rmsnorm produces one used output")
+    a, b = site.in_avals
+    x_av, s_av = (a, b) if a.ndim >= b.ndim else (b, a)
+    swapped = x_av is b
+    _require(_floats((x_av, s_av)), "rmsnorm needs floating inputs")
+    _require(s_av.ndim == 1 and x_av.ndim >= 1, "scale must be rank 1")
+    _require(x_av.shape[-1] == s_av.shape[0], "scale must match last dim")
+    out = site.out_avals[list(site.out_used).index(True)]
+    _require(out.shape == x_av.shape, "output must be x-shaped")
+    return x_av, s_av, out, swapped
+
+
+def _rmsnorm_eps(site: CallSite, default: float = 1e-6) -> float:
+    """The epsilon the span adds to its mean of squares (the default when
+    the span does not show one)."""
+    for n in site.nodes:
+        if n.target in (torch.ops.aten.add.Tensor, torch.ops.aten.add.Scalar,
+                        operator.add) and len(n.args) == 2:
+            src, eps = n.args
+            if getattr(src, "target", None) is torch.ops.aten.mean.dim \
+                    and isinstance(eps, float):
+                return eps
+    return default
+
+
+def _bind_rmsnorm_fused(site: CallSite):
+    """One fused expression: f32 statistics, ``(1 + scale)`` weighting."""
+    _, _, out_av, swapped = _rmsnorm_site(site)
+    eps = _rmsnorm_eps(site)
+
+    def fn(a, b):
+        x, s = (b, a) if swapped else (a, b)
+        xf = x.float()
+        o = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) \
+            * (1.0 + s.float())
+        return _out_tuple(site, _cast(o, out_av))
+    return fn
+
+
+def _bind_rmsnorm_cuda(site: CallSite):
+    from repro_torch.kernels import ops
+
+    x_av, s_av, out_av, swapped = _rmsnorm_site(site)
+    _require(x_av.ndim >= 2, "cuda rmsnorm needs a row dimension")
+    _require(x_av.shape[-1] % 8 == 0,
+             f"cuda rmsnorm takes d a multiple of 8, not {x_av.shape[-1]}")
+    _require(x_av.dtype in _KERNEL_DTYPES and s_av.dtype in _KERNEL_DTYPES,
+             "cuda rmsnorm takes f32 or bf16")
+    eps = _rmsnorm_eps(site)
+
+    def fn(a, b):
+        x, s = (b, a) if swapped else (a, b)
+        return _out_tuple(site, _cast(ops.rmsnorm(x, s, eps=eps), out_av))
+    return _kernel_adapter(fn, site)
+
+
+# ---------------------------------------------------------------------------
+# the default registry
+# ---------------------------------------------------------------------------
+
+_DEFAULT: Optional[KernelRegistry] = None
+
+
+def default_registry() -> KernelRegistry:
+    """The shipped variants; built once (registration order defines the
+    ``("ref", "fused_torch", "cuda")`` gene-implementation order)."""
+    global _DEFAULT
+    if _DEFAULT is not None:
+        return _DEFAULT
+    reg = KernelRegistry()
+    for pattern, fused, cuda in (
+        ("softmax_attention", _bind_attention_fused, _bind_attention_cuda),
+        ("rmsnorm", _bind_rmsnorm_fused, _bind_rmsnorm_cuda),
+    ):
+        reg.register(Variant(pattern, "fused_torch", fused,
+                             "fused PyTorch rewrite"))
+        reg.register(Variant(pattern, "cuda", cuda,
+                             "hand-written Hopper kernel "
+                             "(repro_torch.kernels.ops)"))
+    _DEFAULT = reg
+    return reg
+
+
+def auto_variant_order(backend: str) -> tuple[str, ...]:
+    """Preference order for the legacy ``"kernel"`` (auto) implementation:
+    the CUDA kernels on a CUDA device, the fused rewrites elsewhere (on the
+    CPU the kernel wrappers run their plain versions)."""
+    return ("cuda", "fused_torch") if backend == "cuda" \
+        else ("fused_torch", "cuda")
