@@ -8,20 +8,31 @@ Phases, in order; any failure exits non-zero before the last line:
    CUDA versions, and the build of every hand-written kernel from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together);
 2. each kernel against its plain PyTorch version on the card at the main
-   path's shapes (and a few edge cases), with its time (CUDA events, median
-   of 25 launches, L2 flushed before each), the plain version's time, the
-   time of the one PyTorch call that computes the same function
-   (``library_ms``, timed here only), and its bound on an H100 SXM;
-3. the main path: ``Offloader.plan`` over one full-width Qwen3-0.6B dense
-   block (d_model 1024, 16 q / 8 kv heads, head_dim 128, d_ff 3072) in bf16
-   at batch 2 x 2048 tokens, GA population 8 x 4 generations, seed 0.  The
-   kernels' launch counters are set to 0 just before it and read just
-   after; the plan must verify, the forced all-kernel plan must bind the
-   CUDA kernels at all 5 sites and match the unsubstituted block, and no
-   chromosome that selects a kernel may have failed with an error; then,
-   for the all-reference program, the plan's winner and the all-kernel
-   program, where one forward's time goes (``torch.profiler``: device time,
-   idle share, top kernels);
+   paths' shapes (and a few edge cases), with its time (CUDA events, median
+   of 25 launches, L2 flushed before each; the plain scan loops, median of
+   5), the plain version's time, the time of the one PyTorch call that
+   computes the same function where there is one (``library_ms``, timed
+   here only), and its bound on an H100 SXM;
+3. the main paths, each through ``Offloader.plan`` with the launch
+   counters set to 0 just before it and read just after.  Each plan must
+   verify; the forced all-kernel plan must bind the CUDA kernels at every
+   matched site and match the unsubstituted program; no chromosome that
+   selects a kernel may have failed with an error; then, for the
+   all-reference program, the plan's winner and the all-kernel program,
+   where one forward's time goes (``torch.profiler``: device time, idle
+   share, top kernels).
+
+   - Q: one full-width Qwen3-0.6B dense block (d_model 1024, 16 q / 8 kv
+     heads, head_dim 128, d_ff 3072) in bf16 at batch 2 x 2048 tokens, GA
+     population 8 x 4 generations: 4 ``rmsnorm`` + 1 ``softmax_attention``
+     sites, the flash-attention and RMSNorm kernels;
+   - R: one full-width RecurrentGemma-2B recurrent sublayer (d_model and
+     d_rnn 2560, 10 gate heads of 256, conv width 4, d_ff 7680 GeGLU) in
+     bf16 at batch 2 x 2048 tokens, the scan in f32, GA 8 x 4: 2 ``rmsnorm``
+     + 1 ``linear_recurrence`` sites, the RMSNorm and RG-LRU scan kernels;
+   - W: a single-head WKV-6 scan program (the reference's ``_wkv_app``) at
+     RWKV-6-3B's head width, D = 64, S = 4096, f32, GA 6 x 3: 1
+     ``wkv_recurrence`` site, the WKV-6 kernel;
 4. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -44,6 +55,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch._higher_order_ops.scan import scan  # noqa: E402
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.evaluator import MeasurementCache  # noqa: E402
@@ -52,8 +64,11 @@ from repro_torch.core.offload import OffloadConfig, Offloader  # noqa: E402
 from repro_torch.core.verifier import verify  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
-from repro_torch.models.transformer import INIT_STD, DenseBlock  # noqa: E402
+from repro_torch.kernels.wkv6 import wkv6_plain  # noqa: E402
+from repro_torch.models.transformer import (INIT_STD, DenseBlock,  # noqa: E402
+                                            RecurrentSublayer)
 
 #: H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them,
 #: HBM3 bandwidth.  Bounds below are against these, at 700 W.
@@ -62,8 +77,14 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 BATCH, SEQ = 2, 2048
+#: path W: one WKV head at RWKV-6-3B's head width
+WKV_SEQ, WKV_DIM = 4096, 64
 SEED = 0
 REPEATS = 25
+#: the plain scan loops take thousands of launches a call
+PLAIN_SCAN_REPEATS = 5
+#: the RWKV-6 time-mix clamps its decay at -exp(2) a step (``rwkv.py:239``)
+STRONG_LOG_W = -math.exp(2.0)
 
 
 def check(cond: bool, what: str) -> None:
@@ -77,15 +98,16 @@ def bound_ms(n_bytes: float, flops: float, peak_flops: float) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(fn, flush: torch.Tensor) -> float:
-    """Median over REPEATS calls, CUDA events around each, L2 flushed (a
-    64 MiB write) before each.  A GPU-side spin (~0.5 ms) before the start
-    event lets the host enqueue the whole call first, so the time is the
-    device's and not the Python launch overhead's."""
-    for _ in range(3):
+def time_ms(fn, flush: torch.Tensor, repeats: int = REPEATS) -> float:
+    """Median over ``repeats`` calls, CUDA events around each, L2 flushed
+    (a 64 MiB write) before each.  A GPU-side spin (~0.5 ms) before the
+    start event lets the host enqueue the whole call first, so the time is
+    the device's and not the Python launch overhead's (for a call that
+    takes longer to enqueue than the spin, the host's share shows)."""
+    for _ in range(min(3, repeats)):
         fn()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         flush.zero_()
         torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
@@ -99,14 +121,16 @@ def time_ms(fn, flush: torch.Tensor) -> float:
 
 
 def compare(what: str, got: torch.Tensor, want: torch.Tensor,
-            tol: float) -> float:
-    """Max |got - want|; fails unless |got - want| <= tol + tol*|want|
-    everywhere."""
+            tol: float, rtol: float | None = None) -> float:
+    """Max |got - want|; fails unless |got - want| <= tol + rtol*|want|
+    everywhere (rtol defaults to tol)."""
     got, want = got.float(), want.float()
+    rtol = tol if rtol is None else rtol
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(bool(torch.isfinite(want).all()), f"{what}: non-finite plain output")
     err = (got - want).abs().max().item()
-    check(torch.allclose(got, want, atol=tol, rtol=tol),
-          f"{what}: max abs err {err} outside tolerance {tol}")
+    check(torch.allclose(got, want, atol=tol, rtol=rtol),
+          f"{what}: max abs err {err} outside atol {tol} rtol {rtol}")
     return err
 
 
@@ -162,19 +186,85 @@ def flash_case(dev, b, sq, sk, hq, hkv, d, causal, dtype, tol, flush, gen):
     return row
 
 
+def rglru_case(dev, b, s, d, *, h0, time_major, flush, gen):
+    """The scan at (b, s, d) f32, coefficients drawn as the reference's
+    sweep draws them (``tests/test_kernels.py``).  ``time_major`` stores
+    them (s, b, d) and hands the kernel (b, s, d) views, as path R's scan
+    site does."""
+    shape = (s, b, d) if time_major else (b, s, d)
+    la = (-torch.randn(*shape, generator=gen).abs() * 0.2).to(dev)
+    bb = (torch.randn(*shape, generator=gen) * 0.5).to(dev)
+    if time_major:
+        la, bb = la.transpose(0, 1), bb.transpose(0, 1)
+    h = torch.randn(b, d, generator=gen).to(dev) if h0 else None
+    got = ops.rglru_scan(la, bb, h)
+    torch.cuda.synchronize()
+    err = compare(f"rglru_scan ({b},{s},{d}) h0={h0} time_major="
+                  f"{time_major}", got, rglru_scan_plain(la, bb, h),
+                  1e-5, 1e-4)
+    row = {"shape": [b, s, d], "h0": h0, "time_major": time_major,
+           "max_abs_err": err,
+           "ms": time_ms(lambda: ops.rglru_scan(la, bb, h), flush),
+           "plain_ms": time_ms(lambda: rglru_scan_plain(la, bb, h), flush,
+                               PLAIN_SCAN_REPEATS),
+           "library_ms": None}
+    n = b * s * d
+    n_bytes = 3 * n * 4 + (b * d * 4 if h0 else 0)
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 3.0 * n,
+                                                PEAK_F32_FLOPS)
+    return row
+
+
+def wkv6_case(dev, b, s, h, d, *, strong, flush, gen):
+    """WKV-6 at (b, s, h, d) f32, drawn as the reference's sweep draws
+    (``tests/test_kernels.py``); ``strong`` puts log_w at the model's clamp,
+    -exp(2), at every step."""
+    r, k, v = ((torch.randn(b, s, h, d, generator=gen) * 0.5).to(dev)
+               for _ in range(3))
+    lw = torch.full((b, s, h, d), STRONG_LOG_W) if strong \
+        else -torch.randn(b, s, h, d, generator=gen).abs() * 0.3
+    lw = lw.to(dev)
+    u = (torch.randn(h, d, generator=gen) * 0.1).to(dev)
+    got = ops.wkv6(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    err = compare(f"wkv6 ({b},{s},{h},{d}) strong={strong}", got,
+                  wkv6_plain(r, k, v, lw, u), 5e-5, 1e-3)
+    row = {"shape": [b, s, h, d], "strong_decay": strong, "max_abs_err": err,
+           "ms": time_ms(lambda: ops.wkv6(r, k, v, lw, u), flush),
+           "plain_ms": time_ms(lambda: wkv6_plain(r, k, v, lw, u), flush,
+                               PLAIN_SCAN_REPEATS),
+           "library_ms": None}
+    n = b * s * h * d
+    # the step form: about 4 f32 operations per state entry per step
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        5 * n * 4 + h * d * 4, 4.0 * n * d, PEAK_F32_FLOPS)
+    return row
+
+
+def _entry(name, path_row, **extra):
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            **extra,
+            **{k: path_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}}
+
+
 def phase_kernels(dev) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     bf16, f32 = torch.bfloat16, torch.float32
     cfg = get_config("qwen3_0_6b")
+    rg = get_config("recurrentgemma_2b")
     hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     tokens = BATCH * SEQ
-    # the main path's four RMSNorm calls per block forward: ln1, q-norm,
-    # k-norm, ln2
+    # path Q's four RMSNorm calls per block forward: ln1, q-norm, k-norm,
+    # ln2; path R's two: ln1, ln2
     path_norms = [(tokens, cfg.d_model), (tokens * nq, hd),
                   (tokens * nkv, hd), (tokens, cfg.d_model)]
+    path_r_norms = [(tokens, rg.d_model)] * 2
     norms = {}
-    for n, d in sorted(set(path_norms)):
+    for n, d in sorted(set(path_norms + path_r_norms)):
         norms[(n, d)] = rmsnorm_case(dev, n, d, bf16, 2e-2, flush, gen)
         print("rmsnorm  ", json.dumps(norms[(n, d)]), flush=True)
     for n, d in [(tokens, cfg.d_model), (tokens * nq, hd)]:
@@ -190,34 +280,77 @@ def phase_kernels(dev) -> dict:
         print("flash    ", json.dumps(
             flash_case(dev, *case, f32, 2e-5, flush, gen)), flush=True)
 
-    def total(key):
-        return sum(norms[nd][key] for nd in path_norms)
+    path_rglru = rglru_case(dev, BATCH, SEQ, rg.d_rnn_resolved, h0=False,
+                            time_major=True, flush=flush, gen=gen)
+    print("rglru    ", json.dumps(path_rglru), flush=True)
+    for b, s, d, h0 in [(1, 1000, 384, False),        # ragged S and D
+                        (2, 512, 2560, True)]:        # nonzero h0
+        print("rglru    ", json.dumps(rglru_case(
+            dev, b, s, d, h0=h0, time_major=False, flush=flush, gen=gen)),
+            flush=True)
 
-    rms_entry = {
-        "name": "rmsnorm", "route": "cuda",
-        "source": "src/repro_torch/csrc/rmsnorm.cu",
-        "replaces": "src/repro/kernels/rmsnorm.py:23",
-        "max_abs_err": max(norms[nd]["max_abs_err"] for nd in path_norms),
-        "ms": total("ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"), "bound_by": "bytes",
-        "library_ms": total("library_ms"),
-        "per_block_forward": [list(nd) for nd in path_norms]}
-    flash_entry = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:73",
-        **{k: path_flash[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by",
-                                      "library_ms")}}
-    return {"flash_attention": flash_entry, "rmsnorm": rms_entry}
+    path_wkv = wkv6_case(dev, 1, WKV_SEQ, 1, WKV_DIM, strong=False,
+                         flush=flush, gen=gen)
+    print("wkv6     ", json.dumps(path_wkv), flush=True)
+    rwkv = get_config("rwkv6_3b")
+    full_wkv = wkv6_case(dev, BATCH, SEQ, rwkv.d_model // rwkv.rwkv_head_dim,
+                         rwkv.rwkv_head_dim, strong=False, flush=flush,
+                         gen=gen)
+    print("wkv6     ", json.dumps(full_wkv), flush=True)
+    for b, s, h, d, strong in [(1, 1000, 2, 32, False),   # ragged S, D=32
+                               (1, 1024, 2, 64, True)]:   # decay at the clamp
+        print("wkv6     ", json.dumps(wkv6_case(
+            dev, b, s, h, d, strong=strong, flush=flush, gen=gen)),
+            flush=True)
+
+    def total(key, calls):
+        return sum(norms[nd][key] for nd in calls)
+
+    def norm_sums(calls):
+        return {"max_abs_err": max(norms[nd]["max_abs_err"] for nd in calls),
+                **{k: total(k, calls) for k in ("ms", "plain_ms",
+                                                "bound_ms", "library_ms")},
+                "bound_by": "bytes"}
+
+    rms_entry = _entry(
+        "rmsnorm", norm_sums(path_norms),
+        replaces="src/repro/kernels/rmsnorm.py:23",
+        per_block_forward=[list(nd) for nd in path_norms],
+        path_r={"per_sublayer_forward": [list(nd) for nd in path_r_norms],
+                **norm_sums(path_r_norms)})
+    flash_entry = _entry("flash_attention", path_flash,
+                         replaces="src/repro/kernels/flash_attention.py:73")
+    rglru_entry = _entry("rglru_scan", path_rglru,
+                         replaces="src/repro/kernels/rglru_scan.py:55",
+                         shape=path_rglru["shape"])
+    wkv_entry = _entry("wkv6", path_wkv, replaces="src/repro/kernels/wkv6.py:68",
+                       shape=path_wkv["shape"],
+                       full_width={k: full_wkv[k] for k in (
+                           "shape", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by")})
+    return {"flash_attention": flash_entry, "rmsnorm": rms_entry,
+            "rglru_scan": rglru_entry, "wkv6": wkv_entry}
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the main paths
 # ---------------------------------------------------------------------------
 
 
-def phase_main_path(dev, scratch: Path) -> dict:
+def wkv_app(r, k, v, lw, u):
+    """The reference's ``_wkv_app`` (``tests/test_substitution.py``): one
+    head's WKV-6 recurrence as a scan, the final state dropped."""
+    def step(s, rkvw):
+        rt, kt, vt, lwt = rkvw
+        kv = kt[:, None] * vt[None, :]
+        y = rt @ (s + u[:, None] * kv)
+        return torch.exp(lwt)[:, None] * s + kv, y
+    _, ys = scan(step, torch.zeros(r.shape[-1], v.shape[-1], device=r.device),
+                 (r, k, v, lw))
+    return ys
+
+
+def path_q(dev):
     cfg = get_config("qwen3_0_6b")
     gen = torch.Generator().manual_seed(SEED)
     block = DenseBlock(cfg, dtype=torch.bfloat16, device=dev, generator=gen)
@@ -225,34 +358,78 @@ def phase_main_path(dev, scratch: Path) -> dict:
     # embeddings are drawn like its other weights, N(0, INIT_STD)
     x = (torch.randn(BATCH, SEQ, cfg.d_model, generator=gen)
          * INIT_STD).to(dev, torch.bfloat16)
-    with torch.no_grad():
-        reference = block(x)
-    print(f"block output: max |y| {reference.float().abs().max().item():.4f}",
-          flush=True)
+    return block, (x,)
 
-    ga = GAConfig(population=8, generations=4, seed=SEED,
+
+def path_r(dev):
+    cfg = get_config("recurrentgemma_2b")
+    gen = torch.Generator().manual_seed(SEED)
+    layer = RecurrentSublayer(cfg, dtype=torch.bfloat16, device=dev,
+                              generator=gen)
+    x = (torch.randn(BATCH, SEQ, cfg.d_model, generator=gen)
+         * INIT_STD).to(dev, torch.bfloat16)
+    return layer, (x,)
+
+
+def path_w(dev):
+    """One head of RWKV-6's time mix as the reference draws its inputs:
+    r, k, v ~ N(0, 1) and log_w = -exp(clip(w, -8, 2)) (``rwkv.py:238``)
+    with w ~ N(-0.6, 1); u ~ N(0, 0.1)."""
+    gen = torch.Generator().manual_seed(SEED)
+    r, k, v = (torch.randn(WKV_SEQ, WKV_DIM, generator=gen) for _ in range(3))
+    lw = -torch.exp(torch.clamp(torch.randn(WKV_SEQ, WKV_DIM, generator=gen)
+                                - 0.6, -8.0, 2.0))
+    u = torch.randn(WKV_DIM, generator=gen) * 0.1
+    return wkv_app, tuple(t.to(dev) for t in (r, k, v, lw, u))
+
+
+PATHS = {
+    # label: (program maker, GA population x generations, expected (pattern,
+    # variant) bindings of the forced all-kernel plan, the kernels it runs,
+    # profiled iterations)
+    "Q": (path_q, (8, 4), [("rmsnorm", "cuda")] * 4
+          + [("softmax_attention", "cuda")], ("flash_attention", "rmsnorm"),
+          10),
+    "R": (path_r, (8, 4), [("linear_recurrence", "cuda")]
+          + [("rmsnorm", "cuda")] * 2, ("rglru_scan", "rmsnorm"), 3),
+    "W": (path_w, (6, 3), [("wkv_recurrence", "cuda")], ("wkv6",), 2),
+}
+
+
+def phase_path(label, dev, scratch: Path) -> dict:
+    make, (pop, gens), expected, kernels, iters = PATHS[label]
+    target, args = make(dev)
+    with torch.no_grad():
+        reference = target(*args)
+    torch.cuda.synchronize()
+    print(f"path {label} output: {tuple(reference.shape)} max |y| "
+          f"{reference.float().abs().max().item():.4f}", flush=True)
+
+    ga = GAConfig(population=pop, generations=gens, seed=SEED,
                   cache_dir=str(scratch))
     config = OffloadConfig(device=str(dev), ga=ga, repeats=3,
-                           options={"example_args": (x,)},
-                           log=lambda s: print("  plan:", s, flush=True))
+                           options={"example_args": args},
+                           log=lambda s: print(f"  plan {label}:", s,
+                                               flush=True))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = Offloader(config).plan(block)
+    res = Offloader(config).plan(target)
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    print("main path launches:", json.dumps(launches), flush=True)
-    check(launches["flash_attention"] > 0,
-          "the flash-attention kernel was never launched by the search")
-    check(launches["rmsnorm"] > 0,
-          "the rmsnorm kernel was never launched by the search")
+    print(f"path {label} launches:", json.dumps(launches), flush=True)
+    for name in kernels:
+        check(launches[name] > 0,
+              f"path {label}: the {name} kernel was never launched by the "
+              f"search")
 
-    check(res.verification["verified"], "the winning plan did not verify")
-    out = res.artifact(x)
+    check(res.verification["verified"], f"path {label}: the winning plan "
+                                        f"did not verify")
+    out = res.artifact(*args)
     torch.cuda.synchronize()
     v = verify(reference, out, rtol=1e-2, atol=1e-2)
     check(out.device.type == "cuda" and v.ok,
-          f"the plan's artifact differs from the block: {v}")
+          f"path {label}: the plan's artifact differs from the program: {v}")
 
     engine = res.details["engine"]
     matched = {s.region: res.graph.by_name(s.region).meta.get("pattern")
@@ -262,13 +439,14 @@ def phase_main_path(dev, scratch: Path) -> dict:
     forced = engine.substitute(res.coding.decode(forced_bits))
     chosen = [(c.pattern, c.chosen) for c in forced.report.choices
               if c.pattern]
-    check(sorted(chosen) == [("rmsnorm", "cuda")] * 4
-          + [("softmax_attention", "cuda")],
-          f"forced all-kernel plan did not bind the kernels: {chosen}")
-    forced_out = forced(x)
+    check(sorted(chosen) == sorted(expected),
+          f"path {label}: forced all-kernel plan did not bind the kernels: "
+          f"{chosen} ({forced.report.fallbacks})")
+    forced_out = forced(*args)
     torch.cuda.synchronize()
     fv = verify(reference, forced_out, rtol=1e-2, atol=1e-2)
-    check(fv.ok, f"forced all-kernel plan differs from the block: {fv}")
+    check(fv.ok, f"path {label}: forced all-kernel plan differs from the "
+                 f"program: {fv}")
 
     # every measured chromosome, from the search's measurement journal
     records = MeasurementCache(str(scratch),
@@ -282,7 +460,8 @@ def phase_main_path(dev, scratch: Path) -> dict:
         if "verify" in ev.detail:
             verify_fails["".join(map(str, bits))] = ev.detail["verify"]
     check(not kernel_errors,
-          f"chromosomes selecting a kernel failed: {kernel_errors}")
+          f"path {label}: chromosomes selecting a kernel failed: "
+          f"{kernel_errors}")
     per_site = {f"{s.region}:{matched[s.region] or '-'}":
                 res.artifact.report.substituted.get(s.region, "ref")
                 for s in res.coding.sites}
@@ -296,16 +475,16 @@ def phase_main_path(dev, scratch: Path) -> dict:
         "plan_s": plan_s, "verify_failures": verify_fails,
         "artifact_max_abs": v.max_abs, "forced_max_abs": fv.max_abs,
         "launches": launches}
-    print("main path:", json.dumps(summary), flush=True)
+    print(f"path {label}:", json.dumps(summary), flush=True)
     unsubstituted = engine.substitute({})
-    for label, fn in (("baseline (all ref)", unsubstituted),
-                      ("plan winner", res.artifact), ("all kernels", forced)):
-        print(f"where the time goes, {label}:",
-              json.dumps(where_time_goes(fn, x)), flush=True)
+    for name, fn in (("baseline (all ref)", unsubstituted),
+                     ("plan winner", res.artifact), ("all kernels", forced)):
+        print(f"where the time goes, path {label}, {name}:",
+              json.dumps(where_time_goes(fn, args, iters)), flush=True)
     return launches
 
 
-def where_time_goes(fn, x, iters: int = 10) -> dict:
+def where_time_goes(fn, args, iters: int) -> dict:
     """One forward of ``fn``: host wall time (synchronized, no profiler)
     beside the time ``torch.profiler`` records for the device's own
     activities (kernels, copies, memsets; CPU-side operator rows would count
@@ -315,16 +494,16 @@ def where_time_goes(fn, x, iters: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        fn(x)
+        fn(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        fn(x)
+        fn(*args)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / iters * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            fn(x)
+            fn(*args)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -348,6 +527,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -361,13 +541,22 @@ def main() -> int:
           f"({', '.join(build.SOURCES)})", flush=True)
 
     kernels = phase_kernels(dev)
-    scratch = Path(tempfile.mkdtemp(prefix="plan-", dir=build.BUILD_DIR))
-    try:
-        launches = phase_main_path(dev, scratch)
-    finally:
-        shutil.rmtree(scratch)
+    print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    by_path = {}
+    for label in PATHS:
+        scratch = Path(tempfile.mkdtemp(prefix=f"plan-{label}-",
+                                        dir=build.BUILD_DIR))
+        try:
+            by_path[label] = phase_path(label, dev, scratch)
+        finally:
+            shutil.rmtree(scratch)
+        print(f"path {label} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     for name, entry in kernels.items():
-        entry["launches"] = launches[name]
+        per_path = {label: counts[name] for label, counts in by_path.items()
+                    if name in PATHS[label][3]}
+        entry["launches"] = sum(per_path.values())
+        entry["launches_by_path"] = per_path
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,2 +1,3 @@
-"""Port of ``repro/configs`` (the dense configuration fields and the
-``qwen3_0_6b`` config, the model of this slice)."""
+"""Port of ``repro/configs`` (the dense, hybrid and RWKV configuration
+fields, and the ``qwen3_0_6b``, ``recurrentgemma_2b`` and ``rwkv6_3b``
+configs, the models of slices 1 and 2)."""

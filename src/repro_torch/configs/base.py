@@ -1,7 +1,8 @@
-"""Port of ``repro/configs/base.py``: the :class:`ArchConfig` fields a dense
-decoder block reads, :meth:`ArchConfig.reduced` and :func:`get_config`.
-The MoE, hybrid, SSM, enc-dec and VLM fields, the shape specs and the other
-architectures come with their slices."""
+"""Port of ``repro/configs/base.py``: the :class:`ArchConfig` fields that a
+dense decoder block, a hybrid model's RG-LRU sublayer and the RWKV-6 WKV
+recurrence read, :meth:`ArchConfig.reduced` and :func:`get_config`.  The
+MoE, enc-dec and VLM fields, the shape specs and the other architectures
+come with their slices."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +16,7 @@ __all__ = ["ArchConfig", "ARCH_IDS", "get_config"]
 class ArchConfig:
     # identity -------------------------------------------------------------
     arch_id: str
-    family: str                   # dense (the only family ported so far)
+    family: str                   # dense | hybrid | ssm
     source: str = ""              # provenance note
 
     # trunk ------------------------------------------------------------------
@@ -29,6 +30,7 @@ class ArchConfig:
 
     # attention flavour ------------------------------------------------------
     attn_kind: str = "full"
+    local_window: int = 2048      # for attn_kind == "local"
     qk_norm: bool = False         # qwen3-style RMSNorm on q and k
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
@@ -36,22 +38,42 @@ class ArchConfig:
     # MLP flavour --------------------------------------------------------------
     mlp_act: str = "silu"         # silu (SwiGLU) | gelu (GeGLU)
 
+    # hybrid / recurrent -----------------------------------------------------
+    block_pattern: tuple[str, ...] = ()   # e.g. ("rglru","rglru","local_attn")
+    d_rnn: int = 0                # RG-LRU recurrence width (0 -> d_model)
+    conv1d_width: int = 4         # RG-LRU temporal conv width
+
+    # rwkv ---------------------------------------------------------------------
+    rwkv_head_dim: int = 64
+
     tie_embeddings: bool = True
+    scale_embeddings: bool = False  # gemma multiplies embeddings by sqrt(d)
     norm_eps: float = 1e-6
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def d_rnn_resolved(self) -> int:
+        return self.d_rnn or self.d_model
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's sizes)."""
-        return dataclasses.replace(
-            self, n_layers=min(self.n_layers, 2), d_model=64, n_heads=4,
+        kw: dict = dict(
+            n_layers=min(self.n_layers, 2), d_model=64, n_heads=4,
             n_kv_heads=min(self.n_kv_heads, 4) or 4, head_dim=16, d_ff=128,
-            vocab=256)
+            vocab=256, local_window=min(self.local_window, 32))
+        if self.block_pattern:
+            kw["n_layers"] = len(self.block_pattern)
+        if self.d_rnn:
+            kw["d_rnn"] = 64
+        if self.family == "ssm":
+            kw["rwkv_head_dim"] = 16
+        return dataclasses.replace(self, **kw)
 
 
-ARCH_IDS: tuple[str, ...] = ("qwen3_0_6b",)
+ARCH_IDS: tuple[str, ...] = ("qwen3_0_6b", "recurrentgemma_2b", "rwkv6_3b")
 
 
 def get_config(arch_id: str) -> ArchConfig:

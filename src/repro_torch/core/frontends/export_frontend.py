@@ -22,6 +22,24 @@ region of their first input-derived user (the counterpart of ``_is_glue``),
 so a region's nodes need not be contiguous.  Regions of >= 5 nodes are
 offloadable ``block`` regions.
 
+Scan regions.  ``torch._higher_order_ops.scan`` exports as one ``scan``
+node (PyTorch 2.11 and 2.13 alike) with ``args = (combine_graph, [init...],
+[xs...], (additional_inputs...))``: ``combine_graph`` is a ``get_attr`` of
+the body ``GraphModule``, and tensors the body closes over (WKV's ``u``)
+land in ``additional_inputs``.  Its outputs are read through ``getitem``
+nodes (carries first, then ys).  ``reverse=True`` exports as ``flip`` ->
+``scan`` -> ``flip`` over dim 0, and the body may not return the carry
+itself as a ys (it returns ``h.clone()``).  A ``scan`` node and its
+``getitem`` nodes form a run of their own (glue such as a ``zeros`` initial
+carry joins it), which becomes an offloadable region of kind ``"loop"``
+whatever its node count — the counterpart of the reference's
+``kind="loop"`` for scan equations.  Its ``meta["scan"]`` records the
+structure (``num_consts``, ``num_carry``, ``num_xs``, ``length``, and
+``reverse`` when every xs is a dim-0 ``flip``), its vector is the body's
+ops plus one ``scan``, and the body's ``get_attr`` is never one of its
+inputs.  Neighbouring nodes of the same module (a ``flip``, a ``permute``)
+fall into the regions before and after it.
+
 Every region records its node names (``meta["nodes"]``); matched regions
 are annotated with their pattern and the kernel registry's variant
 alphabet (:func:`annotate_variants`), which is what lets the substitution
@@ -33,6 +51,7 @@ fitness.
 """
 from __future__ import annotations
 
+import operator
 from typing import Any, Callable
 
 import numpy as np
@@ -77,6 +96,23 @@ def _as_module(fn: Callable) -> torch.nn.Module:
     return _Program()
 
 
+def _is_dim0_flip(node) -> bool:
+    return getattr(node, "target", None) is torch.ops.aten.flip.default \
+        and list(node.args[1]) in ([0], [-node.meta["val"].ndim])
+
+
+def _scan_structure(scan) -> dict:
+    """The structure of a ``scan`` node: operand counts (the reference's
+    ``num_consts``/``num_carry`` plus ``num_xs``), the trip count, and
+    ``reverse`` — every xs is a dim-0 ``flip``, the form ``reverse=True``
+    exports as."""
+    _, init, xs, consts = scan.args[:4]
+    return {"num_consts": len(consts), "num_carry": len(init),
+            "num_xs": len(xs),
+            "length": int(xs[0].meta["val"].shape[0]) if xs else 0,
+            "reverse": bool(xs) and all(_is_dim0_flip(x) for x in xs)}
+
+
 def build_graph(fn: Callable, *example_args, name: str = "") -> RegionGraph:
     ep = torch.export.export(_as_module(fn), tuple(example_args))
     gm = ep.module()
@@ -91,22 +127,31 @@ def build_graph(fn: Callable, *example_args, name: str = "") -> RegionGraph:
     for n in gm.graph.nodes:
         vname(n)
 
-    # runs: consecutive input-derived nodes of one module (glue skipped)
+    # runs: consecutive input-derived nodes of one module (glue skipped);
+    # a scan node and its getitems form a run of their own
     derived: set = {n for n in gm.graph.nodes if n.op == "placeholder"}
-    runs: list[tuple[tuple, list]] = []
+    runs: list[tuple[tuple, Any, list]] = []   # (scope, scan node, nodes)
     glue: list = []
+    scan_run: dict = {}                    # scan node -> its run's index
     for n in nodes:
         if not any(a in derived for a in n.all_input_nodes):
             glue.append(n)                 # derives from no program input
             continue
         derived.add(n)
+        if n.target is operator.getitem and n.args[0] in scan_run:
+            runs[scan_run[n.args[0]]][2].append(n)
+            continue
         sc = _scope(n)
-        if not runs or runs[-1][0] != sc:
-            runs.append((sc, []))
-        runs[-1][1].append(n)
+        if sim.is_scan(n):
+            scan_run[n] = len(runs)
+            runs.append((sc, n, [n]))
+            continue
+        if not runs or runs[-1][0] != sc or runs[-1][1] is not None:
+            runs.append((sc, None, []))
+        runs[-1][2].append(n)
     # glue joins the run of its first input-derived user (dead glue: the
     # next run in graph order), so it never starts or splits a region
-    run_of = {n: i for i, (_, run) in enumerate(runs) for n in run}
+    run_of = {n: i for i, (_, _, run) in enumerate(runs) for n in run}
     order = {n: i for i, n in enumerate(nodes)}
 
     def home(n) -> int:
@@ -120,23 +165,31 @@ def build_graph(fn: Callable, *example_args, name: str = "") -> RegionGraph:
         return later[0] if later else len(runs) - 1
 
     for n in glue:
-        runs[home(n)][1].append(n)
-    runs = [(sc, sorted(run, key=order.__getitem__)) for sc, run in runs]
+        runs[home(n)][2].append(n)
+    runs = [(sc, scan, sorted(run, key=order.__getitem__))
+            for sc, scan, run in runs]
 
+    bodies = {n.args[0] for n in scan_run}    # never a region input
     regions: list[Region] = []
-    for i, ((path, cls), run) in enumerate(runs):
-        is_block = len(run) >= 5
+    for i, ((path, cls), scan, run) in enumerate(runs):
+        kind = "loop" if scan is not None else \
+            "block" if len(run) >= 5 else "stmt"
         module_names = (cls, path.rsplit(".", 1)[-1]) if path else ()
+        meta = {"nodes": tuple(n.name for n in run), "module": path}
+        if scan is not None:
+            meta["scan"] = _scan_structure(scan)
         regions.append(Region(
-            name=f"{'block' if is_block else 'stmt'}_{i}",
-            kind="block" if is_block else "stmt",
+            name=f"{kind}_{i}", kind=kind,
             defs=frozenset(vname(n) for n in run),
-            uses=frozenset(vname(a) for n in run for a in n.all_input_nodes),
+            uses=frozenset(vname(a) for n in run for a in n.all_input_nodes
+                           if a not in bodies),
             callees=module_names + tuple(sim._op_name(n.target) for n in run),
-            feature_vector=sim.export_vector(run),
-            offloadable=is_block,
-            alternatives=("ref", "kernel") if is_block else (),
-            meta={"nodes": tuple(n.name for n in run), "module": path}))
+            feature_vector=sim.export_vector([scan] if scan is not None
+                                             else run),
+            offloadable=kind != "stmt",
+            alternatives=("ref", "kernel") if kind != "stmt" else (),
+            trip_count=meta["scan"]["length"] if scan is not None else None,
+            meta=meta))
     label = name or getattr(fn, "__name__", type(fn).__name__)
     g = RegionGraph(regions, "export", label)
     g.meta["whole_program_vector"] = sim.export_vector(gm)

@@ -1,9 +1,11 @@
 """Port of ``repro/core/pattern_db.py`` for the ``softmax_attention``,
-``rmsnorm`` and ``matmul`` records (thresholds and callee names unchanged).
-Each record's ``"export"`` vector is traced with ``torch.export`` from a
-torch twin of the reference's ``_jx_*`` comparison code; the ``python_ast``
-vectors carry over unchanged.  The scan, block and fft records come with
-their slices.
+``rmsnorm``, ``linear_recurrence``, ``wkv_recurrence`` and ``matmul``
+records (thresholds and callee names unchanged).  Each record's
+``"export"`` vector is traced with ``torch.export`` from a torch twin of
+the reference's ``_jx_*`` comparison code — for the scan records, the
+vector of the twin's ``scan`` node (body ops plus one ``scan``, as the
+export frontend vectorizes a scan region); the ``python_ast`` vectors carry
+over unchanged.  The block and fft records come with their slices.
 
 Code-pattern DB for function-block offload (paper §3.2.2, §4.1: 照合に
 用いるコードパターン DB は、MySQL8 を用いる。ライブラリ等を類似性検出技術で
@@ -34,6 +36,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
+from torch._higher_order_ops.scan import scan
 
 from repro_torch.core import similarity as sim
 from repro_torch.core.ir import Region
@@ -321,6 +324,13 @@ def attention(q, k, v, out, n, d):
                 acc = acc + exp(dot(q[i], k[j]) - m) / z * v[j][t]
             out[i][t] = acc
 """,
+    "linear_recurrence": """
+def recurrence(a, b, h, out, n, d):
+    for t in range(n):
+        for c in range(d):
+            h[c] = a[t][c] * h[c] + b[t][c]
+            out[t][c] = h[c]
+""",
     "rmsnorm": """
 def rmsnorm(x, scale, out, n, d):
     for i in range(n):
@@ -354,13 +364,45 @@ def _tx_rmsnorm(x, scale):
     return x * torch.rsqrt(var + 1e-6) * (1 + scale)
 
 
+def _tx_recurrence(la, b):
+    def step(h, ab):
+        h = torch.exp(ab[0]) * h + ab[1]
+        return h, h.clone()            # a scan's ys may not alias its carry
+    _, hs = scan(step, torch.zeros(la.shape[-1]), (la, b))
+    return hs
+
+
+def _tx_wkv(r, k, v, lw, u):
+    def step(s, rkvw):
+        rt, kt, vt, lwt = rkvw
+        kv = kt[:, None] * vt[None, :]
+        y = rt @ (s + u[:, None] * kv)
+        return torch.exp(lwt)[:, None] * s + kv, y
+    _, ys = scan(step, torch.zeros(r.shape[-1], v.shape[-1]), (r, k, v, lw))
+    return ys
+
+
 def _tx_matmul(a, b):
     return a @ b
+
+
+def _scan_region_vector(fn, *example_args) -> dict:
+    """Characteristic vector of a canonical *scan region*: export the
+    reference implementation, find its ``scan`` node, and count the body's
+    ops plus the ``scan`` itself — exactly how the export frontend
+    vectorizes a scan region, so scan-shaped comparison code matches
+    scan-shaped user regions instead of whole-program traces."""
+    ep = torch.export.export(sim._fn_module(fn), tuple(example_args))
+    for n in ep.graph_module.graph.nodes:
+        if sim.is_scan(n):
+            return sim.export_vector([n])
+    return sim.export_vector(ep.graph_module)
 
 
 def default_db() -> PatternDB:
     f32 = torch.float32
     q = torch.zeros((8, 4), dtype=f32)
+    la = torch.zeros((8, 4), dtype=f32)
     recs = [
         PatternRecord(
             name="softmax_attention",
@@ -382,6 +424,25 @@ def default_db() -> PatternDB:
             replacement="repro_torch.kernels.ops.rmsnorm",
             plan_field=("norm_impl", "fused"),
             threshold=0.90,
+        ),
+        PatternRecord(
+            name="linear_recurrence",
+            callee_names=("rglru", "lru", "linear_recurrence", "ssm_scan",
+                          "selective_scan"),
+            vectors={"python_ast": _py_vector(_PY_COMPARISON_CODE["linear_recurrence"]),
+                     "export": _scan_region_vector(_tx_recurrence, la, la)},
+            replacement="repro_torch.kernels.ops.rglru_scan",
+            plan_field=("rglru_impl", "chunked"),
+            threshold=0.85,
+        ),
+        PatternRecord(
+            name="wkv_recurrence",
+            callee_names=("wkv", "wkv6", "rwkv", "time_mix"),
+            vectors={"export": _scan_region_vector(
+                _tx_wkv, q, q, q, la, torch.zeros((4,), dtype=f32))},
+            replacement="repro_torch.kernels.ops.wkv6",
+            plan_field=("wkv_impl", "chunked"),
+            threshold=0.85,
         ),
         PatternRecord(
             name="matmul",

@@ -85,10 +85,26 @@ def _op_name(target: Any) -> str:
     return name.split(".")[0]
 
 
+def is_scan(node: Any) -> bool:
+    """True for the ``scan`` higher-order-op node of an exported graph."""
+    import torch
+
+    return node.op == "call_function" \
+        and node.target is torch.ops.higher_order.scan
+
+
+def scan_body(node: Any):
+    """The combine ``GraphModule`` of a ``scan`` node: its first argument
+    is a ``get_attr`` of the owning graph module."""
+    return getattr(node.graph.owning_module, node.args[0].target)
+
+
 def export_vector(graph_module_or_nodes: Any) -> dict[str, int]:
     """Characteristic vector over a ``torch.export`` graph (or a list of its
     nodes): counts of aten op names of the ``call_function`` nodes — the
-    export frontend's counterpart of the reference's ``jaxpr_vector``."""
+    export frontend's counterpart of the reference's ``jaxpr_vector``.  A
+    ``scan`` node counts as its combine graph's ops plus one ``scan``, as
+    a jaxpr ``scan`` equation does in the reference."""
     nodes = graph_module_or_nodes
     if hasattr(nodes, "graph"):
         nodes = nodes.graph.nodes
@@ -96,6 +112,8 @@ def export_vector(graph_module_or_nodes: Any) -> dict[str, int]:
     for n in nodes:
         if n.op != "call_function":
             continue
+        if is_scan(n):
+            counts.update(export_vector(scan_body(n)))
         name = _op_name(n.target)
         if name not in _IGNORED_OPS:
             counts[name] += 1

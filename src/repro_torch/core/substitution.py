@@ -10,6 +10,14 @@ to the variant's bound adapter (fed the span's free inputs, first-use
 order; placed at the first span node after every input — a span's glue
 nodes may come earlier) and ``getitem`` nodes that take the place of the
 span's outputs.
+A scan region (``kind="loop"``, from a ``scan`` node) becomes a site of
+kind ``"scan"``: its nodes are the ``scan`` node and its ``getitem`` nodes, its
+inputs follow the scan's own operand order — ``(consts..., init...,
+xs...)``, as the reference's ``(u, s0, r, k, v, log_w)`` — and its outputs
+are the scan's (carries, then ys), each marked used when its ``getitem``
+has a user.  A ``zeros`` initial carry stays in the graph as an input (the
+site's ``params["zero_init"]`` says so); a ``flip`` or ``permute`` beside
+the scan stays on the reference path.
 Everything else runs the exported ATen ops unchanged.  The result,
 :class:`SubstitutedCallable`, runs eagerly (no compilation step).
 
@@ -25,13 +33,14 @@ modeled cost is charged by the pipeline.
 from __future__ import annotations
 
 import operator
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import torch
 import torch.fx
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import similarity as sim
 from repro_torch.core.ir import RegionGraph
 from repro_torch.core.variants import (_REF_IMPLS, SubstitutionChoice,
                                        SubstitutionReport, resolve_variant)
@@ -85,23 +94,62 @@ class SiteBinding:
 
     region: str
     pattern: Optional[str]
-    nodes: tuple                       # the span, graph order
-    in_nodes: tuple                    # free inputs, first-use order
-    out_nodes: tuple                   # outputs read after the span
+    nodes: tuple                       # the span, graph order (replaced)
+    in_nodes: tuple                    # free inputs: first-use order for a
+                                       # span, operand order for a scan
+    out_nodes: tuple                   # outputs read after the span; for a
+                                       # scan one getitem (or None) per output
     anchor: Any = None                 # where the adapter call goes: the
                                        # first span node after every input
     kind: str = "span"
+    params: dict = field(default_factory=dict)   # scan: num_consts,
+                                                 # num_carry, reverse, ...
+
+    def out_avals(self) -> tuple:
+        if self.kind == "scan":
+            return tuple(Aval.of(v) for v in self.anchor.meta["val"])
+        return tuple(Aval.of(n.meta["val"]) for n in self.out_nodes)
+
+    def out_used(self) -> tuple:
+        return tuple(n is not None and len(n.users) > 0
+                     for n in self.out_nodes)
 
     def call_site(self, backend: str) -> CallSite:
         return CallSite(
             pattern=self.pattern or "",
             kind=self.kind,
             in_avals=tuple(Aval.of(n.meta["val"]) for n in self.in_nodes),
-            out_avals=tuple(Aval.of(n.meta["val"]) for n in self.out_nodes),
-            out_used=(True,) * len(self.out_nodes),
+            out_avals=self.out_avals(),
+            out_used=self.out_used(),
+            params=dict(self.params),
             backend=backend,
             nodes=tuple(self.nodes),
             in_nodes=tuple(self.in_nodes))
+
+
+#: ops whose output is all zeros: a scan's initial carry made by one of
+#: these is known to be zero when the site binds
+_ZEROS_OPS = (torch.ops.aten.zeros.default, torch.ops.aten.zeros_like.default,
+              torch.ops.aten.new_zeros.default)
+
+
+def _scan_binding(region, scan) -> SiteBinding:
+    """The site of one ``scan`` node: operands in the scan's order
+    (consts, init, xs), outputs one per scan result (carries, then ys)."""
+    _, init, xs, consts = scan.args[:4]
+    getitems = {u.args[1]: u for u in scan.users
+                if u.target is operator.getitem}
+    outs = tuple(getitems.get(i) for i in range(len(scan.meta["val"])))
+    structure = region.meta["scan"]
+    params = {"num_consts": structure["num_consts"],
+              "num_carry": structure["num_carry"],
+              "length": structure["length"],
+              "reverse": structure["reverse"],
+              "zero_init": all(getattr(n, "target", None) in _ZEROS_OPS
+                               for n in init)}
+    return SiteBinding(region.name, region.meta.get("pattern"),
+                       (scan, *(o for o in outs if o is not None)),
+                       (*consts, *init, *xs), outs, scan, "scan", params)
 
 
 def _backend_of(example_args: tuple) -> str:
@@ -142,6 +190,10 @@ class SubstitutionEngine:
             if not names or any(nm not in by_name for nm in names):
                 continue
             nodes = tuple(by_name[nm] for nm in names)
+            if "scan" in region.meta:
+                scan = next(n for n in nodes if sim.is_scan(n))
+                sites.append(_scan_binding(region, scan))
+                continue
             ins, outs = span_io(nodes)
             after = max((order[n] for n in ins), default=-1)
             anchor = next(n for n in nodes if order[n] > after)
@@ -209,6 +261,8 @@ class SubstitutionEngine:
                 outs = [g.call_function(operator.getitem, (call, i))
                         for i in range(len(site.out_nodes))]
             for old, new in zip(site.out_nodes, outs):
+                if old is None:
+                    continue
                 val_map[old].replace_all_uses_with(
                     new, delete_user_cb=lambda user: user not in span)
             for n in reversed(nodes):
@@ -268,7 +322,10 @@ class SubstitutionEngine:
         ins, ref_outs = self._site_values(site)
         with torch.no_grad():
             got = adapter(*ins)
-        res = _verify(list(ref_outs), list(got), rtol=rtol, atol=atol)
+        used = site.out_used()
+        res = _verify([r for r, u in zip(ref_outs, used) if u],
+                      [g for g, u in zip(got, used) if u],
+                      rtol=rtol, atol=atol)
         record_pattern_outcome(None, site.pattern, chosen,
                                "ok" if res.ok else "verify_fail",
                                region=region)
@@ -277,7 +334,7 @@ class SubstitutionEngine:
     def _site_values(self, site: SiteBinding) -> tuple[list, list]:
         """Concrete values of a site's free inputs and outputs on the
         example arguments, from one interpretation of the reference graph."""
-        wanted = set(site.in_nodes) | set(site.out_nodes)
+        wanted = set(site.in_nodes) | set(site.out_nodes) - {None}
         env: dict = {}
 
         class _Capture(torch.fx.Interpreter):
@@ -291,4 +348,4 @@ class SubstitutionEngine:
         with torch.no_grad():
             _Capture(self.gm).run(*flat)
         return ([env[n] for n in site.in_nodes],
-                [env[n] for n in site.out_nodes])
+                [env.get(n) for n in site.out_nodes])

@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 #: build outputs: ``<checkout>/build/kernels`` (listed in .gitignore).
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-SOURCES = ("rmsnorm", "flash_attention")
+SOURCES = ("rmsnorm", "flash_attention", "rglru_scan", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -7,27 +7,35 @@ PyTorch version (the tests run there); any other device raises.  Nothing
 catches a failed build or launch.
 
 Each wrapper counts its launches in a plain integer attribute
-(``flash_attention.launches``, ``rmsnorm.launches``), incremented where the
-kernel is launched and nowhere else, so a run can show that it went through
-the kernels.
+(``flash_attention.launches``, ``rmsnorm.launches``,
+``rglru_scan.launches``, ``wkv6.launches``), incremented where the kernel
+is launched and nowhere else, so a run can show that it went through the
+kernels.
 
 Layout logic against the reference: the kernel indexes heads through
 strides, so the reference's GQA head flattening (``ops.py:44-47``) and its
 sequence padding to block multiples are gone; the RMSNorm kernel masks the
 ragged row edge itself, so the reference's row-block halving
-(``ops.py:110-112``) is gone too.
+(``ops.py:110-112``) is gone too; the scan kernels mask ragged S and D and
+index (B, S[, H], D) through strides, so the reference's time padding
+(``ops.py:75-76,93-97``), its ``d_block`` fallback (``:77-78``) and its
+head flattening for WKV are gone.  The RG-LRU ``h0`` fold into ``b[:, 0]``
+(``ops.py:71-72``) stays here.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import wkv6 as _wk
 
-__all__ = ["flash_attention", "rmsnorm", "reset_launch_counts",
-           "launch_counts"]
+__all__ = ["flash_attention", "rglru_scan", "rmsnorm", "wkv6",
+           "reset_launch_counts", "launch_counts"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -103,12 +111,72 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
 rmsnorm.launches = 0
 
 
+def _f32_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32 with unit stride along its last dim (a copy only where
+    it is needed)."""
+    x = x if x.dtype == torch.float32 else x.float()
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """log_a, b: (B,S,D); h0: (B,D) or None -> states h (B,S,D) f32."""
+    if log_a.ndim != 3 or b.shape != log_a.shape or (
+            h0 is not None and h0.shape != (log_a.shape[0], log_a.shape[2])):
+        raise ValueError(f"rglru_scan: bad shapes log_a {tuple(log_a.shape)} "
+                         f"b {tuple(b.shape)} h0 "
+                         f"{None if h0 is None else tuple(h0.shape)}")
+    if _route(log_a, b, *(() if h0 is None else (h0,))) == "plain":
+        return _rg.rglru_scan_plain(log_a, b, h0)
+    la, bb = _f32_rows(log_a), _f32_rows(b)
+    if h0 is not None:                    # fold h0 into b[:, 0]
+        bb = bb.clone()
+        bb[:, 0] += torch.exp(la[:, 0]) * h0.float()
+    out = torch.empty(la.shape, dtype=torch.float32, device=la.device)
+    if out.numel() > 0:
+        _rg.launch(la, bb, out)
+        rglru_scan.launches += 1
+    return out
+
+
+rglru_scan.launches = 0
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         log_w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """r/k/v/log_w: (B,S,H,D); u: (H,D) -> y (B,S,H,D) f32."""
+    if r.ndim != 4 or not r.shape == k.shape == v.shape == log_w.shape \
+            or u.shape != r.shape[2:]:
+        raise ValueError(f"wkv6: bad shapes r {tuple(r.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} log_w "
+                         f"{tuple(log_w.shape)} u {tuple(u.shape)}")
+    if _route(r, k, v, log_w, u) == "plain":
+        return _wk.wkv6_plain(r, k, v, log_w, u)
+    d = r.shape[3]
+    if d not in _wk.HEAD_DIMS:
+        raise ValueError(f"wkv6 kernel takes head dims {_wk.HEAD_DIMS}, "
+                         f"got {d}")
+    if r.shape[0] > 65535:
+        raise ValueError(f"wkv6 kernel takes B <= 65535, got {r.shape[0]}")
+    r, k, v, log_w = map(_f32_rows, (r, k, v, log_w))
+    u = u.float().contiguous()
+    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    if out.numel() > 0:
+        _wk.launch(r, k, v, log_w, u, out)
+        wkv6.launches += 1
+    return out
+
+
+wkv6.launches = 0
+
+_COUNTED = (flash_attention, rmsnorm, rglru_scan, wkv6)
+
+
 def reset_launch_counts() -> None:
     """Set every wrapper's launch count to 0."""
-    flash_attention.launches = 0
-    rmsnorm.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"flash_attention": flash_attention.launches,
-            "rmsnorm": rmsnorm.launches}
+    return {fn.__name__: fn.launches for fn in _COUNTED}

@@ -1,5 +1,6 @@
-"""Port of ``repro/kernels/registry.py`` for the ``softmax_attention`` and
-``rmsnorm`` patterns: pattern-DB entries -> executable variants.
+"""Port of ``repro/kernels/registry.py`` for the ``softmax_attention``,
+``rmsnorm``, ``linear_recurrence`` and ``wkv_recurrence`` patterns:
+pattern-DB entries -> executable variants.
 
 Each pattern maps to an ordered set of :class:`Variant`\\ s — ``fused_torch``
 (the system's own fused PyTorch rewrite, counterpart of ``fused_jnp``) and
@@ -15,7 +16,8 @@ and which outputs are used, and either returns an adapter whose outputs
 match the site's, or raises :class:`VariantUnavailable` with the reason —
 the substitution report then records the fallback to the reference path.
 The ``cuda`` variants reject what their kernels do not take (head dims that
-are not multiples of 8 up to 256, dtypes other than f32/bf16).
+are not multiples of 8 up to 256, dtypes other than f32/bf16, WKV head dims
+other than 16/32/64).
 """
 from __future__ import annotations
 
@@ -54,9 +56,14 @@ class CallSite:
     """What a variant binds against: one matched region, concretized.
 
     ``kind`` is ``"span"`` (a run of ``call_function`` nodes of the export
-    graph).  ``in_avals`` follow the span's inputs in first-use order (NOT
-    the module's call order — see :func:`_attention_roles`), ``out_avals``
-    its outputs in graph order.  ``nodes``/``in_nodes`` are the FX nodes, for
+    graph) or ``"scan"`` (a ``scan`` node).  A span's ``in_avals`` follow its
+    inputs in first-use order (NOT the module's call order — see
+    :func:`_attention_roles`), ``out_avals`` its outputs in graph order; a
+    scan's follow the reference's ``[consts..., carry..., xs...]`` in and
+    ``[carry..., ys...]`` out, with ``params`` holding ``num_consts``,
+    ``num_carry``, ``reverse`` and ``zero_init`` (the initial carry is a
+    ``zeros`` node).  ``out_used[i]`` is False when output ``i`` is dropped
+    by the program.  ``nodes``/``in_nodes`` are the FX nodes, for
     structural operand-role inference.
     """
 
@@ -345,6 +352,132 @@ def _bind_rmsnorm_cuda(site: CallSite):
 
 
 # ---------------------------------------------------------------------------
+# linear_recurrence: scan of h = exp(log_a) * h + b, ys = h
+# ---------------------------------------------------------------------------
+
+
+def _recurrence_site(site: CallSite):
+    _require(site.kind == "scan", "linear_recurrence binds scan sites")
+    _require(site.params.get("num_consts") == 0
+             and site.params.get("num_carry") == 1,
+             "expected scan(carry, (log_a, b))")
+    _require(not site.params.get("reverse"), "reverse scan unsupported")
+    _require(len(site.in_avals) == 3, "expected (h0, log_a, b)")
+    _require(len(site.out_avals) == 2, "expected (h_final, ys) outputs")
+    h0, la, b = site.in_avals
+    _require(_floats((h0, la, b)), "needs floating inputs")
+    _require(la.shape == b.shape and la.ndim in (2, 3),
+             "xs must be equal-shaped (S,D) or (S,B,D)")
+    _require(h0.shape == la.shape[1:], "carry must match one timestep")
+    ys = site.out_avals[1]
+    _require(ys.shape == la.shape, "ys must be xs-shaped")
+    return h0, la, b, site.out_avals
+
+
+def _recurrence_fn(site: CallSite, kernel: Callable):
+    """Shared adapter: time-major scan xs -> the (B,S,D) kernels and back.
+
+    ``kernel(log_a, b, h0) -> hs`` over batch-major (B,S,D) views (no copy:
+    the wrappers index through strides); the final carry is served from
+    ``hs[:, -1]`` (valid because the pattern's ys *is* the carry), so a
+    downstream use of the scan's carry output still works.
+    """
+    h0_av, la_av, _, out_avals = _recurrence_site(site)
+    batched = la_av.ndim == 3          # (S,B,D) time-major
+
+    def fn(h0, la, b):
+        if batched:
+            la_b, b_b, h0_b = la.transpose(0, 1), b.transpose(0, 1), h0
+        else:
+            la_b, b_b, h0_b = la[None], b[None], h0[None]
+        hs = kernel(la_b, b_b, h0_b)
+        carry = hs[:, -1] if batched else hs[0, -1]
+        ys = hs.transpose(0, 1) if batched else hs[0]
+        return (_cast(carry, out_avals[0]) if site.out_used[0] else None,
+                _cast(ys, out_avals[1]) if site.out_used[1] else None)
+    return fn
+
+
+def _bind_recurrence_fused(site: CallSite):
+    """The step oracle in f32, ``h0`` folded into ``b[:, 0]``."""
+    from repro_torch.kernels import ref
+
+    def kernel(la, b, h0):
+        b = b.float().clone()          # the scan math is f32 anyway
+        b[:, 0] += torch.exp(la[:, 0].float()) * h0
+        return ref.rglru_scan_ref(la, b)
+    return _recurrence_fn(site, kernel)
+
+
+def _bind_recurrence_cuda(site: CallSite):
+    from repro_torch.kernels import ops
+
+    zero_init = bool(site.params.get("zero_init"))
+
+    def kernel(la, b, h0):
+        # a zeros initial carry needs no fold into b[:, 0]
+        return ops.rglru_scan(la, b, None if zero_init else h0)
+    return _kernel_adapter(_recurrence_fn(site, kernel), site)
+
+
+# ---------------------------------------------------------------------------
+# wkv_recurrence: scan of the RWKV6 state update with bonus u
+# ---------------------------------------------------------------------------
+
+
+def _wkv_site(site: CallSite):
+    _require(site.kind == "scan", "wkv_recurrence binds scan sites")
+    _require(site.params.get("num_consts") == 1
+             and site.params.get("num_carry") == 1,
+             "expected scan(u; state, (r, k, v, log_w))")
+    _require(not site.params.get("reverse"), "reverse scan unsupported")
+    _require(len(site.in_avals) == 6, "expected (u, s0, r, k, v, log_w)")
+    _require(len(site.out_avals) == 2, "expected (s_final, ys) outputs")
+    u, s0, r, k, v, lw = site.in_avals
+    _require(_floats(site.in_avals), "needs floating inputs")
+    _require(r.ndim == 2 and r.shape == k.shape == v.shape == lw.shape,
+             "xs must be equal-shaped (S,D)")
+    d = r.shape[1]
+    _require(u.shape == (d,) and s0.shape == (d, d),
+             "bonus (D,) and state (D,D) expected")
+    _require(not site.out_used[0],
+             "the kernels do not produce the final state")
+    _require(bool(site.params.get("zero_init")),
+             "the kernels start from a zero state")
+    ys = site.out_avals[1]
+    _require(ys.shape == r.shape, "ys must be (S,D)")
+    return site.out_avals
+
+
+def _bind_wkv_fused(site: CallSite):
+    """The step oracle in f32."""
+    from repro_torch.kernels import ref
+
+    out_avals = _wkv_site(site)
+
+    def fn(u, s0, r, k, v, lw):
+        ys = ref.wkv6_ref(r[None], k[None], v[None], lw[None], u[None, None])
+        return (None, _cast(ys[0], out_avals[1]))
+    return fn
+
+
+def _bind_wkv_cuda(site: CallSite):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv6 import HEAD_DIMS
+
+    out_avals = _wkv_site(site)
+    d = site.in_avals[2].shape[1]
+    _require(d in HEAD_DIMS,
+             f"cuda wkv6 kernel takes head dims {HEAD_DIMS}, not {d}")
+
+    def fn(u, s0, r, k, v, lw):
+        ys = ops.wkv6(r[None, :, None, :], k[None, :, None, :],
+                      v[None, :, None, :], lw[None, :, None, :], u[None])
+        return (None, _cast(ys[0, :, 0, :], out_avals[1]))
+    return _kernel_adapter(fn, site)
+
+
+# ---------------------------------------------------------------------------
 # the default registry
 # ---------------------------------------------------------------------------
 
@@ -361,6 +494,8 @@ def default_registry() -> KernelRegistry:
     for pattern, fused, cuda in (
         ("softmax_attention", _bind_attention_fused, _bind_attention_cuda),
         ("rmsnorm", _bind_rmsnorm_fused, _bind_rmsnorm_cuda),
+        ("linear_recurrence", _bind_recurrence_fused, _bind_recurrence_cuda),
+        ("wkv_recurrence", _bind_wkv_fused, _bind_wkv_cuda),
     ):
         reg.register(Variant(pattern, "fused_torch", fused,
                              "fused PyTorch rewrite"))

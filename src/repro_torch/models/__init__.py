@@ -1,2 +1,4 @@
-"""Port of ``repro/models``: the dense decoder block of this slice
-(``transformer.DenseBlock``), its layers and the JAX-parameter converter."""
+"""Port of ``repro/models``: the dense decoder block of slice 1
+(``transformer.DenseBlock``), the RG-LRU sublayer of slice 2
+(``transformer.RecurrentSublayer``, ``rglru``), their layers and the
+JAX-parameter converters."""

@@ -1,5 +1,5 @@
-"""Port of ``repro/models/layers.py``: ``rmsnorm_ref`` (and the ``RMSNorm``
-submodule around it), ``apply_rope`` and ``mlp_ref``.
+"""Port of ``repro/models/layers.py``: ``dense_init``, ``rmsnorm_ref`` (and
+the ``RMSNorm`` submodule around it), ``apply_rope`` and ``mlp_ref``.
 
 Casts to the dtype a tensor already has are skipped: under ``torch.export``
 a no-op ``.float()`` returns the same tensor, and later uses of the input
@@ -8,17 +8,28 @@ region.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["RMSNorm", "apply_rope", "cast", "mlp_ref", "rmsnorm_ref",
-           "rope_freqs"]
+__all__ = ["RMSNorm", "apply_rope", "cast", "dense_init", "mlp_ref",
+           "rmsnorm_ref", "rope_freqs"]
 
 
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x.to(dtype)``, or ``x`` itself when it has that dtype already."""
     return x if x.dtype == dtype else x.to(dtype)
+
+
+def dense_init(shape: tuple, generator: torch.Generator,
+               in_axis: int = -2) -> torch.Tensor:
+    """The reference's ``dense_init``: a normal truncated to +-2 std, scaled
+    by 1/sqrt(fan_in), f32 on the CPU."""
+    w = nn.init.trunc_normal_(torch.empty(shape), std=1.0, a=-2.0, b=2.0,
+                              generator=generator)
+    return w / math.sqrt(shape[in_axis])
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,

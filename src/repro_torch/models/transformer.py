@@ -1,12 +1,17 @@
 """Port of ``repro/models/transformer.py``: :class:`DenseBlock`, one dense
 decoder block in full-sequence mode — the counterpart of
 ``_dense_block_full`` under ``REFERENCE_PLAN`` (RMSNorm, qk-norm, RoPE,
-causal GQA attention, SwiGLU MLP, two residuals).  The rest of the model
-(embedding, layer stack, LM head, caches) comes with later slices.
+causal GQA attention, SwiGLU MLP, two residuals) — and
+:class:`RecurrentSublayer`, a hybrid model's RG-LRU sublayer, the
+counterpart of ``_rglru_sublayer_full`` (RMSNorm, RG-LRU block, residual,
+RMSNorm, gated MLP, residual) from a zero state.  The rest of the model
+(embedding, layer stack, local-attention sublayers, LM head, caches and
+decode state) comes with later slices.
 
-``RMSNorm`` and ``Attention`` are submodules, so the export frontend
-isolates them as regions; the projection and MLP weights sit on the block
-in the reference's (in, out) layout.
+``RMSNorm``, ``Attention`` and the RG-LRU's ``LinearRecurrence`` are
+submodules, so the export frontend isolates them as regions; the
+projection and MLP weights sit on the block in the reference's (in, out)
+layout.
 """
 from __future__ import annotations
 
@@ -17,9 +22,10 @@ import torch
 from torch import nn
 
 from repro_torch.models.attention import Attention, project_qkv
-from repro_torch.models.layers import RMSNorm, mlp_ref
+from repro_torch.models.layers import RMSNorm, dense_init, mlp_ref
+from repro_torch.models.rglru import LinearRecurrence, rglru_block, rglru_init
 
-__all__ = ["DenseBlock", "INIT_STD"]
+__all__ = ["DenseBlock", "INIT_STD", "RecurrentSublayer"]
 
 #: weight init std: Qwen3's published ``initializer_range``
 INIT_STD = 0.02
@@ -74,5 +80,53 @@ class DenseBlock(nn.Module):
         positions = torch.arange(s, device=x.device)
         q, k, v = project_qkv(self.ln1(x), self, self.cfg, positions)
         x = x + self.attn(q, k, v).reshape(b, s, -1) @ self.wo
+        return x + mlp_ref(self.ln2(x), self.w_gate, self.w_up, self.w_down,
+                           self.cfg.mlp_act)
+
+
+class RecurrentSublayer(nn.Module):
+    """One RG-LRU sublayer of a hybrid model at ``cfg``'s widths: ``x +
+    rglru(ln1(x))``, then ``+ mlp(ln2(x))``, from a zero recurrence state.
+
+    Runs on ``cuda`` unless ``device="cpu"`` is asked for (raises when CUDA
+    is wanted and absent).  Weights are drawn from ``generator`` (a CPU
+    ``torch.Generator``; seed 0 when None) in the shapes and distributions
+    of the reference's ``rglru_init`` and ``mlp_init``, except that the two
+    projections that write into the residual stream (``rglru.w_out``,
+    ``w_down``) are scaled by 1/sqrt(2 * n_layers), as in
+    :class:`DenseBlock`: it keeps the sublayer's outputs where bf16
+    resolves the verifier's 1e-2.  ``rglru.lam`` stays f32, as in the
+    reference; norm scales start at zero.
+    """
+
+    def __init__(self, cfg, *, dtype: torch.dtype = torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        from repro_torch.core.frontends.export_frontend import resolve_device
+
+        super().__init__()
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        d, ff = cfg.d_model, cfg.d_ff
+        out_scale = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
+
+        def param(w, dt=dtype):
+            return nn.Parameter(w.to(device=dev, dtype=dt))
+
+        self.ln1 = RMSNorm(d, cfg.norm_eps, dtype=dtype, device=dev)
+        rg = rglru_init(cfg, generator)
+        rg["w_out"] = rg["w_out"] * out_scale
+        self.rglru = nn.ParameterDict(
+            {k: param(w, torch.float32 if k == "lam" else dtype)
+             for k, w in rg.items()})
+        self.scan = LinearRecurrence()
+        self.ln2 = RMSNorm(d, cfg.norm_eps, dtype=dtype, device=dev)
+        self.w_gate = param(dense_init((d, ff), generator))
+        self.w_up = param(dense_init((d, ff), generator))
+        self.w_down = param(dense_init((ff, d), generator) * out_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + rglru_block(self.ln1(x), self.rglru, self.cfg, self.scan)
         return x + mlp_ref(self.ln2(x), self.w_gate, self.w_up, self.w_down,
                            self.cfg.mlp_act)

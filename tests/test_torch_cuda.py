@@ -13,7 +13,9 @@ import numpy as np  # noqa: E402
 
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import rglru_scan as trg  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
+from repro_torch.kernels import wkv6 as twk  # noqa: E402
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -87,3 +89,72 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, n, d, dtype):
     torch.testing.assert_close(got.float(),
                                trn.rmsnorm_plain(x, s).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d", [(1, 64, 128), (2, 1000, 384), (3, 33, 130),
+                                   (1, 1, 5), (2, 2048, 2560)])
+@pytest.mark.parametrize("h0", [False, True])
+def test_rglru_kernel_matches_plain_on_card(cuda, b, s, d, h0):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    la = (-torch.randn(b, s, d, generator=g).abs() * 0.2).to(cuda)
+    bb = (torch.randn(b, s, d, generator=g) * 0.5).to(cuda)
+    h = torch.randn(b, d, generator=g).to(cuda) if h0 else None
+    before = tops.rglru_scan.launches
+    got = tops.rglru_scan(la, bb, h)
+    torch.cuda.synchronize()
+    assert tops.rglru_scan.launches == before + 1
+    torch.testing.assert_close(got, trg.rglru_scan_plain(la, bb, h),
+                               atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_rglru_kernel_takes_strided_time_major_views_on_card(cuda):
+    """The scan site's (B,S,D) views of time-major (S,B,D) storage, and a
+    bf16 input (cast to f32 by the wrapper)."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    la = (-torch.rand(777, 3, 200, generator=g)).to(cuda).transpose(0, 1)
+    bb = torch.randn(777, 3, 200, generator=g).to(cuda).transpose(0, 1)
+    got = tops.rglru_scan(la, bb)
+    torch.testing.assert_close(got, trg.rglru_scan_plain(la, bb),
+                               atol=1e-5, rtol=1e-4)
+    got16 = tops.rglru_scan(la, bb.to(torch.bfloat16))
+    torch.testing.assert_close(
+        got16, trg.rglru_scan_plain(la, bb.to(torch.bfloat16)),
+        atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d", [(1, 64, 2, 64), (1, 1000, 2, 32),
+                                     (2, 97, 3, 16), (1, 4096, 1, 64),
+                                     (2, 2048, 40, 64)])
+@pytest.mark.parametrize("strong", [False, True])
+def test_wkv6_kernel_matches_plain_on_card(cuda, b, s, h, d, strong):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    r, k, v = ((torch.randn(b, s, h, d, generator=g) * 0.5).to(cuda)
+               for _ in range(3))
+    lw = torch.full((b, s, h, d), -np.exp(2.0)) if strong \
+        else -torch.randn(b, s, h, d, generator=g).abs() * 0.3
+    u = (torch.randn(h, d, generator=g) * 0.1).to(cuda)
+    before = tops.wkv6.launches
+    got = tops.wkv6(r, k, v, lw.to(cuda), u)
+    torch.cuda.synchronize()
+    assert tops.wkv6.launches == before + 1
+    want = twk.wkv6_plain(r, k, v, lw.to(cuda), u)
+    assert torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_takes_strided_inputs_on_card(cuda):
+    """r/k/v/log_w as slices of one fused projection (strided)."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    b, s, h, d = 2, 300, 4, 64
+    fused = torch.randn(b, s, h, 4 * d, generator=g).to(cuda) * 0.5
+    r, k, v, w = fused.split(d, dim=-1)
+    lw = -w.abs()
+    u = (torch.randn(h, d, generator=g) * 0.1).to(cuda)
+    assert not r.is_contiguous()
+    torch.testing.assert_close(tops.wkv6(r, k, v, lw, u),
+                               twk.wkv6_plain(r, k, v, lw, u),
+                               atol=5e-5, rtol=1e-3)

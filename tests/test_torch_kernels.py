@@ -140,7 +140,8 @@ def test_cpu_tensors_take_plain_version_without_counting():
     tops.rmsnorm(x, torch.zeros(16))
     tops.flash_attention(x.reshape(1, 4, 1, 16), x.reshape(1, 4, 1, 16),
                          x.reshape(1, 4, 1, 16))
-    assert tops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    assert tops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
+                                    "rglru_scan": 0, "wkv6": 0}
 
 
 def test_wrappers_reject_bad_shapes():

@@ -110,7 +110,8 @@ def test_forced_all_kernel_plan_binds_cuda_at_all_five_sites(case):
     ops.reset_launch_counts()
     np.testing.assert_allclose(sub(x).numpy(), want, atol=1e-4, rtol=1e-4)
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
+                                   "rglru_scan": 0, "wkv6": 0}
 
 
 def test_first_generation_tries_the_kernel_at_attention_and_norm(case):
