@@ -12,7 +12,14 @@ Phases, in order; any failure exits non-zero before the last line:
    of 25 launches, L2 flushed before each; the plain scan loops, median of
    5), the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one (``library_ms``, timed
-   here only), and its bound on an H100 SXM;
+   here only), and its bound on an H100 SXM.  Flash-attention rows name the
+   kernel path each launch took (``wgmma``, ``mma``, ``scalar``) and its
+   design, the worst relative error of a (batch, head, 128-query-row)
+   block beside the element-wise one, and on the ``wgmma`` path the host
+   time of a call (the wrapper, the bare launch, and the encoding of its
+   three tensor maps alone); WKV-6 rows name the design, time each of its
+   launches, and run
+   decays at the model's clamp and past it (log_w = -20 every step);
 3. the main paths, each through ``Offloader.plan`` with the launch
    counters set to 0 just before it and read just after.  Each plan must
    verify; the forced all-kernel plan must bind the CUDA kernels at every
@@ -20,7 +27,8 @@ Phases, in order; any failure exits non-zero before the last line:
    selects a kernel may have failed with an error; then, for the
    all-reference program, the plan's winner and the all-kernel program,
    where one forward's time goes (``torch.profiler``: device time, idle
-   share, top kernels).
+   share, top kernels), and the device's span of one forward by CUDA
+   events.  On path Q every flash launch must have taken the wgmma path.
 
    - Q: one full-width Qwen3-0.6B dense block (d_model 1024, 16 q / 8 kv
      heads, head_dim 128, d_ff 3072) in bf16 at batch 2 x 2048 tokens, GA
@@ -40,6 +48,7 @@ Needs a CUDA device; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import shutil
@@ -63,7 +72,9 @@ from repro_torch.core.ga import GAConfig  # noqa: E402
 from repro_torch.core.offload import OffloadConfig, Offloader  # noqa: E402
 from repro_torch.core.verifier import verify  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    block_rel_err, flash_attention_plain, select_path)
+from repro_torch.kernels.flash_attention import launch as flash_launch  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6_plain  # noqa: E402
@@ -85,6 +96,18 @@ REPEATS = 25
 PLAIN_SCAN_REPEATS = 5
 #: the RWKV-6 time-mix clamps its decay at -exp(2) a step (``rwkv.py:239``)
 STRONG_LOG_W = -math.exp(2.0)
+#: a decay far past the clamp, where exp(-cumsum log_w) overflows f32 after
+#: five steps
+EXTREME_LOG_W = -20.0
+#: what each flash-attention path is (``csrc/flash_attention.cu``)
+FLASH_DESIGNS = {
+    "wgmma": "TMA + wgmma, producer/2-consumer warpgroups, 128x128 tiles, "
+             "3-stage K/V ring",
+    "mma": "mma.sync m16n8k16 + cp.async double buffer, 64-row tiles, "
+           "head dim 32",
+    "scalar": "f32 FMA, 64-row tiles"}
+WKV_DESIGN = ("chunk-parallel: 64-step chunks, 16-step sub-chunks, chunk "
+              "states + state pass, 3 launches")
 
 
 def check(cond: bool, what: str) -> None:
@@ -158,19 +181,31 @@ def rmsnorm_case(dev, n, d, dtype, tol, flush, gen):
     return row
 
 
-def flash_case(dev, b, sq, sk, hq, hkv, d, causal, dtype, tol, flush, gen):
+def flash_case(dev, b, sq, sk, hq, hkv, d, causal, dtype, tol, rel_limit,
+               flush, gen):
     q = torch.randn(b, sq, hq, d, generator=gen).to(dev, dtype)
     k = torch.randn(b, sk, hkv, d, generator=gen).to(dev, dtype)
     v = torch.randn(b, sk, hkv, d, generator=gen).to(dev, dtype)
+    before = dict(ops.flash_attention.launches_by_path)
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    path = [p for p, n in ops.flash_attention.launches_by_path.items()
+            if n != before[p]]
+    check(path == [select_path(q, k, v)],
+          f"flash: the launch went through {path}, not "
+          f"{select_path(q, k, v)}")
     want = flash_attention_plain(q, k, v, causal=causal,
                                  scale=1.0 / math.sqrt(d))
-    err = compare(f"flash ({b},{sq},{sk},{hq},{hkv},{d}) causal={causal} "
-                  f"{dtype}", got, want, tol)
+    what = f"flash ({b},{sq},{sk},{hq},{hkv},{d}) causal={causal} {dtype}"
+    err = compare(what, got, want, tol)
+    rel = block_rel_err(got, want)
+    check(rel <= rel_limit,
+          f"{what}: block relative err {rel} above {rel_limit}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     row = {"shape": [b, sq, sk, hq, hkv, d], "causal": causal,
-           "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+           "dtype": str(dtype).split(".")[-1], "path": path[0],
+           "design": FLASH_DESIGNS[path[0]], "max_abs_err": err,
+           "block_rel_err": rel, "block_rel_limit": rel_limit,
            "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
                          flush),
            "plain_ms": time_ms(lambda: flash_attention_plain(
@@ -183,7 +218,50 @@ def flash_case(dev, b, sq, sk, hq, hkv, d, causal, dtype, tol, flush, gen):
     n_bytes = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * q.element_size()
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, flops, peak)
+    if path == ["wgmma"]:
+        # host time of one call: the wrapper, the bare launch (three
+        # tensor-map encodings and the launch), and the encodings alone
+        out = torch.empty_like(q)
+        scale = 1.0 / math.sqrt(d)
+        row["host_us"] = {
+            "wrapper": host_us(lambda: ops.flash_attention(q, k, v,
+                                                           causal=causal)),
+            "launch_wgmma": host_us(lambda: flash_launch(
+                q, k, v, out, causal=causal, scale=scale, path="wgmma")),
+            "encode_maps": encode_maps_us(q, k, v)}
     return row
+
+
+def encode_maps_us(q, k, v, reps: int = 1000) -> float:
+    """Host time of encoding the wgmma path's three tensor maps (µs, mean
+    of ``reps`` inside one C call, so no ctypes cost is in it)."""
+    fn = build.library("flash_attention").flash_attention_encode_maps
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int])
+    fn.restype = ctypes.c_int
+    b, sq, hq, d = q.shape
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), b, hq, k.shape[2], sq,
+            k.shape[1], d, *(s for t in (q, k, v) for s in t.stride()[:3]))
+    check(fn(*args, 1) == 0, "flash: tensor-map encoding failed")
+    t0 = time.perf_counter()
+    err = fn(*args, reps)
+    elapsed = time.perf_counter() - t0
+    check(err == 0, "flash: tensor-map encoding failed")
+    return elapsed / reps * 1e6
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one call of ``fn`` (µs, mean of ``calls``), enqueued
+    behind a ~25 ms GPU spin so that no call waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
 
 
 def rglru_case(dev, b, s, d, *, h0, time_major, flush, gen):
@@ -215,30 +293,49 @@ def rglru_case(dev, b, s, d, *, h0, time_major, flush, gen):
     return row
 
 
-def wkv6_case(dev, b, s, h, d, *, strong, flush, gen):
+def wkv6_case(dev, b, s, h, d, *, log_w, flush, gen):
     """WKV-6 at (b, s, h, d) f32, drawn as the reference's sweep draws
-    (``tests/test_kernels.py``); ``strong`` puts log_w at the model's clamp,
-    -exp(2), at every step."""
+    (``tests/test_kernels.py``); a number ``log_w`` puts the decay there at
+    every step (the model's clamp, -exp(2), or past it)."""
     r, k, v = ((torch.randn(b, s, h, d, generator=gen) * 0.5).to(dev)
                for _ in range(3))
-    lw = torch.full((b, s, h, d), STRONG_LOG_W) if strong \
+    lw = torch.full((b, s, h, d), log_w) if log_w is not None \
         else -torch.randn(b, s, h, d, generator=gen).abs() * 0.3
     lw = lw.to(dev)
     u = (torch.randn(h, d, generator=gen) * 0.1).to(dev)
     got = ops.wkv6(r, k, v, lw, u)
     torch.cuda.synchronize()
-    err = compare(f"wkv6 ({b},{s},{h},{d}) strong={strong}", got,
+    err = compare(f"wkv6 ({b},{s},{h},{d}) log_w={log_w}", got,
                   wkv6_plain(r, k, v, lw, u), 5e-5, 1e-3)
-    row = {"shape": [b, s, h, d], "strong_decay": strong, "max_abs_err": err,
+    row = {"shape": [b, s, h, d], "log_w": log_w, "design": WKV_DESIGN,
+           "max_abs_err": err,
            "ms": time_ms(lambda: ops.wkv6(r, k, v, lw, u), flush),
            "plain_ms": time_ms(lambda: wkv6_plain(r, k, v, lw, u), flush,
                                PLAIN_SCAN_REPEATS),
            "library_ms": None}
+    row["launch_us"] = launch_breakdown_us(lambda: ops.wkv6(r, k, v, lw, u))
     n = b * s * h * d
     # the step form: about 4 f32 operations per state entry per step
     row["bound_ms"], row["bound_by"] = bound_ms(
         5 * n * 4 + h * d * 4, 4.0 * n * d, PEAK_F32_FLOPS)
     return row
+
+
+def launch_breakdown_us(fn, calls: int = 5) -> dict:
+    """Device time of each kernel one call of ``fn`` launches (µs a call,
+    ``torch.profiler`` over ``calls`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    def short(key):
+        key = key.replace("void ", "").replace("(anonymous namespace)::", "")
+        return key.split("(")[0][:48]
+    return {short(e.key): e.self_device_time_total / calls
+            for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
 def _entry(name, path_row, **extra):
@@ -272,13 +369,19 @@ def phase_kernels(dev) -> dict:
             rmsnorm_case(dev, n, d, f32, 1e-5, flush, gen)), flush=True)
 
     path_flash = flash_case(dev, BATCH, SEQ, SEQ, nq, nkv, hd, True, bf16,
-                            2e-2, flush, gen)
+                            2e-2, 1e-2, flush, gen)
     print("flash    ", json.dumps(path_flash), flush=True)
+    for case in [(2, 1000, 1000, 4, 2, 128, True),    # ragged S=1000
+                 (2, 130, 70, 4, 2, 64, True),        # Sq != Sk, hd 64
+                 (2, 512, 512, 4, 2, 64, False),      # non-causal
+                 (2, 1000, 1000, 4, 2, 32, True)]:    # hd 32: the mma path
+        print("flash    ", json.dumps(
+            flash_case(dev, *case, bf16, 2e-2, 1e-2, flush, gen)), flush=True)
     for case in [(1, 512, 512, 8, 1, 128, True),      # MQA
                  (2, 1000, 1000, 4, 2, 128, True),    # ragged S=1000
                  (2, 512, 512, 4, 2, 64, False)]:     # non-causal
         print("flash    ", json.dumps(
-            flash_case(dev, *case, f32, 2e-5, flush, gen)), flush=True)
+            flash_case(dev, *case, f32, 2e-5, 1e-4, flush, gen)), flush=True)
 
     path_rglru = rglru_case(dev, BATCH, SEQ, rg.d_rnn_resolved, h0=False,
                             time_major=True, flush=flush, gen=gen)
@@ -289,18 +392,22 @@ def phase_kernels(dev) -> dict:
             dev, b, s, d, h0=h0, time_major=False, flush=flush, gen=gen)),
             flush=True)
 
-    path_wkv = wkv6_case(dev, 1, WKV_SEQ, 1, WKV_DIM, strong=False,
+    path_wkv = wkv6_case(dev, 1, WKV_SEQ, 1, WKV_DIM, log_w=None,
                          flush=flush, gen=gen)
     print("wkv6     ", json.dumps(path_wkv), flush=True)
     rwkv = get_config("rwkv6_3b")
     full_wkv = wkv6_case(dev, BATCH, SEQ, rwkv.d_model // rwkv.rwkv_head_dim,
-                         rwkv.rwkv_head_dim, strong=False, flush=flush,
+                         rwkv.rwkv_head_dim, log_w=None, flush=flush,
                          gen=gen)
     print("wkv6     ", json.dumps(full_wkv), flush=True)
-    for b, s, h, d, strong in [(1, 1000, 2, 32, False),   # ragged S, D=32
-                               (1, 1024, 2, 64, True)]:   # decay at the clamp
+    for b, s, h, d, log_w in [
+            (1, 1000, 2, 32, None),                  # ragged S, D=32
+            (1, 1024, 2, 64, STRONG_LOG_W),          # decay at the clamp
+            (1, WKV_SEQ, 1, WKV_DIM, STRONG_LOG_W),  # path W's shape, clamp
+            (1, WKV_SEQ, 1, WKV_DIM, EXTREME_LOG_W),
+            (2, 1000, 3, 16, EXTREME_LOG_W)]:        # D=16, past the clamp
         print("wkv6     ", json.dumps(wkv6_case(
-            dev, b, s, h, d, strong=strong, flush=flush, gen=gen)),
+            dev, b, s, h, d, log_w=log_w, flush=flush, gen=gen)),
             flush=True)
 
     def total(key, calls):
@@ -319,15 +426,20 @@ def phase_kernels(dev) -> dict:
         path_r={"per_sublayer_forward": [list(nd) for nd in path_r_norms],
                 **norm_sums(path_r_norms)})
     flash_entry = _entry("flash_attention", path_flash,
-                         replaces="src/repro/kernels/flash_attention.py:73")
+                         replaces="src/repro/kernels/flash_attention.py:73",
+                         shape=path_flash["shape"], path=path_flash["path"],
+                         design=path_flash["design"],
+                         block_rel_err=path_flash["block_rel_err"],
+                         host_us=path_flash["host_us"])
     rglru_entry = _entry("rglru_scan", path_rglru,
                          replaces="src/repro/kernels/rglru_scan.py:55",
                          shape=path_rglru["shape"])
     wkv_entry = _entry("wkv6", path_wkv, replaces="src/repro/kernels/wkv6.py:68",
-                       shape=path_wkv["shape"],
+                       shape=path_wkv["shape"], design=WKV_DESIGN,
+                       launch_us=path_wkv["launch_us"],
                        full_width={k: full_wkv[k] for k in (
                            "shape", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by")})
+                           "bound_ms", "bound_by", "launch_us")})
     return {"flash_attention": flash_entry, "rmsnorm": rms_entry,
             "rglru_scan": rglru_entry, "wkv6": wkv_entry}
 
@@ -417,11 +529,17 @@ def phase_path(label, dev, scratch: Path) -> dict:
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    print(f"path {label} launches:", json.dumps(launches), flush=True)
+    flash_paths = dict(ops.flash_attention.launches_by_path)
+    print(f"path {label} launches:", json.dumps(launches),
+          "flash by kernel path:", json.dumps(flash_paths), flush=True)
     for name in kernels:
         check(launches[name] > 0,
               f"path {label}: the {name} kernel was never launched by the "
               f"search")
+    if "flash_attention" in kernels:
+        check(flash_paths["wgmma"] == launches["flash_attention"],
+              f"path {label}: flash launches went through {flash_paths}, "
+              f"not all through the wgmma path")
 
     check(res.verification["verified"], f"path {label}: the winning plan "
                                         f"did not verify")
@@ -474,14 +592,14 @@ def phase_path(label, dev, scratch: Path) -> dict:
         "s_per_chromosome": res.ga.eval_wall_s / max(res.ga.evaluations, 1),
         "plan_s": plan_s, "verify_failures": verify_fails,
         "artifact_max_abs": v.max_abs, "forced_max_abs": fv.max_abs,
-        "launches": launches}
+        "launches": launches, "flash_launches_by_kernel_path": flash_paths}
     print(f"path {label}:", json.dumps(summary), flush=True)
     unsubstituted = engine.substitute({})
     for name, fn in (("baseline (all ref)", unsubstituted),
                      ("plan winner", res.artifact), ("all kernels", forced)):
         print(f"where the time goes, path {label}, {name}:",
               json.dumps(where_time_goes(fn, args, iters)), flush=True)
-    return launches
+    return launches, flash_paths
 
 
 def where_time_goes(fn, args, iters: int) -> dict:
@@ -489,7 +607,10 @@ def where_time_goes(fn, args, iters: int) -> dict:
     beside the time ``torch.profiler`` records for the device's own
     activities (kernels, copies, memsets; CPU-side operator rows would count
     their kernels twice), the device's idle share, and the kernels that take
-    the most time."""
+    the most time.  ``event_ms`` is the device's span of one forward by CUDA
+    events, each forward enqueued behind a ~5 ms GPU spin so that the host
+    is ahead and the span holds no host gaps (median of ``iters``); it does
+    not depend on the profiler seeing the kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -501,6 +622,17 @@ def where_time_goes(fn, args, iters: int) -> dict:
         fn(*args)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    spans = []
+    for _ in range(iters):
+        torch.cuda._sleep(10_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    event_ms = statistics.median(spans)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn(*args)
@@ -509,7 +641,8 @@ def where_time_goes(fn, args, iters: int) -> dict:
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / iters / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    return {"wall_ms": wall_ms, "device_ms": device_ms or None,
+    return {"wall_ms": wall_ms, "event_ms": event_ms,
+            "device_ms": device_ms or None,
             "device_idle_share": 1 - device_ms / wall_ms if device_ms else None,
             "device_launches": sum(e.count for e in events) // iters,
             "top_kernels_ms": [[e.key[:60], e.self_device_time_total / iters / 1e3]
@@ -547,7 +680,10 @@ def main() -> int:
         scratch = Path(tempfile.mkdtemp(prefix=f"plan-{label}-",
                                         dir=build.BUILD_DIR))
         try:
-            by_path[label] = phase_path(label, dev, scratch)
+            by_path[label], flash_paths = phase_path(label, dev, scratch)
+            if "flash_attention" in PATHS[label][3]:
+                kernels["flash_attention"]["launches_by_kernel_path"] = \
+                    flash_paths
         finally:
             shutil.rmtree(scratch)
         print(f"path {label} done at {time.perf_counter() - t_start:.1f} s",

@@ -10,7 +10,8 @@ Each wrapper counts its launches in a plain integer attribute
 (``flash_attention.launches``, ``rmsnorm.launches``,
 ``rglru_scan.launches``, ``wkv6.launches``), incremented where the kernel
 is launched and nowhere else, so a run can show that it went through the
-kernels.
+kernels.  ``flash_attention.launches_by_path`` splits its count over the
+kernel's paths (``"wgmma"``, ``"mma"``, ``"scalar"``).
 
 Layout logic against the reference: the kernel indexes heads through
 strides, so the reference's GQA head flattening (``ops.py:44-47``) and its
@@ -76,12 +77,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {b * hq}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
-    _fa.launch(q, k, v, out, causal=causal, scale=scale)
+    path = _fa.select_path(q, k, v)
+    _fa.launch(q, k, v, out, causal=causal, scale=scale, path=path)
     flash_attention.launches += 1
+    flash_attention.launches_by_path[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_path = dict.fromkeys(_fa.PATHS, 0)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
@@ -176,6 +180,7 @@ def reset_launch_counts() -> None:
     """Set every wrapper's launch count to 0."""
     for fn in _COUNTED:
         fn.launches = 0
+    flash_attention.launches_by_path = dict.fromkeys(_fa.PATHS, 0)
 
 
 def launch_counts() -> dict[str, int]:

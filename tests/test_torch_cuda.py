@@ -158,3 +158,104 @@ def test_wkv6_kernel_takes_strided_inputs_on_card(cuda):
     torch.testing.assert_close(tops.wkv6(r, k, v, lw, u),
                                twk.wkv6_plain(r, k, v, lw, u),
                                atol=5e-5, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels: flash attention's wgmma path and the chunked WKV-6
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
+    (2, 2048, 2048, 16, 8, 128, True),     # path Q
+    (2, 256, 256, 4, 2, 64, True), (2, 256, 256, 4, 2, 64, False),
+    (1, 1000, 1000, 4, 1, 128, True),      # ragged S: TMA zero-fill + mask
+    (2, 130, 70, 4, 2, 64, True), (2, 130, 70, 4, 2, 128, False),
+    (1, 70, 130, 2, 1, 128, True)])
+def test_flash_wgmma_path_matches_plain_on_card(cuda, b, sq, sk, hq, hkv, d,
+                                                causal):
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn(b, sq, hq, d, generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn(b, sk, hkv, d, generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn(b, sk, hkv, d, generator=g).to(cuda, torch.bfloat16)
+    assert tfa.select_path(q, k, v) == "wgmma"
+    before = tops.flash_attention.launches_by_path["wgmma"]
+    got = tops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tops.flash_attention.launches_by_path["wgmma"] == before + 1
+    want = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                     scale=1 / np.sqrt(d))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    # scale-aware too: bf16 rounding alone gives about 3e-3
+    assert tfa.block_rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_path_takes_fused_heads_on_card(cuda, d):
+    """q/k/v as head slices of one fused QKV projection: the tensor maps
+    take the strides as they are."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    b, s, hq, hkv = 2, 333, 8, 2
+    qkv = torch.randn(b, s, hq + 2 * hkv, d, generator=g).to(cuda,
+                                                              torch.bfloat16)
+    q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    before = tops.flash_attention.launches_by_path["wgmma"]
+    got = tops.flash_attention(q, k, v, causal=True)
+    assert tops.flash_attention.launches_by_path["wgmma"] == before + 1
+    want = tfa.flash_attention_plain(q, k, v, causal=True,
+                                     scale=1 / np.sqrt(d))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    # scale-aware too: bf16 rounding alone gives about 3e-3
+    assert tfa.block_rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_a_path_the_inputs_do_not_fit_on_card(cuda):
+    q = torch.zeros(1, 64, 2, 40, device=cuda, dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError, match="path wgmma"):
+        tfa.launch(q, q, q, out, causal=True, scale=1.0, path="wgmma")
+    q = torch.zeros(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="path mma"):
+        tfa.launch(q, q, q, torch.empty_like(q), causal=True, scale=1.0,
+                   path="mma")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d", [
+    (1, 1, 1, 16), (1, 63, 2, 32), (1, 65, 1, 64), (2, 1000, 3, 16),
+    (1, 4096, 1, 64), (2, 2048, 40, 64), (1, 1000, 2, 32)])
+@pytest.mark.parametrize("log_w", [None, -np.exp(2.0), -20.0],
+                         ids=["drawn", "clamp", "m20"])
+def test_wkv6_chunked_kernel_matches_plain_on_card(cuda, b, s, h, d, log_w):
+    g = torch.Generator(device="cpu").manual_seed(5)
+    r, k, v = ((torch.randn(b, s, h, d, generator=g) * 0.5).to(cuda)
+               for _ in range(3))
+    lw = torch.full((b, s, h, d), log_w) if log_w is not None \
+        else -torch.randn(b, s, h, d, generator=g).abs() * 0.3
+    u = (torch.randn(h, d, generator=g) * 0.1).to(cuda)
+    before = tops.wkv6.launches
+    got = tops.wkv6(r, k, v, lw.to(cuda), u)
+    torch.cuda.synchronize()
+    assert tops.wkv6.launches == before + 1
+    want = twk.wkv6_plain(r, k, v, lw.to(cuda), u)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_wkv6_chunked_kernel_takes_strided_inputs_on_card(cuda, d):
+    """r/k/v/log_w as slices of one fused projection, across chunks."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    b, s, h = 2, 700, 3
+    fused = torch.randn(b, s, h, 4 * d, generator=g).to(cuda) * 0.5
+    r, k, v, w = fused.split(d, dim=-1)
+    lw = -w.abs() * 4
+    u = (torch.randn(h, d, generator=g) * 0.1).to(cuda)
+    torch.testing.assert_close(tops.wkv6(r, k, v, lw, u),
+                               twk.wkv6_plain(r, k, v, lw, u),
+                               atol=5e-5, rtol=1e-3)
