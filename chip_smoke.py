@@ -6,7 +6,10 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions, and the build of every hand-written kernel from
-   ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together);
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together),
+   then one line a library with each kernel's registers, spills and static
+   shared memory (``ptxas -v``); the RMSNorm and RG-LRU kernels must not
+   spill;
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (and a few edge cases), with its time (CUDA events, median
    of 25 launches, L2 flushed before each; the plain scan loops, median of
@@ -17,9 +20,15 @@ Phases, in order; any failure exits non-zero before the last line:
    design, the worst relative error of a (batch, head, 128-query-row)
    block beside the element-wise one, and on the ``wgmma`` path the host
    time of a call (the wrapper, the bare launch, and the encoding of its
-   three tensor maps alone); WKV-6 rows name the design, time each of its
-   launches, and run
-   decays at the model's clamp and past it (log_w = -20 every step);
+   three tensor maps alone); RMSNorm rows name the variant each launch took
+   (instance and lanes a row); RG-LRU rows name the load route each launch
+   took (``tma``, ``cp_async``) and, forced through every route the inputs
+   allow, each route's time and error; both time beside the kernel one
+   element-wise PyTorch op that moves the same bytes (``same_bytes_ms``: a
+   copy of x; ``h = log_a + b`` on the same views), a yardstick for the
+   bytes under this timing; WKV-6 rows name the design, time each of its
+   launches, and run decays at the model's clamp and past it (log_w = -20
+   every step);
 3. the main paths, each through ``Offloader.plan`` with the launch
    counters set to 0 just before it and read just after.  Each plan must
    verify; the forced all-kernel plan must bind the CUDA kernels at every
@@ -28,7 +37,9 @@ Phases, in order; any failure exits non-zero before the last line:
    all-reference program, the plan's winner and the all-kernel program,
    where one forward's time goes (``torch.profiler``: device time, idle
    share, top kernels), and the device's span of one forward by CUDA
-   events.  On path Q every flash launch must have taken the wgmma path.
+   events.  On path Q every flash launch must have taken the wgmma path;
+   on paths Q and R every RMSNorm launch the variant its width selects,
+   and on path R every RG-LRU launch the ``tma`` route.
 
    - Q: one full-width Qwen3-0.6B dense block (d_model 1024, 16 q / 8 kv
      heads, head_dim 128, d_ff 3072) in bf16 at batch 2 x 2048 tokens, GA
@@ -41,7 +52,8 @@ Phases, in order; any failure exits non-zero before the last line:
    - W: a single-head WKV-6 scan program (the reference's ``_wkv_app``) at
      RWKV-6-3B's head width, D = 64, S = 4096, f32, GA 6 x 3: 1
      ``wkv_recurrence`` site, the WKV-6 kernel;
-4. a ``{"kernels": [...]}`` line, then the last line
+4. a ``{"kernels": [...]}`` line (each RMSNorm and RG-LRU entry carries its
+   per-shape rows beside the path sums), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Needs a CUDA device; without one it exits non-zero and prints no result.
@@ -75,8 +87,10 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     block_rel_err, flash_attention_plain, select_path)
 from repro_torch.kernels.flash_attention import launch as flash_launch  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg_kernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
-from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.rmsnorm import (rmsnorm_plain,  # noqa: E402
+                                         select_variant, variant_name)
 from repro_torch.kernels.wkv6 import wkv6_plain  # noqa: E402
 from repro_torch.models.transformer import (INIT_STD, DenseBlock,  # noqa: E402
                                             RecurrentSublayer)
@@ -108,6 +122,14 @@ FLASH_DESIGNS = {
     "scalar": "f32 FMA, 64-row tiles"}
 WKV_DESIGN = ("chunk-parallel: 64-step chunks, 16-step sub-chunks, chunk "
               "states + state pass, 3 launches")
+RMSNORM_DESIGN = ("rows held in registers, lanes a row matched to the width, "
+                  "scale in registers, grid-stride with the next row group's "
+                  "loads in flight")
+RGLRU_DESIGN = ("one block per (batch row, 32 channels) walks all of S; a "
+                "4-stage ring of 64-step stages filled by TMA or cp.async; 4 "
+                "consumer warps scan 16-step slices and fold their maps")
+#: libraries whose kernels must not spill (the ones this run redesigned)
+NO_SPILL = ("rmsnorm", "rglru_scan")
 
 
 def check(cond: bool, what: str) -> None:
@@ -165,16 +187,25 @@ def compare(what: str, got: torch.Tensor, want: torch.Tensor,
 def rmsnorm_case(dev, n, d, dtype, tol, flush, gen):
     x = torch.randn(n, d, generator=gen).to(dev, dtype)
     s = (torch.randn(d, generator=gen) * 0.1).to(dev, dtype)
+    before = dict(ops.rmsnorm.launches_by_variant)
     got = ops.rmsnorm(x, s)
     torch.cuda.synchronize()
+    variant = [v for v, k in ops.rmsnorm.launches_by_variant.items()
+               if k != before.get(v, 0)]
+    want_variant = variant_name(select_variant(x))
+    check(variant == [want_variant],
+          f"rmsnorm ({n},{d}): the launch went through {variant}, not "
+          f"{want_variant}")
     err = compare(f"rmsnorm ({n},{d}) {dtype}", got, rmsnorm_plain(x, s), tol)
     w = 1.0 + s.float()
     row = {"shape": [n, d], "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err,
+           "variant": want_variant, "max_abs_err": err,
            "ms": time_ms(lambda: ops.rmsnorm(x, s), flush),
            "plain_ms": time_ms(lambda: rmsnorm_plain(x, s), flush),
            "library_ms": time_ms(
-               lambda: F.rms_norm(x, (d,), w.to(dtype), 1e-6), flush)}
+               lambda: F.rms_norm(x, (d,), w.to(dtype), 1e-6), flush),
+           "same_bytes_ms": time_ms(lambda: torch.empty_like(x).copy_(x),
+                                    flush)}
     n_bytes = 2 * n * d * x.element_size() + d * s.element_size()
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 4.0 * n * d,
                                                 PEAK_F32_FLOPS)
@@ -275,17 +306,40 @@ def rglru_case(dev, b, s, d, *, h0, time_major, flush, gen):
     if time_major:
         la, bb = la.transpose(0, 1), bb.transpose(0, 1)
     h = torch.randn(b, d, generator=gen).to(dev) if h0 else None
+    what = f"rglru_scan ({b},{s},{d}) h0={h0} time_major={time_major}"
+    before = dict(ops.rglru_scan.launches_by_route)
     got = ops.rglru_scan(la, bb, h)
     torch.cuda.synchronize()
-    err = compare(f"rglru_scan ({b},{s},{d}) h0={h0} time_major="
-                  f"{time_major}", got, rglru_scan_plain(la, bb, h),
-                  1e-5, 1e-4)
+    route = [r for r, n in ops.rglru_scan.launches_by_route.items()
+             if n != before[r]]
+    check(route == [rg_kernel.select_route(la, bb)],
+          f"{what}: the launch went through {route}, not "
+          f"{rg_kernel.select_route(la, bb)}")
+    want = rglru_scan_plain(la, bb, h)
+    err = compare(what, got, want, 1e-5, 1e-4)
+    # every route these inputs allow, forced (h0 = 0: the bare launch)
+    routes = ["tma", "cp_async"] if route == ["tma"] else ["cp_async"]
+    plain0 = rglru_scan_plain(la, bb) if h0 else want
+    out = torch.empty(b, s, d, device=dev)
+    by_route = {}
+    for r in routes:
+        out.fill_(float("nan"))
+        rg_kernel.launch(la, bb, out, route=r)
+        torch.cuda.synchronize()
+        by_route[r] = {
+            "max_abs_err": compare(f"{what} route={r}", out, plain0,
+                                   1e-5, 1e-4),
+            "ms": time_ms(lambda: rg_kernel.launch(la, bb, out, route=r),
+                          flush)}
     row = {"shape": [b, s, d], "h0": h0, "time_major": time_major,
-           "max_abs_err": err,
+           "route": route[0], "design": RGLRU_DESIGN, "max_abs_err": err,
+           "forced_routes": by_route,
            "ms": time_ms(lambda: ops.rglru_scan(la, bb, h), flush),
            "plain_ms": time_ms(lambda: rglru_scan_plain(la, bb, h), flush,
                                PLAIN_SCAN_REPEATS),
-           "library_ms": None}
+           "library_ms": None,
+           "same_bytes_ms": time_ms(lambda: torch.add(la, bb, out=out),
+                                    flush)}
     n = b * s * d
     n_bytes = 3 * n * 4 + (b * d * 4 if h0 else 0)
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 3.0 * n,
@@ -386,11 +440,14 @@ def phase_kernels(dev) -> dict:
     path_rglru = rglru_case(dev, BATCH, SEQ, rg.d_rnn_resolved, h0=False,
                             time_major=True, flush=flush, gen=gen)
     print("rglru    ", json.dumps(path_rglru), flush=True)
-    for b, s, d, h0 in [(1, 1000, 384, False),        # ragged S and D
-                        (2, 512, 2560, True)]:        # nonzero h0
-        print("rglru    ", json.dumps(rglru_case(
-            dev, b, s, d, h0=h0, time_major=False, flush=flush, gen=gen)),
-            flush=True)
+    rglru_rows = [path_rglru]
+    for b, s, d, h0 in [(1, 1000, 384, False),        # ragged S; 12 blocks
+                        (2, 512, 2560, True),         # nonzero h0
+                        (3, 1000, 130, False),        # D = 130: cp_async
+                        (1, 33, 5, False)]:           # B*D below 32
+        rglru_rows.append(rglru_case(dev, b, s, d, h0=h0, time_major=False,
+                                     flush=flush, gen=gen))
+        print("rglru    ", json.dumps(rglru_rows[-1]), flush=True)
 
     path_wkv = wkv6_case(dev, 1, WKV_SEQ, 1, WKV_DIM, log_w=None,
                          flush=flush, gen=gen)
@@ -419,12 +476,16 @@ def phase_kernels(dev) -> dict:
                                                 "bound_ms", "library_ms")},
                 "bound_by": "bytes"}
 
+    row_keys = ("shape", "dtype", "variant", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "same_bytes_ms")
     rms_entry = _entry(
         "rmsnorm", norm_sums(path_norms),
-        replaces="src/repro/kernels/rmsnorm.py:23",
+        replaces="src/repro/kernels/rmsnorm.py:23", design=RMSNORM_DESIGN,
         per_block_forward=[list(nd) for nd in path_norms],
         path_r={"per_sublayer_forward": [list(nd) for nd in path_r_norms],
-                **norm_sums(path_r_norms)})
+                **norm_sums(path_r_norms)},
+        shapes=[{k: norms[nd][k] for k in row_keys}
+                for nd in sorted(norms)])
     flash_entry = _entry("flash_attention", path_flash,
                          replaces="src/repro/kernels/flash_attention.py:73",
                          shape=path_flash["shape"], path=path_flash["path"],
@@ -433,7 +494,15 @@ def phase_kernels(dev) -> dict:
                          host_us=path_flash["host_us"])
     rglru_entry = _entry("rglru_scan", path_rglru,
                          replaces="src/repro/kernels/rglru_scan.py:55",
-                         shape=path_rglru["shape"])
+                         shape=path_rglru["shape"], design=RGLRU_DESIGN,
+                         load_route=path_rglru["route"],
+                         forced_routes=path_rglru["forced_routes"],
+                         shapes=[{k: r[k] for k in (
+                             "shape", "h0", "time_major", "route",
+                             "forced_routes", "max_abs_err", "ms",
+                             "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "same_bytes_ms")}
+                             for r in rglru_rows])
     wkv_entry = _entry("wkv6", path_wkv, replaces="src/repro/kernels/wkv6.py:68",
                        shape=path_wkv["shape"], design=WKV_DESIGN,
                        launch_us=path_wkv["launch_us"],
@@ -508,7 +577,14 @@ PATHS = {
 }
 
 
-def phase_path(label, dev, scratch: Path) -> dict:
+#: the RMSNorm variants each path's widths select (path Q: d_model 1024 and
+#: the q/k-norms' head_dim 128; path R: d_model 2560, all bf16), and the
+#: RG-LRU route path R's time-major views take
+PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"}}
+PATH_ROUTES = {"R": {"tma"}}
+
+
+def phase_path(label, dev, scratch: Path) -> tuple:
     make, (pop, gens), expected, kernels, iters = PATHS[label]
     target, args = make(dev)
     with torch.no_grad():
@@ -530,8 +606,14 @@ def phase_path(label, dev, scratch: Path) -> dict:
     plan_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     flash_paths = dict(ops.flash_attention.launches_by_path)
+    sub_counts = {"flash_attention": flash_paths,
+                  "rmsnorm": dict(ops.rmsnorm.launches_by_variant),
+                  "rglru_scan": dict(ops.rglru_scan.launches_by_route)}
     print(f"path {label} launches:", json.dumps(launches),
-          "flash by kernel path:", json.dumps(flash_paths), flush=True)
+          "flash by kernel path:", json.dumps(flash_paths),
+          "rmsnorm by variant:", json.dumps(sub_counts["rmsnorm"]),
+          "rglru by route:", json.dumps(sub_counts["rglru_scan"]),
+          flush=True)
     for name in kernels:
         check(launches[name] > 0,
               f"path {label}: the {name} kernel was never launched by the "
@@ -540,6 +622,15 @@ def phase_path(label, dev, scratch: Path) -> dict:
         check(flash_paths["wgmma"] == launches["flash_attention"],
               f"path {label}: flash launches went through {flash_paths}, "
               f"not all through the wgmma path")
+    for name, want in (("rmsnorm", PATH_VARIANTS.get(label)),
+                       ("rglru_scan", PATH_ROUTES.get(label))):
+        if name not in kernels:
+            continue
+        got = {k for k, n in sub_counts[name].items() if n}
+        check(got == want and sum(sub_counts[name].values())
+              == launches[name],
+              f"path {label}: {name} launches went through "
+              f"{sub_counts[name]}, not {sorted(want)}")
 
     check(res.verification["verified"], f"path {label}: the winning plan "
                                         f"did not verify")
@@ -592,14 +683,16 @@ def phase_path(label, dev, scratch: Path) -> dict:
         "s_per_chromosome": res.ga.eval_wall_s / max(res.ga.evaluations, 1),
         "plan_s": plan_s, "verify_failures": verify_fails,
         "artifact_max_abs": v.max_abs, "forced_max_abs": fv.max_abs,
-        "launches": launches, "flash_launches_by_kernel_path": flash_paths}
+        "launches": launches, "flash_launches_by_kernel_path": flash_paths,
+        "rmsnorm_launches_by_variant": sub_counts["rmsnorm"],
+        "rglru_launches_by_route": sub_counts["rglru_scan"]}
     print(f"path {label}:", json.dumps(summary), flush=True)
     unsubstituted = engine.substitute({})
     for name, fn in (("baseline (all ref)", unsubstituted),
                      ("plan winner", res.artifact), ("all kernels", forced)):
         print(f"where the time goes, path {label}, {name}:",
               json.dumps(where_time_goes(fn, args, iters)), flush=True)
-    return launches, flash_paths
+    return launches, {k: sub_counts[k] for k in kernels if k in sub_counts}
 
 
 def where_time_goes(fn, args, iters: int) -> dict:
@@ -649,6 +742,32 @@ def where_time_goes(fn, args, iters: int) -> dict:
                                for e in top]}
 
 
+def short_kernel_names(mangled: list) -> list:
+    """``rmsnorm_rows_kernel<__nv_bfloat16, __nv_bfloat16, 128>`` for each
+    mangled kernel name (demangled by the CUDA toolkit's ``cu++filt`` or
+    by ``c++filt``; left as they are where neither is found)."""
+    cuda_filt = Path(build.nvcc()).parent / "cu++filt"
+    tool = str(cuda_filt) if cuda_filt.exists() else shutil.which("c++filt")
+    if tool is None:
+        return list(mangled)
+    out = subprocess.run([tool], input="\n".join(mangled), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    names = []
+    for name in out:
+        for noise in ("(anonymous namespace)::", "<unnamed>::", "(int)",
+                      "(bool)"):
+            name = name.replace(noise, "")
+        name = name[len("void "):] if name.startswith("void ") else name
+        depth = 0                      # cut the parameter list
+        for i, ch in enumerate(name):
+            depth += (ch == "<") - (ch == ">")
+            if ch == "(" and depth == 0:
+                name = name[:i]
+                break
+        names.append(name)
+    return names
+
+
 def _journal_fingerprint(scratch: Path) -> str:
     journals = sorted(scratch.glob("measurements_*.jsonl"))
     check(len(journals) == 1, f"expected one measurement journal, got "
@@ -672,18 +791,30 @@ def main() -> int:
     build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(build.SOURCES)})", flush=True)
+    for name in build.SOURCES:
+        raw = build.resource_usage(name)
+        usage = dict(zip(short_kernel_names(list(raw)), raw.values()))
+        print(f"resources {name}", json.dumps(usage), flush=True)
+        if name in NO_SPILL:
+            spills = {k: v for k, v in usage.items()
+                      if v.get("spill_stores") or v.get("spill_loads")}
+            check(not spills, f"{name}: kernels spill: {spills}")
 
     kernels = phase_kernels(dev)
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     by_path = {}
+    sub_keys = {"flash_attention": "launches_by_kernel_path",
+                "rmsnorm": "launches_by_variant",
+                "rglru_scan": "launches_by_route"}
     for label in PATHS:
         scratch = Path(tempfile.mkdtemp(prefix=f"plan-{label}-",
                                         dir=build.BUILD_DIR))
         try:
-            by_path[label], flash_paths = phase_path(label, dev, scratch)
-            if "flash_attention" in PATHS[label][3]:
-                kernels["flash_attention"]["launches_by_kernel_path"] = \
-                    flash_paths
+            by_path[label], sub_counts = phase_path(label, dev, scratch)
+            for name, counts in sub_counts.items():
+                if name in sub_keys:
+                    kernels[name].setdefault(sub_keys[name], {})[label] = \
+                        counts
         finally:
             shutil.rmtree(scratch)
         print(f"path {label} done at {time.perf_counter() - t_start:.1f} s",

@@ -7,6 +7,9 @@ route (b): no PyTorch headers, so a build takes seconds.  Libraries go to
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
 loads as it is.  :func:`build_all` starts one ``nvcc`` per source at once.
+Each build keeps ``ptxas``'s report beside its library (``.log``);
+:func:`resource_usage` reads each kernel's registers, spills and static
+shared memory from it.
 
 Nothing here runs at import time, and nothing falls back: a missing
 ``nvcc`` or a failed compile raises.
@@ -16,13 +19,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "source_path"]
+__all__ = ["SOURCES", "build_all", "library", "nvcc", "resource_usage",
+           "source_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -30,7 +35,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 SOURCES = ("rmsnorm", "flash_attention", "rglru_scan", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -40,7 +45,9 @@ def source_path(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
+    or ``PATH``; raises where there is none."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
         or "/usr/local/cuda"
     cand = Path(cuda_home) / "bin" / "nvcc"
@@ -63,7 +70,7 @@ def _lib_path(name: str) -> Path:
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
     out = _lib_path(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, out
@@ -74,6 +81,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source_path(name)} "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -102,3 +110,38 @@ def library(name: str) -> ctypes.CDLL:
             _finish(name, *_start(name))
         lib = _loaded[name] = ctypes.CDLL(str(out))
         return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def resource_usage(name: str) -> dict[str, dict[str, int]]:
+    """Each kernel of library ``name`` (by mangled name): ``registers``
+    a thread, ``spill_stores`` / ``spill_loads`` and ``stack`` bytes, and
+    ``static_smem`` bytes (dynamic shared memory is set at launch and not
+    in it), from the ``ptxas -v`` report of its build.  Builds it first if
+    needed."""
+    library(name)
+    kernels: dict[str, dict[str, int]] = {}
+    current = props = None
+    for line in _lib_path(name).with_suffix(".log").read_text().splitlines():
+        if m := _ENTRY.search(line):
+            current = m.group(1)
+            kernels.setdefault(current, {})
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif (m := _FRAME.search(line)) and props in kernels:
+            kernels[props].update(stack=int(m.group(1)),
+                                  spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+        elif (m := _USED.search(line)) and current is not None:
+            smem = _SMEM.search(line)
+            kernels[current].update(registers=int(m.group(1)),
+                                    static_smem=int(smem.group(1)) if smem
+                                    else 0)
+    return kernels

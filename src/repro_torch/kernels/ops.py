@@ -11,7 +11,12 @@ Each wrapper counts its launches in a plain integer attribute
 ``rglru_scan.launches``, ``wkv6.launches``), incremented where the kernel
 is launched and nowhere else, so a run can show that it went through the
 kernels.  ``flash_attention.launches_by_path`` splits its count over the
-kernel's paths (``"wgmma"``, ``"mma"``, ``"scalar"``).
+kernel's paths (``"wgmma"``, ``"mma"``, ``"scalar"``),
+``rmsnorm.launches_by_variant`` over the RMSNorm kernel's variants
+(``"d128_l16"``: the instance for d = 128 at 16 lanes a row;
+``"generic_l8"``: the generic loop at 8 lanes a row; ...) and
+``rglru_scan.launches_by_route`` over the RG-LRU kernel's load routes
+(``"tma"``, ``"cp_async"``).
 
 Layout logic against the reference: the kernel indexes heads through
 strides, so the reference's GQA head flattening (``ops.py:44-47``) and its
@@ -100,19 +105,28 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     if x.dtype not in _KERNEL_DTYPES or scale.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"rmsnorm kernel takes f32 or bf16, got x "
                          f"{x.dtype}, scale {scale.dtype}")
-    if d % 8 != 0:
-        raise ValueError(f"rmsnorm kernel takes d a multiple of 8, got {d}")
-    x2 = x.reshape(-1, d)
-    if not x2.is_contiguous() or x2.data_ptr() % 16 != 0:
-        x2 = x2.contiguous() if not x2.is_contiguous() else x2.clone()
+    variant = _rn.select_variant(x)   # raises unless d % 8 == 0
+    x2, scale = _aligned_rows(x.reshape(-1, d)), _aligned_rows(scale)
     out = torch.empty_like(x2)
     if x2.shape[0] > 0:
-        _rn.launch(x2, scale.contiguous(), out, eps)
+        _rn.launch(x2, scale, out, eps, variant=variant)
         rmsnorm.launches += 1
+        name = _rn.variant_name(variant)
+        rmsnorm.launches_by_variant[name] = \
+            rmsnorm.launches_by_variant.get(name, 0) + 1
     return out.reshape(x.shape)
 
 
 rmsnorm.launches = 0
+rmsnorm.launches_by_variant = {}
+
+
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned base (a copy only where it
+    is needed)."""
+    if not t.is_contiguous():
+        return t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _f32_rows(x: torch.Tensor) -> torch.Tensor:
@@ -138,12 +152,15 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
         bb[:, 0] += torch.exp(la[:, 0]) * h0.float()
     out = torch.empty(la.shape, dtype=torch.float32, device=la.device)
     if out.numel() > 0:
-        _rg.launch(la, bb, out)
+        route = _rg.select_route(la, bb)
+        _rg.launch(la, bb, out, route=route)
         rglru_scan.launches += 1
+        rglru_scan.launches_by_route[route] += 1
     return out
 
 
 rglru_scan.launches = 0
+rglru_scan.launches_by_route = dict.fromkeys(_rg.ROUTES, 0)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -181,6 +198,8 @@ def reset_launch_counts() -> None:
     for fn in _COUNTED:
         fn.launches = 0
     flash_attention.launches_by_path = dict.fromkeys(_fa.PATHS, 0)
+    rmsnorm.launches_by_variant = {}
+    rglru_scan.launches_by_route = dict.fromkeys(_rg.ROUTES, 0)
 
 
 def launch_counts() -> dict[str, int]:

@@ -6,6 +6,13 @@ the tests and ``chip_smoke.py`` hold the kernel against.
 ``h_t = exp(log_a_t) * h_{t-1} + b_t`` over (B, S, D), f32 state and
 output.  The kernel starts from h_0 = 0; the wrapper folds a nonzero
 initial state into ``b[:, 0]``.
+
+The kernel fills its ring of stages by one of two routes (``ROUTES``):
+``"tma"`` (TMA copies; (batch, seq) strides that are multiples of 16 bytes
+and 16-byte aligned bases) or ``"cp_async"`` (4-byte ``cp.async`` copies;
+any strides).  :func:`select_route` picks one from the inputs' strides and
+alignment, and :func:`launch` hands that choice to the C entry point, which
+refuses a route the inputs do not fit rather than switching to another.
 """
 from __future__ import annotations
 
@@ -17,10 +24,10 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["rglru_scan_plain", "launch"]
+__all__ = ["rglru_scan_plain", "launch", "select_route", "ROUTES"]
 
-#: channels of one tile of the kernel (``kThreads`` in ``rglru_scan.cu``)
-TILE_CHANNELS = 128
+#: the kernel's routes, by their codes in the C entry point
+ROUTES = {"cp_async": 0, "tma": 1}
 
 
 def rglru_scan_plain(log_a: torch.Tensor, b: torch.Tensor,
@@ -37,35 +44,43 @@ def rglru_scan_plain(log_a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _tma_aligned(t: torch.Tensor) -> bool:
+    """f32 with unit stride along D, (batch, seq) strides that are positive
+    multiples of 16 bytes, and a 16-byte aligned base: what TMA needs."""
+    return (t.dtype == torch.float32 and t.stride(2) == 1
+            and t.data_ptr() % 16 == 0
+            and all(s > 0 and s % 4 == 0 for s in t.stride()[:2]))
+
+
+def select_route(log_a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel route for these (B, S, D) inputs: ``"tma"`` or
+    ``"cp_async"``.  Pure: reads dtype, strides and data pointers only, so
+    it runs on CPU tensors too."""
+    return "tma" if _tma_aligned(log_a) and _tma_aligned(b) else "cp_async"
+
+
 @functools.lru_cache(maxsize=None)
-def _lib():
-    """The C entry points, typed (built and loaded at first use)."""
-    lib = build.library("rglru_scan")
-    lib.rglru_scan_tiles.argtypes = [ctypes.c_int] * 3
-    lib.rglru_scan_tiles.restype = ctypes.c_longlong
-    fn = lib.rglru_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+def _fn():
+    """The C entry point, typed (built and loaded at first use)."""
+    fn = build.library("rglru_scan").rglru_scan_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def launch(log_a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch the kernel on the current stream.  ``log_a``/``b``: f32
-    (B, S, D) with unit stride along D on one CUDA device; ``out`` f32
-    (B, S, D) contiguous.  Allocates the kernel's look-back scratch (its
-    flags zeroed).  Raises if the C entry point reports a CUDA error."""
+def launch(log_a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
+           route: str) -> None:
+    """Launch the kernel's ``route`` on the current stream: one launch, no
+    scratch.  ``log_a``/``b``: f32 (B, S, D) with unit stride along D on
+    one CUDA device; ``out`` f32 (B, S, D) contiguous.  Raises if the C
+    entry point reports a CUDA error (or refuses the route for these
+    inputs)."""
     bsz, s, d = log_a.shape
-    lib = _lib()
-    tiles = lib.rglru_scan_tiles(bsz, s, d)
-    scratch = torch.empty(3 * tiles * TILE_CHANNELS, dtype=torch.float32,
-                          device=out.device)
-    flags = torch.zeros(tiles + 1, dtype=torch.int32, device=out.device)
-    err = lib.rglru_scan_fwd(
-        log_a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        flags.data_ptr(), bsz, s, d, log_a.stride(0), log_a.stride(1),
-        b.stride(0), b.stride(1),
-        torch.cuda.current_stream(out.device).cuda_stream)
+    err = _fn()(log_a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, s, d,
+                log_a.stride(0), log_a.stride(1), b.stride(0), b.stride(1),
+                ROUTES[route],
+                torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: cudaError {err} "
-                           f"(log_a {tuple(log_a.shape)})")
+                           f"(route {route}, log_a {tuple(log_a.shape)})")

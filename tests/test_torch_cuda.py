@@ -259,3 +259,92 @@ def test_wkv6_chunked_kernel_takes_strided_inputs_on_card(cuda, d):
     torch.testing.assert_close(tops.wkv6(r, k, v, lw, u),
                                twk.wkv6_plain(r, k, v, lw, u),
                                atol=5e-5, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned RMSNorm (variants) and RG-LRU scan (load routes)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,dtype,scale_dtype", [
+    (65537, 128, "bfloat16", "bfloat16"),   # a ragged half-warp row group
+    (65537, 128, "float32", "float32"),
+    (4096, 2560, "float32", "float32"), (4096, 2560, "bfloat16", "bfloat16"),
+    (1001, 4104, "float32", "float32"), (1001, 4104, "bfloat16", "bfloat16"),
+    (4096, 1024, "bfloat16", "float32"),    # scale wider than x
+    (333, 2560, "float32", "bfloat16"),     # scale narrower than x
+    (33, 8, "bfloat16", "bfloat16"),        # one vector a row: 32 rows a warp
+    (1001, 136, "bfloat16", "bfloat16")])   # 17 vectors a row on 16 lanes
+def test_rmsnorm_variants_match_plain_on_card(cuda, n, d, dtype, scale_dtype):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.randn(n, d, generator=g).to(cuda, _DTYPES[dtype])
+    s = (torch.randn(d, generator=g) * 0.1).to(cuda, _DTYPES[scale_dtype])
+    name = trn.variant_name(trn.select_variant(x))
+    before = tops.rmsnorm.launches_by_variant.get(name, 0)
+    got = tops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert tops.rmsnorm.launches_by_variant[name] == before + 1
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(got.float(), trn.rmsnorm_plain(x, s).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [(128, 32), (1024, 16), (0, 64), (0, 3)])
+def test_rmsnorm_kernel_refuses_a_variant_the_inputs_do_not_fit_on_card(
+        cuda, variant):
+    x = torch.zeros(64, 128, device=cuda, dtype=torch.bfloat16)
+    s = torch.zeros(128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="variant"):
+        trn.launch(x, s, torch.empty_like(x), 1e-6, variant=variant)
+
+
+def _rglru_inputs(cuda, b, s, d, time_major, seed=8):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (s, b, d) if time_major else (b, s, d)
+    la = (-torch.randn(*shape, generator=g).abs() * 0.2).to(cuda)
+    bb = (torch.randn(*shape, generator=g) * 0.5).to(cuda)
+    if time_major:
+        la, bb = la.transpose(0, 1), bb.transpose(0, 1)
+    return la, bb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,time_major", [
+    (2, 2048, 2560, True),     # path R
+    (2, 1000, 384, False),     # S not a multiple of the stage
+    (2, 1000, 256, True), (3, 1000, 130, False), (2, 1000, 130, True),
+    (1, 33, 5, False),         # B*D below 32
+    (1, 64, 32, False), (1, 1, 4, False)])
+@pytest.mark.parametrize("route", ["tma", "cp_async"])
+def test_rglru_routes_match_plain_on_card(cuda, b, s, d, time_major, route):
+    la, bb = _rglru_inputs(cuda, b, s, d, time_major)
+    out = torch.empty(b, s, d, device=cuda)
+    if route == "tma" and trg.select_route(la, bb) != "tma":
+        with pytest.raises(RuntimeError, match="route tma"):
+            trg.launch(la, bb, out, route="tma")
+        return
+    trg.launch(la, bb, out, route=route)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, trg.rglru_scan_plain(la, bb),
+                               atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,time_major,route", [
+    (2, 2048, 2560, True, "tma"), (2, 1000, 384, False, "tma"),
+    (3, 1000, 130, False, "cp_async"), (1, 33, 5, False, "cp_async")])
+@pytest.mark.parametrize("h0", [False, True])
+def test_rglru_wrapper_counts_its_route_on_card(cuda, b, s, d, time_major,
+                                                route, h0):
+    la, bb = _rglru_inputs(cuda, b, s, d, time_major, seed=9)
+    h = torch.randn(b, d, device=cuda) if h0 else None
+    assert trg.select_route(la, bb) == route
+    before = dict(tops.rglru_scan.launches_by_route)
+    got = tops.rglru_scan(la, bb, h)
+    torch.cuda.synchronize()
+    assert tops.rglru_scan.launches_by_route == {
+        k: n + (k == route) for k, n in before.items()}
+    torch.testing.assert_close(got, trg.rglru_scan_plain(la, bb, h),
+                               atol=1e-5, rtol=1e-4)

@@ -10,6 +10,12 @@
   interpret mode (``repro.kernels.ops.wkv6``), at the reference tests'
   tolerance (atol 5e-5, rtol 1e-3), and at decays where the TPU kernel's
   closed form overflows.
+- The RMSNorm variant predicate (``select_variant``): which instance and
+  how many lanes a row given widths and dtypes take, and its refusal of a
+  width that is not a multiple of 8.
+- The RG-LRU route predicate (``select_route``): which load route (``"tma"``
+  or ``"cp_async"``) given strides and alignments take.
+- CPU calls count no variant and no route.
 
 The kernels themselves run on the card in ``test_torch_cuda.py``."""
 import math
@@ -25,6 +31,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import rglru_scan as trg  # noqa: E402
+from repro_torch.kernels import rmsnorm as trn  # noqa: E402
 from repro_torch.kernels import wkv6 as twk  # noqa: E402
 
 WKV_TOL = {"atol": 5e-5, "rtol": 1e-3}
@@ -187,3 +195,75 @@ def test_wkv6_chunked_twin_is_finite_at_strong_decay(rng, log_w, s):
     assert np.isfinite(got).all()
     step = twk.wkv6_plain(*map(torch.from_numpy, (r, k, v, lw, u))).numpy()
     np.testing.assert_allclose(got, step, **WKV_TOL)
+
+
+# ---------------------------------------------------------------------------
+# (iv) the RMSNorm variant predicate and the RG-LRU route predicate
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,dtype,want", [
+    (8, F32, (0, 2)), (8, BF16, (0, 1)),          # one or two vectors a row
+    (64, F32, (0, 16)), (64, BF16, (0, 8)),
+    (128, F32, (128, 32)), (128, BF16, (128, 16)),  # q/k-norm: two rows a warp
+    (136, F32, (0, 32)), (136, BF16, (0, 16)),      # 17 vectors: 16 lanes
+    (1024, F32, (1024, 32)), (1024, BF16, (1024, 32)),
+    (2560, F32, (2560, 32)), (2560, BF16, (2560, 32)),
+])
+def test_rmsnorm_variant_predicate(d, dtype, want):
+    assert trn.select_variant(torch.empty(3, d, dtype=dtype)) == want
+    # leading dims do not move it
+    assert trn.select_variant(torch.empty(2, 5, d, dtype=dtype)) == want
+
+
+@pytest.mark.parametrize("variant,name", [((128, 16), "d128_l16"),
+                                          ((2560, 32), "d2560_l32"),
+                                          ((0, 1), "generic_l1")])
+def test_rmsnorm_variant_names(variant, name):
+    assert trn.variant_name(variant) == name
+
+
+@pytest.mark.parametrize("d", [4, 12, 130])
+def test_rmsnorm_variant_predicate_refuses_widths_not_a_multiple_of_8(d):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        trn.select_variant(torch.empty(2, d, dtype=BF16))
+
+
+def _misaligned(*shape):
+    """An f32 tensor whose base is 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(int(np.prod(shape)) + 4)
+    off = (4 - flat.data_ptr() % 16 // 4) % 4 + 1
+    t = flat[off:off + int(np.prod(shape))].view(shape)
+    assert t.data_ptr() % 16 == 4
+    return t
+
+
+@pytest.mark.parametrize("case,want", [
+    (lambda: torch.empty(2, 2048, 2560), "tma"),                  # contiguous
+    (lambda: torch.empty(2048, 2, 2560).transpose(0, 1), "tma"),  # path R's views
+    (lambda: torch.empty(777, 3, 200).transpose(0, 1), "tma"),
+    (lambda: torch.empty(3, 33, 130), "cp_async"),                # D = 130
+    (lambda: torch.empty(33, 3, 130).transpose(0, 1), "cp_async"),
+    (lambda: torch.empty(1, 33, 5), "cp_async"),                  # D = 5
+    (lambda: _misaligned(2, 64, 256), "cp_async"),                # base off 4 B
+    (lambda: torch.empty(2, 64, 256, dtype=BF16), "cp_async"),    # not f32
+], ids=["contiguous", "time_major", "time_major_d200", "d130",
+        "d130_time_major", "d5", "misaligned_base", "bf16"])
+def test_rglru_route_predicate(case, want):
+    la = case()
+    assert trg.select_route(la, la) == want
+    if want == "tma":   # one input off the route takes the pair off it
+        assert trg.select_route(la, _misaligned(*la.shape)) == "cp_async"
+
+
+def test_cpu_calls_count_no_variant_or_route():
+    tops.reset_launch_counts()
+    tops.rmsnorm(torch.randn(4, 128, dtype=BF16), torch.zeros(128, dtype=BF16))
+    tops.rglru_scan(-torch.rand(2, 8, 32), torch.randn(2, 8, 32))
+    assert tops.rmsnorm.launches_by_variant == {}
+    assert tops.rglru_scan.launches_by_route == {"cp_async": 0, "tma": 0}
+    tops.rmsnorm.launches_by_variant["d128_l16"] = 2
+    tops.rglru_scan.launches_by_route["tma"] = 3
+    tops.reset_launch_counts()
+    assert tops.rmsnorm.launches_by_variant == {}
+    assert set(tops.rglru_scan.launches_by_route.values()) == {0}
