@@ -52,6 +52,20 @@ Phases, in order; any failure exits non-zero before the last line:
    - W: a single-head WKV-6 scan program (the reference's ``_wkv_app``) at
      RWKV-6-3B's head width, D = 64, S = 4096, f32, GA 6 x 3: 1
      ``wkv_recurrence`` site, the WKV-6 kernel;
+   - M: the whole Qwen3-0.6B (28 layers at full width, random weights from
+     seed 0 in the reference's distributions) built with ``build_model``,
+     its prefill of (2, 2048) tokens -> (last-token logits, decode state)
+     planned through a lambda over ``Model.prefill`` in f32, GA 8 x 4: 28
+     ``softmax_attention`` + 113 ``rmsnorm`` sites (ln1, q-norm, k-norm and
+     ln2 of each layer, and the final norm); one forward of the forced
+     all-kernel plan must launch flash 28 times and RMSNorm 113 times.
+     Then the same model in bf16: the forced all-kernel bf16 prefill against
+     the bf16 reference, each output leaf's error printed (a diagnostic:
+     nothing is asserted on it); and ``Server.generate`` in bf16 under
+     ``OFFLOAD_PLAN``: 4 requests of 512 prompt tokens and 32 greedy new
+     tokens, twice (identical tokens), then under ``REFERENCE_PLAN`` after
+     ``swap_plan`` (the tokens of a server built on that plan), with the
+     prefill time, the decode time per token and tokens/s;
 4. a ``{"kernels": [...]}`` line (each RMSNorm and RG-LRU entry carries its
    per-shape rows beside the path sums), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -77,6 +91,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch._higher_order_ops.scan import scan  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.evaluator import MeasurementCache  # noqa: E402
@@ -92,8 +107,11 @@ from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import (rmsnorm_plain,  # noqa: E402
                                          select_variant, variant_name)
 from repro_torch.kernels.wkv6 import wkv6_plain  # noqa: E402
+from repro_torch.models import (OFFLOAD_PLAN, REFERENCE_PLAN,  # noqa: E402
+                                build_model)
 from repro_torch.models.transformer import (INIT_STD, DenseBlock,  # noqa: E402
                                             RecurrentSublayer)
+from repro_torch.runtime.serve import Server  # noqa: E402
 
 #: H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them,
 #: HBM3 bandwidth.  Bounds below are against these, at 700 W.
@@ -104,6 +122,8 @@ PEAK_BYTES_PER_S = 3.35e12
 BATCH, SEQ = 2, 2048
 #: path W: one WKV head at RWKV-6-3B's head width
 WKV_SEQ, WKV_DIM = 4096, 64
+#: path M's serving requests: 4 prompts of 512 tokens, 32 new tokens each
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 32
 SEED = 0
 REPEATS = 25
 #: the plain scan loops take thousands of launches a call
@@ -418,13 +438,20 @@ def phase_kernels(dev) -> dict:
     for n, d in sorted(set(path_norms + path_r_norms)):
         norms[(n, d)] = rmsnorm_case(dev, n, d, bf16, 2e-2, flush, gen)
         print("rmsnorm  ", json.dumps(norms[(n, d)]), flush=True)
-    for n, d in [(tokens, cfg.d_model), (tokens * nq, hd)]:
-        print("rmsnorm  ", json.dumps(
-            rmsnorm_case(dev, n, d, f32, 1e-5, flush, gen)), flush=True)
+    # path M's 113 calls per prefill, in f32: the four of each of 28
+    # layers and the final norm over the last token's rows
+    path_m_norms = path_norms * cfg.n_layers + [(BATCH, cfg.d_model)]
+    norms_m = {}
+    for n, d in sorted(set(path_m_norms)):
+        norms_m[(n, d)] = rmsnorm_case(dev, n, d, f32, 1e-5, flush, gen)
+        print("rmsnorm  ", json.dumps(norms_m[(n, d)]), flush=True)
 
     path_flash = flash_case(dev, BATCH, SEQ, SEQ, nq, nkv, hd, True, bf16,
                             2e-2, 1e-2, flush, gen)
     print("flash    ", json.dumps(path_flash), flush=True)
+    path_m_flash = flash_case(dev, BATCH, SEQ, SEQ, nq, nkv, hd, True, f32,
+                              2e-5, 1e-4, flush, gen)
+    print("flash    ", json.dumps(path_m_flash), flush=True)
     for case in [(2, 1000, 1000, 4, 2, 128, True),    # ragged S=1000
                  (2, 130, 70, 4, 2, 64, True),        # Sq != Sk, hd 64
                  (2, 512, 512, 4, 2, 64, False),      # non-causal
@@ -467,13 +494,10 @@ def phase_kernels(dev) -> dict:
             dev, b, s, h, d, log_w=log_w, flush=flush, gen=gen)),
             flush=True)
 
-    def total(key, calls):
-        return sum(norms[nd][key] for nd in calls)
-
-    def norm_sums(calls):
-        return {"max_abs_err": max(norms[nd]["max_abs_err"] for nd in calls),
-                **{k: total(k, calls) for k in ("ms", "plain_ms",
-                                                "bound_ms", "library_ms")},
+    def norm_sums(calls, rows=norms):
+        return {"max_abs_err": max(rows[nd]["max_abs_err"] for nd in calls),
+                **{k: sum(rows[nd][k] for nd in calls)
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
                 "bound_by": "bytes"}
 
     row_keys = ("shape", "dtype", "variant", "max_abs_err", "ms", "plain_ms",
@@ -484,6 +508,10 @@ def phase_kernels(dev) -> dict:
         per_block_forward=[list(nd) for nd in path_norms],
         path_r={"per_sublayer_forward": [list(nd) for nd in path_r_norms],
                 **norm_sums(path_r_norms)},
+        path_m={"calls_per_prefill": len(path_m_norms),
+                **norm_sums(path_m_norms, norms_m),
+                "shapes": [{k: norms_m[nd][k] for k in row_keys}
+                           for nd in sorted(norms_m)]},
         shapes=[{k: norms[nd][k] for k in row_keys}
                 for nd in sorted(norms)])
     flash_entry = _entry("flash_attention", path_flash,
@@ -491,7 +519,13 @@ def phase_kernels(dev) -> dict:
                          shape=path_flash["shape"], path=path_flash["path"],
                          design=path_flash["design"],
                          block_rel_err=path_flash["block_rel_err"],
-                         host_us=path_flash["host_us"])
+                         host_us=path_flash["host_us"],
+                         path_m={"calls_per_prefill": cfg.n_layers,
+                                 **{k: path_m_flash[k] for k in (
+                                     "shape", "dtype", "path", "design",
+                                     "max_abs_err", "block_rel_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}})
     rglru_entry = _entry("rglru_scan", path_rglru,
                          replaces="src/repro/kernels/rglru_scan.py:55",
                          shape=path_rglru["shape"], design=RGLRU_DESIGN,
@@ -564,6 +598,34 @@ def path_w(dev):
     return wkv_app, tuple(t.to(dev) for t in (r, k, v, lw, u))
 
 
+def qwen3_model(dev, dtype):
+    """The whole Qwen3-0.6B (28 layers, full width), weights drawn from
+    seed 0 in the reference's distributions on a CPU generator, then moved
+    to the card in ``dtype``; tokens uniform in [0, vocab) from the same
+    generator, batch 2 x 2048."""
+    cfg = get_config("qwen3_0_6b")
+    gen = torch.Generator().manual_seed(SEED)
+    model = build_model(cfg)
+    params = model.init(gen, dtype=dtype, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=gen)
+    return model, params, tokens.to(dev)
+
+
+def path_m(dev):
+    model, params, tokens = qwen3_model(dev, PATH_M_DTYPE)
+    plan = REFERENCE_PLAN.replace(compute_dtype=str(PATH_M_DTYPE)[6:])
+    return (lambda tok: model.prefill(params, {"tokens": tok}, plan),
+            (tokens,))
+
+
+#: path M plans the prefill in f32: in bf16 one rounding flip of a
+#: normalized key (|k| up to ~4, a bf16 step of 0.0156 there) fails the
+#: verifier's 1e-2 (see the bf16 diagnostic)
+PATH_M_DTYPE = torch.float32
+#: sites of path M: attention and four norms a layer, and the final norm
+PATH_M_SITES = ([("softmax_attention", "cuda")] * 28
+                + [("rmsnorm", "cuda")] * (4 * 28 + 1))
+
 PATHS = {
     # label: (program maker, GA population x generations, expected (pattern,
     # variant) bindings of the forced all-kernel plan, the kernels it runs,
@@ -574,14 +636,23 @@ PATHS = {
     "R": (path_r, (8, 4), [("linear_recurrence", "cuda")]
           + [("rmsnorm", "cuda")] * 2, ("rglru_scan", "rmsnorm"), 3),
     "W": (path_w, (6, 3), [("wkv_recurrence", "cuda")], ("wkv6",), 2),
+    "M": (path_m, (8, 4), PATH_M_SITES, ("flash_attention", "rmsnorm"), 3),
 }
 
+
+#: the kernel each pattern's ``cuda`` variant launches
+PATTERN_KERNEL = {"softmax_attention": "flash_attention",
+                  "rmsnorm": "rmsnorm", "linear_recurrence": "rglru_scan",
+                  "wkv_recurrence": "wkv6"}
 
 #: the RMSNorm variants each path's widths select (path Q: d_model 1024 and
 #: the q/k-norms' head_dim 128; path R: d_model 2560, all bf16), and the
 #: RG-LRU route path R's time-major views take
-PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"}}
+PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"},
+                 "M": {"d1024_l32", "d128_l32"}}
 PATH_ROUTES = {"R": {"tma"}}
+#: the flash path each path's launches take (path M in f32: ``scalar``)
+PATH_FLASH = {"Q": "wgmma", "M": "scalar"}
 
 
 def phase_path(label, dev, scratch: Path) -> tuple:
@@ -590,8 +661,10 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     with torch.no_grad():
         reference = target(*args)
     torch.cuda.synchronize()
-    print(f"path {label} output: {tuple(reference.shape)} max |y| "
-          f"{reference.float().abs().max().item():.4f}", flush=True)
+    first = pytree.tree_leaves(reference)[0]
+    print(f"path {label} output: {len(pytree.tree_leaves(reference))} "
+          f"tensor(s), the first {tuple(first.shape)} max |y| "
+          f"{first.float().abs().max().item():.4f}", flush=True)
 
     ga = GAConfig(population=pop, generations=gens, seed=SEED,
                   cache_dir=str(scratch))
@@ -619,9 +692,10 @@ def phase_path(label, dev, scratch: Path) -> tuple:
               f"path {label}: the {name} kernel was never launched by the "
               f"search")
     if "flash_attention" in kernels:
-        check(flash_paths["wgmma"] == launches["flash_attention"],
+        want = PATH_FLASH[label]
+        check(flash_paths[want] == launches["flash_attention"],
               f"path {label}: flash launches went through {flash_paths}, "
-              f"not all through the wgmma path")
+              f"not all through the {want} path")
     for name, want in (("rmsnorm", PATH_VARIANTS.get(label)),
                        ("rglru_scan", PATH_ROUTES.get(label))):
         if name not in kernels:
@@ -637,7 +711,7 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     out = res.artifact(*args)
     torch.cuda.synchronize()
     v = verify(reference, out, rtol=1e-2, atol=1e-2)
-    check(out.device.type == "cuda" and v.ok,
+    check(pytree.tree_leaves(out)[0].device.type == "cuda" and v.ok,
           f"path {label}: the plan's artifact differs from the program: {v}")
 
     engine = res.details["engine"]
@@ -645,15 +719,35 @@ def phase_path(label, dev, scratch: Path) -> tuple:
                for s in res.coding.sites}
     forced_bits = tuple(2 if matched[s.region] else 0
                         for s in res.coding.sites)
+    t0 = time.perf_counter()
     forced = engine.substitute(res.coding.decode(forced_bits))
+    substitute_s = time.perf_counter() - t0
     chosen = [(c.pattern, c.chosen) for c in forced.report.choices
               if c.pattern]
     check(sorted(chosen) == sorted(expected),
           f"path {label}: forced all-kernel plan did not bind the kernels: "
           f"{chosen} ({forced.report.fallbacks})")
+    before = ops.launch_counts()
     forced_out = forced(*args)
     torch.cuda.synchronize()
-    fv = verify(reference, forced_out, rtol=1e-2, atol=1e-2)
+    forced_launches = {k: n - before[k] for k, n in ops.launch_counts().items()
+                       if n != before[k]}
+    want = {name: sum(1 for p, _ in expected if PATTERN_KERNEL[p] == name)
+            for name in kernels}
+    check(forced_launches == want,
+          f"path {label}: one forward of the forced all-kernel plan launched "
+          f"{forced_launches}, not {want}")
+    # the verifier as the fitness runs it: the reference already on the
+    # host in f64, the candidate converted and compared
+    reference64 = pytree.tree_map(
+        lambda x: x.detach().to("cpu", torch.float64).numpy(), reference)
+    t0 = time.perf_counter()
+    fv = verify(reference64, forced_out, rtol=1e-2, atol=1e-2)
+    verify_s = time.perf_counter() - t0
+    del reference64
+    print(f"path {label} forced all-kernel plan: {len(chosen)} sites bound, "
+          f"max_abs {fv.max_abs} max_rel {fv.max_rel}, one forward "
+          f"launched {json.dumps(forced_launches)}", flush=True)
     check(fv.ok, f"path {label}: forced all-kernel plan differs from the "
                  f"program: {fv}")
 
@@ -683,6 +777,10 @@ def phase_path(label, dev, scratch: Path) -> tuple:
         "s_per_chromosome": res.ga.eval_wall_s / max(res.ga.evaluations, 1),
         "plan_s": plan_s, "verify_failures": verify_fails,
         "artifact_max_abs": v.max_abs, "forced_max_abs": fv.max_abs,
+        "forced_max_rel": fv.max_rel, "forced_launches": forced_launches,
+        "substitute_s": substitute_s, "verify_s": verify_s,
+        "graph_nodes": len(engine.gm.graph.nodes),
+        "gene_length": res.coding.length,
         "launches": launches, "flash_launches_by_kernel_path": flash_paths,
         "rmsnorm_launches_by_variant": sub_counts["rmsnorm"],
         "rglru_launches_by_route": sub_counts["rglru_scan"]}
@@ -693,6 +791,104 @@ def phase_path(label, dev, scratch: Path) -> tuple:
         print(f"where the time goes, path {label}, {name}:",
               json.dumps(where_time_goes(fn, args, iters)), flush=True)
     return launches, {k: sub_counts[k] for k in kernels if k in sub_counts}
+
+
+def bf16_diagnostic(dev) -> dict:
+    """Path M's forced all-kernel prefill in bf16 against the bf16
+    reference: each output leaf's largest errors (logits, then the K and V
+    caches of each layer).  Nothing is asserted on them."""
+    model, params, tokens = qwen3_model(dev, torch.bfloat16)
+    plan = REFERENCE_PLAN
+    offloader = Offloader(OffloadConfig(
+        device=str(dev), options={"example_args": (tokens,)}))
+    ctx = offloader.prepare(
+        lambda tok: model.prefill(params, {"tokens": tok}, plan))
+    engine = ctx.bundle.context["engine"]
+    forced_bits = tuple(
+        2 if ctx.graph.by_name(site.region).meta.get("pattern") else 0
+        for site in ctx.coding.sites)
+    forced = engine.substitute(ctx.coding.decode(forced_bits))
+    bound = sum(c.chosen == "cuda" for c in forced.report.choices)
+    check(bound == len(PATH_M_SITES),
+          f"bf16 diagnostic: {bound} sites bound to the kernels, not "
+          f"{len(PATH_M_SITES)}")
+    got = forced(tokens)
+    torch.cuda.synchronize()
+    want = engine.reference()
+    logits, state = want
+    names = ["logits"] + [f"{kv}{i}" for i in range(len(state["kv"]))
+                          for kv in ("k", "v")] + ["cache_len"]
+    leaves = zip(names, pytree.tree_leaves(want), pytree.tree_leaves(got))
+    per_leaf = {}
+    for name, r, c in leaves:
+        lv = verify(r, c, rtol=1e-2, atol=1e-2)
+        per_leaf[name] = {"max_abs": lv.max_abs, "max_rel": lv.max_rel,
+                          "ok": lv.ok}
+    whole = verify(want, got, rtol=1e-2, atol=1e-2)
+    out = {"verified": whole.ok, "max_abs": whole.max_abs,
+           "max_rel": whole.max_rel,
+           "leaves_failing": sorted(n for n, lv in per_leaf.items()
+                                    if not lv["ok"]),
+           "per_leaf": per_leaf}
+    print("bf16 diagnostic, path M forced all-kernel prefill:",
+          json.dumps(out), flush=True)
+    return out
+
+
+def serve_phase(dev) -> dict:
+    """``Server.generate`` on the whole Qwen3-0.6B in bf16 under
+    ``OFFLOAD_PLAN``: 4 requests of 512 prompt tokens, 32 greedy new
+    tokens.  Two calls give identical tokens; after ``swap_plan(
+    REFERENCE_PLAN)`` the next call gives the tokens of a server built on
+    that plan.  Times: a prefill (``max_new = 1``: prefill and one
+    sample), the whole call, and the decode time per token between them."""
+    model, params, _ = qwen3_model(dev, torch.bfloat16)
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(SEED + 1)
+    prompts = {"tokens": torch.randint(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), generator=gen).to(dev)}
+    server = Server(model, params, OFFLOAD_PLAN)
+    server.generate(prompts, 2)                 # warm-up
+
+    def timed(max_new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = server.generate(prompts, max_new)
+        return toks, time.perf_counter() - t0
+
+    _, prefill_s = timed(1)
+    first, total_s = timed(SERVE_NEW)
+    second, _ = timed(SERVE_NEW)
+    check(first.shape == (SERVE_BATCH, SERVE_NEW),
+          f"serve: tokens of shape {first.shape}")
+    check(bool(((first >= 0) & (first < cfg.vocab)).all()),
+          "serve: a token outside the vocab")
+    check((first == second).all(), "serve: two greedy calls differ")
+    server.swap_plan(REFERENCE_PLAN)
+    check(server.plan is REFERENCE_PLAN, "serve: swap_plan did not bind")
+    swapped = server.generate(prompts, SERVE_NEW)
+    fresh = Server(model, params, REFERENCE_PLAN).generate(prompts, SERVE_NEW)
+    check((swapped == fresh).all(),
+          "serve: the call after swap_plan did not run the new plan")
+    decode_s = (total_s - prefill_s) / (SERVE_NEW - 1)
+    # one decode step at the last position of these requests' caches
+    # (repeating it rewrites the same cache slot), where its time goes
+    bound = server._bound
+    with torch.no_grad():
+        _, state = bound.prefill(prompts, SERVE_PROMPT + SERVE_NEW)
+        last = prompts["tokens"][:, -1:]
+        step = where_time_goes(lambda: bound.decode(last, state), (), 5)
+    out = {"requests": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT,
+           "new_tokens": SERVE_NEW, "dtype": "bfloat16",
+           "prefill_ms": prefill_s * 1e3, "generate_ms": total_s * 1e3,
+           "decode_ms_per_token": decode_s * 1e3,
+           "tokens_per_s": SERVE_BATCH * SERVE_NEW / total_s,
+           "decode_tokens_per_s": SERVE_BATCH / decode_s,
+           "same_tokens_offload_and_reference_plan":
+               bool((first == swapped).all()),
+           "decode_step_reference_plan": step}
+    print("serve, path M:", json.dumps(out), flush=True)
+    return out
 
 
 def where_time_goes(fn, args, iters: int) -> dict:
@@ -819,6 +1015,11 @@ def main() -> int:
             shutil.rmtree(scratch)
         print(f"path {label} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
+    bf16_diagnostic(dev)
+    print(f"bf16 diagnostic done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    serve_phase(dev)
+    print(f"serve done at {time.perf_counter() - t_start:.1f} s", flush=True)
     for name, entry in kernels.items():
         per_path = {label: counts[name] for label, counts in by_path.items()
                     if name in PATHS[label][3]}

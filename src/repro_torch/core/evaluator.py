@@ -4,7 +4,8 @@ and the persistent :class:`MeasurementCache` keyed by program fingerprint.
 The measured export path is serial by nature (wall-clock timings must not
 interleave), as the reference's measured jaxpr path is (``serial_only``).
 The reference's thread pool, process pool, compile-overlap phase and
-surrogate pre-screen are not ported yet.
+surrogate pre-screen are not ported yet; its static
+:func:`transfer_cost_surrogate` is (the static-cost fitness ranks by it).
 
 The paper measures every offload pattern in a real verification environment
 (run + verify), which makes measurement the search bottleneck.  This module
@@ -222,6 +223,74 @@ class Evaluator:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# static surrogate: transfer-cost ranking (pre-screen only, never a score)
+# ---------------------------------------------------------------------------
+# static surrogate: transfer-cost ranking (pre-screen only, never a score)
+# ---------------------------------------------------------------------------
+
+
+def transfer_cost_surrogate(graph, coding, var_bytes: Optional[dict] = None,
+                            base_impl: Optional[dict] = None
+                            ) -> Callable[[tuple], float]:
+    """Rank chromosomes by estimated dynamic transfer volume.
+
+    Decodes ``bits`` through ``coding``, runs the (pure-IR) transfer planner
+    and weights the resulting transfer count by per-variable byte sizes when
+    known.  Patterns that offload more while transferring less rank first —
+    a roofline-style prior, used *only* to order offspring for measurement.
+
+    Destination-aware: genes on cost-only destinations decode to the
+    reference path (zero transfers), so their modeled device cost is folded
+    into the rank instead — otherwise stub-parked chromosomes would rank
+    *best* while the fitness charges them the stub's modeled latency, and
+    screening would invert.  Only genes on executable accelerator
+    destinations count as "more offloaded work" for the tiebreak.
+    """
+    from repro_torch.core.genes import get_destination, modeled_cost_s
+    from repro_torch.core.transfer_planner import plan_transfers
+
+    var_bytes = var_bytes or {}
+    dests = [get_destination(d) for d in coding.destinations]
+    # any placement that charges a model (stub devices, mesh genes) folds
+    # its modeled seconds into the rank so screening can't invert
+    any_charged = any(d.placement_tag is not None for d in dests)
+    #: rank-units per modeled second — arbitrary but monotone: it only has
+    #: to make stub-parked genes rank behind the free reference path
+    _COST_ONLY_SCALE = 1e6
+    memo: dict[tuple, float] = {}
+
+    def cost(bits: tuple) -> float:
+        bits = tuple(bits)
+        if bits in memo:
+            return memo[bits]
+        impl = dict(base_impl or {})
+        impl.update(coding.decode(bits))
+        plan = plan_transfers(graph, impl, hoist=True,
+                              destinations=coding.destinations_of(bits))
+        total = 0.0
+        for t in plan.transfers:
+            trips = 1
+            if t.per_iteration:
+                r = graph.by_name(t.at_region)
+                while r is not None:
+                    trips *= (r.trip_count or 1) if r.kind == "loop" else 1
+                    r = graph.by_name(r.parent) if r.parent else None
+            total += (trips * float(var_bytes.get(t.var, 1.0))
+                      / max(t.shards, 1))
+        if any_charged:
+            total += _COST_ONLY_SCALE * modeled_cost_s(graph, coding, bits)
+        # prefer more offloaded work at equal transfer cost (paper intuition:
+        # offload wins when transfers are amortized); for the binary alphabet
+        # this is exactly the historical sum(bits)
+        offloaded = sum(1 for v in bits
+                        if not dests[int(v)].is_cost_only and int(v) != 0)
+        memo[bits] = total - 1e-9 * offloaded
+        return memo[bits]
+
+    return cost
 
 
 # ---------------------------------------------------------------------------

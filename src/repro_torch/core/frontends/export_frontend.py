@@ -46,8 +46,13 @@ alphabet (:func:`annotate_variants`), which is what lets the substitution
 engine turn a plan into a runnable program and
 :meth:`ExportFrontend.make_fitness` measure real wall-clock time.
 
-Not ported yet: block sites (``annotate_block_sites``) and the static-cost
-fitness.
+A plain function is exported as the forward of a wrapper that holds the
+modules (``nn.Module``) the function reads by name (closure cells,
+globals) as submodules under those names: without them ``torch.export``
+records no module scopes for their calls, so ``lambda tok:
+model.prefill(params, ...)`` would lose every region.
+
+Not ported yet: block sites (``annotate_block_sites``).
 """
 from __future__ import annotations
 
@@ -85,7 +90,26 @@ def _scope(node) -> tuple:
     return (path, cls.rsplit(".", 1)[-1])
 
 
+def _closure_modules(fn: Callable) -> dict:
+    """The modules (``nn.Module``) a plain function reads by name: its closure
+    cells and the globals its code names (``lambda t: model.prefill(params,
+    ...)`` reads ``params``)."""
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        return {}
+    found = dict(zip(code.co_freevars,
+                     (c.cell_contents for c in fn.__closure__ or ())))
+    scope = getattr(fn, "__globals__", {})
+    found.update({n: scope[n] for n in code.co_names if n in scope})
+    return {n: m for n, m in found.items()
+            if isinstance(m, torch.nn.Module)}
+
+
 def _as_module(fn: Callable) -> torch.nn.Module:
+    """``fn`` as the root module to export.  A plain function becomes the
+    forward of a wrapper that holds the modules it reads as submodules
+    under their names, so their calls keep their module scopes (and thus
+    their regions) in the exported graph."""
     if isinstance(fn, torch.nn.Module):
         return fn
 
@@ -93,7 +117,10 @@ def _as_module(fn: Callable) -> torch.nn.Module:
         def forward(self, *args):
             return fn(*args)
 
-    return _Program()
+    program = _Program()
+    for name, module in _closure_modules(fn).items():
+        program.add_module(name, module)
+    return program
 
 
 def _is_dim0_flip(node) -> bool:
@@ -227,8 +254,10 @@ def _check_devices(target: Any, example_args: tuple,
                    device: torch.device) -> None:
     tensors = [l for l in pytree.tree_leaves(example_args)
                if isinstance(l, torch.Tensor)]
-    if isinstance(target, torch.nn.Module):
-        tensors += list(target.parameters()) + list(target.buffers())
+    modules = [target] if isinstance(target, torch.nn.Module) \
+        else _closure_modules(target).values()
+    for module in modules:
+        tensors += list(module.parameters()) + list(module.buffers())
     wrong = {str(t.device) for t in tensors if t.device.type != device.type}
     if wrong:
         raise ValueError(f"planning on {device} but the program's tensors "

@@ -1,8 +1,10 @@
 """Port of ``repro/core/frontends/registry.py``: the frontend protocol,
 ``OffloadConfig`` (with a ``device`` field: plans run on ``cuda`` unless the
-caller asks for the CPU) and the registry.  :func:`detect_frontend` routes
-an ``nn.Module``, or a callable with torch ``example_args``, to ``export``.
-The ``ir`` frontend and the static-cost fitness are not ported yet.
+caller asks for the CPU), the registry and the static-cost fitness
+(:func:`static_cost_fitness_factory`).  :func:`detect_frontend` routes an
+architecture config to ``module``, and an ``nn.Module``, or a callable
+with torch ``example_args``, to ``export``.  The ``ir`` frontend is not
+ported yet.
 
 Frontend protocol + registry: the "common method" switchboard.
 
@@ -29,6 +31,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
+from repro_torch.core.evaluator import transfer_cost_surrogate
 from repro_torch.core.ga import Evaluation, GAConfig
 from repro_torch.core.genes import GeneCoding
 from repro_torch.core.ir import RegionGraph
@@ -36,7 +39,7 @@ from repro_torch.core.ir import RegionGraph
 __all__ = [
     "Frontend", "FitnessBundle", "OffloadConfig",
     "register_frontend", "get_frontend", "frontend_names", "detect_frontend",
-    "decoded_pattern", "resolve_alphabet",
+    "decoded_pattern", "resolve_alphabet", "static_cost_fitness_factory",
 ]
 
 
@@ -206,14 +209,50 @@ def frontend_names() -> tuple[str, ...]:
 
 
 def detect_frontend(target: Any, config: OffloadConfig) -> str:
-    """Map a target to a registered frontend name: an ``nn.Module``, or a
-    callable with ``example_args``, is a ``torch.export`` program."""
+    """Map a target to a registered frontend name (duck-typed, so the
+    registry never imports a concrete frontend module): an architecture
+    config is a ``module`` target; an ``nn.Module``, or a callable with
+    ``example_args``, is a ``torch.export`` program."""
     import torch
 
+    if hasattr(target, "arch_id") and hasattr(target, "family"):
+        return "module"                        # an ArchConfig
     if isinstance(target, torch.nn.Module):
         return "export"
     if callable(target) and "example_args" in config.options:
         return "export"
     raise TypeError(f"cannot detect a frontend for target of type "
-                    f"{type(target).__name__}: the port plans nn.Modules "
-                    f"and callables with options['example_args']")
+                    f"{type(target).__name__}: the port plans architecture "
+                    f"configs, nn.Modules and callables with "
+                    f"options['example_args']")
+
+
+# ---------------------------------------------------------------------------
+# shared static-cost fitness (frontends without an execution path yet)
+# ---------------------------------------------------------------------------
+
+
+def static_cost_fitness_factory(graph: RegionGraph, unit_s: float = 1e-6
+                                ) -> Callable[[GeneCoding], Callable]:
+    """Deterministic fitness from the transfer planner's static cost.
+
+    The stand-in verification environment for frontends whose offloaded
+    implementations don't exist yet (jaxpr kernel substitution, bare region
+    graphs): estimated transfer volume decides, more offloaded work breaks
+    ties.  Deterministic, so fixed-seed searches reproduce exactly; every
+    Evaluation is tagged ``static_cost`` so results are never mistaken for
+    measurements.
+    """
+    def factory(coding: GeneCoding) -> Callable[[tuple], Evaluation]:
+        cost = transfer_cost_surrogate(graph, coding)
+
+        def fit(values: tuple) -> Evaluation:
+            values = tuple(values)
+            # the surrogate's more-offload tiebreak is a tiny negative term;
+            # keep it (floor only guards against a pathological surrogate)
+            t = unit_s * max(1.0 + cost(values), 1e-9)
+            return Evaluation(values, t, True, {"static_cost": True})
+
+        return fit
+
+    return factory

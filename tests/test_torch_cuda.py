@@ -348,3 +348,96 @@ def test_rglru_wrapper_counts_its_route_on_card(cuda, b, s, d, time_major,
         k: n + (k == route) for k, n in before.items()}
     torch.testing.assert_close(got, trg.rglru_scan_plain(la, bb, h),
                                atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# a whole (reduced) model on the card: the kernels at every site, serving
+# ---------------------------------------------------------------------------
+
+
+def _reduced_qwen3(device, dtype=torch.float32):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen3_0_6b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), dtype=dtype,
+                        device=device)
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    return cfg, model, params, tokens.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_plan_binds_the_kernels_at_every_site_on_card(cuda, dtype):
+    """The forced all-kernel plan of a reduced model's prefill launches
+    flash once a layer and RMSNorm at every norm; in f32 it matches the
+    unsubstituted program at 1e-4 (in bf16 a rounding flip moves later
+    layers by more than the verifier's 1e-2: only finite outputs of the
+    program's shapes are checked)."""
+    from repro_torch.core.offload import OffloadConfig, Offloader
+    from repro_torch.models import REFERENCE_PLAN
+
+    cfg, model, params, tokens = _reduced_qwen3(cuda, _DTYPES[dtype])
+    plan = REFERENCE_PLAN.replace(compute_dtype=dtype)
+    ctx = Offloader(OffloadConfig(options={"example_args": (tokens,)})).prepare(
+        lambda tok: model.prefill(params, {"tokens": tok}, plan))
+    engine = ctx.bundle.context["engine"]
+    bits = tuple(2 if ctx.graph.by_name(s.region).meta.get("pattern") else 0
+                 for s in ctx.coding.sites)
+    sub = engine.substitute(ctx.coding.decode(bits))
+    assert [c.chosen for c in sub.report.choices if c.pattern] == \
+        ["cuda"] * (5 * cfg.n_layers + 1)
+    tops.reset_launch_counts()
+    logits, state = sub(tokens)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert tops.launch_counts()["rmsnorm"] == 4 * cfg.n_layers + 1
+    want_logits, want_state = engine.reference()
+    assert logits.shape == want_logits.shape
+    assert bool(torch.isfinite(logits).all())
+    if dtype == "bfloat16":
+        return
+    torch.testing.assert_close(logits, want_logits, atol=1e-4, rtol=0)
+    for kv, want in zip(state["kv"], want_state["kv"]):
+        torch.testing.assert_close(kv.k, want.k, atol=1e-4, rtol=0)
+        torch.testing.assert_close(kv.v, want.v, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_prefill_and_decode_on_card_match_the_cpu(cuda):
+    from repro_torch.models import REFERENCE_PLAN
+
+    plan = REFERENCE_PLAN.replace(compute_dtype="float32")
+    _, model, params, tokens = _reduced_qwen3(cuda)
+    _, _, cpu_params, cpu_tokens = _reduced_qwen3("cpu")
+    with torch.no_grad():
+        outs = []
+        for p, t in ((params, tokens), (cpu_params, cpu_tokens)):
+            _, state = model.prefill(p, {"tokens": t}, plan,
+                                     cache_capacity=70)
+            logits, state = model.decode(p, t[:, :1], state, plan)
+            outs.append((logits, state))
+    (g, gs), (c, cs) = outs
+    assert gs["cache_len"].device.type == "cuda"
+    torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=0)
+    for a, b in zip(gs["kv"], cs["kv"]):
+        torch.testing.assert_close(a.k.cpu(), b.k, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_server_generates_on_card(cuda):
+    from repro_torch.models import OFFLOAD_PLAN, REFERENCE_PLAN
+    from repro_torch.runtime.serve import Server
+
+    cfg, model, params, tokens = _reduced_qwen3(cuda, torch.bfloat16)
+    server = Server(model, params, OFFLOAD_PLAN)
+    a = server.generate({"tokens": tokens}, 6)
+    b = server.generate({"tokens": tokens}, 6)
+    assert a.shape == (2, 6) and ((a >= 0) & (a < cfg.vocab)).all()
+    np.testing.assert_array_equal(a, b)
+    server.swap_plan(REFERENCE_PLAN)
+    np.testing.assert_array_equal(
+        server.generate({"tokens": tokens}, 6),
+        Server(model, params, REFERENCE_PLAN).generate({"tokens": tokens}, 6))
