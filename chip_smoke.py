@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero before the last line:
    shared memory (``ptxas -v``); the RMSNorm and RG-LRU kernels must not
    spill;
 2. each kernel against its plain PyTorch version on the card at the main
-   paths' shapes (and a few edge cases), with its time (CUDA events, median
+   paths' shapes (path H's: flash at (2, 2048, 10 / 1 heads, 256) f32 and
+   bf16, RMSNorm at (4096, 2560) and (2, 2560) f32, RG-LRU from a nonzero
+   state; and a few edge cases), with its time (CUDA events, median
    of 25 launches, L2 flushed before each; the plain scan loops, median of
    5), the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one (``library_ms``, timed
@@ -32,7 +34,9 @@ Phases, in order; any failure exits non-zero before the last line:
 3. the main paths, each through ``Offloader.plan`` with the launch
    counters set to 0 just before it and read just after.  Each plan must
    verify; the forced all-kernel plan must bind the CUDA kernels at every
-   matched site and match the unsubstituted program; no chromosome that
+   matched site and match the unsubstituted program, and one forward of it
+   must launch each kernel once a site, by the kernel path, RMSNorm
+   variant and RG-LRU route the path's shapes select; no chromosome that
    selects a kernel may have failed with an error; then, for the
    all-reference program, the plan's winner and the all-kernel program,
    where one forward's time goes (``torch.profiler``: device time, idle
@@ -66,6 +70,26 @@ Phases, in order; any failure exits non-zero before the last line:
      tokens, twice (identical tokens), then under ``REFERENCE_PLAN`` after
      ``swap_plan`` (the tokens of a server built on that plan), with the
      prefill time, the decode time per token and tokens/s;
+   - H: the whole RecurrentGemma-2B (26 layers at full width in the
+     pattern rglru, rglru, local attention; random weights from seed 0 in
+     the reference's distributions) built with ``build_model``, its
+     prefill of (2, 2048) tokens -- S = the local window, so the local
+     attention is exactly causal -- planned like M in f32 (the ``step``
+     scan: one scan site a recurrent sublayer), GA 6 x 3: 18
+     ``linear_recurrence`` + 8 ``softmax_attention`` + 53 ``rmsnorm`` sites;
+     one forward of the forced all-kernel plan must launch RG-LRU 18 times
+     (all ``tma``), flash 8 times (all ``scalar``) and RMSNorm 53 times
+     (all ``d2560_l32``).  The all-reference program (~220k launches) is
+     profiled for one forward.  Then the bf16 diagnostic of the forced
+     all-kernel prefill, and ``Server.generate`` in bf16 under
+     ``OFFLOAD_PLAN`` (the ``assoc`` scan in prefill; RG-LRU states and ring
+     caches in decode): 4 requests of 512 prompt tokens and 16 greedy new
+     tokens, twice (identical tokens), with the launches of a decode step.
+
+   On every path the verifier runs as the fitness runs it (the reference
+   kept on the card, each pair compared there in f64; ``verify_s``) and as
+   the parent commit ran it (the reference as f64 host arrays, the
+   candidate copied over; ``verify_host_s``);
 4. a ``{"kernels": [...]}`` line (each RMSNorm and RG-LRU entry carries its
    per-shape rows beside the path sums), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -74,7 +98,10 @@ Needs a CUDA device; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
+import copy
 import ctypes
+import functools
 import json
 import math
 import shutil
@@ -122,8 +149,9 @@ PEAK_BYTES_PER_S = 3.35e12
 BATCH, SEQ = 2, 2048
 #: path W: one WKV head at RWKV-6-3B's head width
 WKV_SEQ, WKV_DIM = 4096, 64
-#: path M's serving requests: 4 prompts of 512 tokens, 32 new tokens each
-SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 32
+#: serving requests: 4 prompts of 512 tokens, 32 new tokens each (path M's
+#: model), 16 (path H's)
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_NEW_H = 4, 512, 32, 16
 SEED = 0
 REPEATS = 25
 #: the plain scan loops take thousands of launches a call
@@ -412,6 +440,13 @@ def launch_breakdown_us(fn, calls: int = 5) -> dict:
             for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
+def flash_keys(row: dict) -> dict:
+    return {k: row[k] for k in ("shape", "dtype", "path", "design",
+                                "max_abs_err", "block_rel_err", "ms",
+                                "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}
+
+
 def _entry(name, path_row, **extra):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
@@ -446,12 +481,29 @@ def phase_kernels(dev) -> dict:
         norms_m[(n, d)] = rmsnorm_case(dev, n, d, f32, 1e-5, flush, gen)
         print("rmsnorm  ", json.dumps(norms_m[(n, d)]), flush=True)
 
+    # path H's 53 calls per prefill, in f32: ln1 and ln2 of each of 26
+    # sublayers and the final norm over the last token's rows
+    path_h_norms = [(tokens, rg.d_model)] * (2 * rg.n_layers) \
+        + [(BATCH, rg.d_model)]
+    norms_h = {}
+    for n, d in sorted(set(path_h_norms)):
+        norms_h[(n, d)] = rmsnorm_case(dev, n, d, f32, 1e-5, flush, gen)
+        print("rmsnorm  ", json.dumps(norms_h[(n, d)]), flush=True)
+
     path_flash = flash_case(dev, BATCH, SEQ, SEQ, nq, nkv, hd, True, bf16,
                             2e-2, 1e-2, flush, gen)
     print("flash    ", json.dumps(path_flash), flush=True)
     path_m_flash = flash_case(dev, BATCH, SEQ, SEQ, nq, nkv, hd, True, f32,
                               2e-5, 1e-4, flush, gen)
     print("flash    ", json.dumps(path_m_flash), flush=True)
+    # path H's local attention at S = window: MQA, 10 heads of 256; f32 on
+    # the path, bf16 for the diagnostic and serving
+    path_h_flash = {
+        dt: flash_case(dev, BATCH, SEQ, SEQ, rg.n_heads, rg.n_kv_heads,
+                       rg.resolved_head_dim, True, dt, *tols, flush, gen)
+        for dt, tols in ((f32, (2e-5, 1e-4)), (bf16, (2e-2, 1e-2)))}
+    for row in path_h_flash.values():
+        print("flash    ", json.dumps(row), flush=True)
     for case in [(2, 1000, 1000, 4, 2, 128, True),    # ragged S=1000
                  (2, 130, 70, 4, 2, 64, True),        # Sq != Sk, hd 64
                  (2, 512, 512, 4, 2, 64, False),      # non-causal
@@ -467,7 +519,11 @@ def phase_kernels(dev) -> dict:
     path_rglru = rglru_case(dev, BATCH, SEQ, rg.d_rnn_resolved, h0=False,
                             time_major=True, flush=flush, gen=gen)
     print("rglru    ", json.dumps(path_rglru), flush=True)
-    rglru_rows = [path_rglru]
+    # the decode continuation's fold: path H's shape from a nonzero state
+    path_h_rglru_h0 = rglru_case(dev, BATCH, SEQ, rg.d_rnn_resolved, h0=True,
+                                 time_major=True, flush=flush, gen=gen)
+    print("rglru    ", json.dumps(path_h_rglru_h0), flush=True)
+    rglru_rows = [path_rglru, path_h_rglru_h0]
     for b, s, d, h0 in [(1, 1000, 384, False),        # ragged S; 12 blocks
                         (2, 512, 2560, True),         # nonzero h0
                         (3, 1000, 130, False),        # D = 130: cp_async
@@ -512,6 +568,10 @@ def phase_kernels(dev) -> dict:
                 **norm_sums(path_m_norms, norms_m),
                 "shapes": [{k: norms_m[nd][k] for k in row_keys}
                            for nd in sorted(norms_m)]},
+        path_h={"calls_per_prefill": len(path_h_norms),
+                **norm_sums(path_h_norms, norms_h),
+                "shapes": [{k: norms_h[nd][k] for k in row_keys}
+                           for nd in sorted(norms_h)]},
         shapes=[{k: norms[nd][k] for k in row_keys}
                 for nd in sorted(norms)])
     flash_entry = _entry("flash_attention", path_flash,
@@ -521,13 +581,19 @@ def phase_kernels(dev) -> dict:
                          block_rel_err=path_flash["block_rel_err"],
                          host_us=path_flash["host_us"],
                          path_m={"calls_per_prefill": cfg.n_layers,
-                                 **{k: path_m_flash[k] for k in (
-                                     "shape", "dtype", "path", "design",
-                                     "max_abs_err", "block_rel_err", "ms",
-                                     "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}})
+                                 **flash_keys(path_m_flash)},
+                         path_h={"calls_per_prefill": rg.n_layers // 3,
+                                 **flash_keys(path_h_flash[f32]),
+                                 "bf16": flash_keys(path_h_flash[bf16])})
     rglru_entry = _entry("rglru_scan", path_rglru,
                          replaces="src/repro/kernels/rglru_scan.py:55",
+                         path_h={"calls_per_prefill": 2 * (rg.n_layers // 3)
+                                 + rg.n_layers % 3,
+                                 "note": "the prefill's calls run path R's "
+                                         "row (h0 = 0, time-major)",
+                                 "h0_row": {k: path_h_rglru_h0[k] for k in (
+                                     "shape", "route", "max_abs_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by")}},
                          shape=path_rglru["shape"], design=RGLRU_DESIGN,
                          load_route=path_rglru["route"],
                          forced_routes=path_rglru["forced_routes"],
@@ -618,6 +684,42 @@ def path_m(dev):
             (tokens,))
 
 
+@functools.lru_cache(maxsize=1)
+def _recurrentgemma_f32(dev):
+    cfg = get_config("recurrentgemma_2b")
+    gen = torch.Generator().manual_seed(SEED)
+    model = build_model(cfg)
+    params = model.init(gen, dtype=torch.float32, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=gen)
+    return model, params, tokens.to(dev)
+
+
+def recurrentgemma_model(dev, dtype):
+    """The whole RecurrentGemma-2B (26 layers, full width), weights drawn
+    from seed 0 in the reference's distributions on a CPU generator, then
+    moved to the card; tokens uniform in [0, vocab) from the same
+    generator, batch 2 x 2048 (= the local window).  The f32 draw is made
+    once and kept on the card; another ``dtype`` is that draw cast as
+    ``Model.init`` casts it (every weight but the RG-LRU's ``lam``)."""
+    model, params, tokens = _recurrentgemma_f32(dev)
+    if dtype != torch.float32:
+        memo = {id(w): torch.nn.Parameter(w.detach().to(dtype))
+                for name, w in params.named_parameters()
+                if not name.endswith(".lam")}
+        params = copy.deepcopy(params, memo)
+    return model, params, tokens
+
+
+def path_h(dev):
+    model, params, tokens = recurrentgemma_model(dev, torch.float32)
+    check(SEQ == model.cfg.local_window,
+          "path H: the causal flash kernel binds local attention only at "
+          "S = window")
+    plan = REFERENCE_PLAN.replace(compute_dtype="float32")
+    return (lambda tok: model.prefill(params, {"tokens": tok}, plan),
+            (tokens,))
+
+
 #: path M plans the prefill in f32: in bf16 one rounding flip of a
 #: normalized key (|k| up to ~4, a bf16 step of 0.0156 there) fails the
 #: verifier's 1e-2 (see the bf16 diagnostic)
@@ -625,6 +727,12 @@ PATH_M_DTYPE = torch.float32
 #: sites of path M: attention and four norms a layer, and the final norm
 PATH_M_SITES = ([("softmax_attention", "cuda")] * 28
                 + [("rmsnorm", "cuda")] * (4 * 28 + 1))
+
+#: sites of path H: 18 recurrences, 8 local attentions, two norms a
+#: sublayer and the final norm
+PATH_H_SITES = ([("linear_recurrence", "cuda")] * 18
+                + [("softmax_attention", "cuda")] * 8
+                + [("rmsnorm", "cuda")] * (2 * 26 + 1))
 
 PATHS = {
     # label: (program maker, GA population x generations, expected (pattern,
@@ -637,6 +745,8 @@ PATHS = {
           + [("rmsnorm", "cuda")] * 2, ("rglru_scan", "rmsnorm"), 3),
     "W": (path_w, (6, 3), [("wkv_recurrence", "cuda")], ("wkv6",), 2),
     "M": (path_m, (8, 4), PATH_M_SITES, ("flash_attention", "rmsnorm"), 3),
+    "H": (path_h, (6, 3), PATH_H_SITES,
+          ("flash_attention", "rmsnorm", "rglru_scan"), 1),
 }
 
 
@@ -649,10 +759,34 @@ PATTERN_KERNEL = {"softmax_attention": "flash_attention",
 #: the q/k-norms' head_dim 128; path R: d_model 2560, all bf16), and the
 #: RG-LRU route path R's time-major views take
 PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"},
-                 "M": {"d1024_l32", "d128_l32"}}
-PATH_ROUTES = {"R": {"tma"}}
-#: the flash path each path's launches take (path M in f32: ``scalar``)
-PATH_FLASH = {"Q": "wgmma", "M": "scalar"}
+                 "M": {"d1024_l32", "d128_l32"}, "H": {"d2560_l32"}}
+PATH_ROUTES = {"R": {"tma"}, "H": {"tma"}}
+#: the flash path each path's launches take (paths M and H in f32, path H
+#: at head dim 256: ``scalar``)
+PATH_FLASH = {"Q": "wgmma", "M": "scalar", "H": "scalar"}
+
+
+def sub_counts() -> dict:
+    """Each kernel's launches by flash path, RMSNorm variant, RG-LRU route."""
+    return {"flash_attention": dict(ops.flash_attention.launches_by_path),
+            "rmsnorm": dict(ops.rmsnorm.launches_by_variant),
+            "rglru_scan": dict(ops.rglru_scan.launches_by_route)}
+
+
+def check_sub_counts(label, what, counts, launches, kernels) -> None:
+    """Every launch in ``counts`` went through the flash path, RMSNorm
+    variants and RG-LRU route that path ``label``'s shapes select."""
+    want = {"flash_attention": {PATH_FLASH.get(label)},
+            "rmsnorm": PATH_VARIANTS.get(label),
+            "rglru_scan": PATH_ROUTES.get(label)}
+    for name in kernels:
+        if want.get(name) in (None, {None}):
+            continue
+        got = {k for k, n in counts[name].items() if n}
+        check(got == want[name] and sum(counts[name].values())
+              == launches[name],
+              f"path {label}: {what}: {name} launches went through "
+              f"{counts[name]}, not {sorted(want[name])}")
 
 
 def phase_path(label, dev, scratch: Path) -> tuple:
@@ -678,33 +812,18 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    flash_paths = dict(ops.flash_attention.launches_by_path)
-    sub_counts = {"flash_attention": flash_paths,
-                  "rmsnorm": dict(ops.rmsnorm.launches_by_variant),
-                  "rglru_scan": dict(ops.rglru_scan.launches_by_route)}
+    search_counts = sub_counts()
+    flash_paths = search_counts["flash_attention"]
     print(f"path {label} launches:", json.dumps(launches),
           "flash by kernel path:", json.dumps(flash_paths),
-          "rmsnorm by variant:", json.dumps(sub_counts["rmsnorm"]),
-          "rglru by route:", json.dumps(sub_counts["rglru_scan"]),
+          "rmsnorm by variant:", json.dumps(search_counts["rmsnorm"]),
+          "rglru by route:", json.dumps(search_counts["rglru_scan"]),
           flush=True)
     for name in kernels:
         check(launches[name] > 0,
               f"path {label}: the {name} kernel was never launched by the "
               f"search")
-    if "flash_attention" in kernels:
-        want = PATH_FLASH[label]
-        check(flash_paths[want] == launches["flash_attention"],
-              f"path {label}: flash launches went through {flash_paths}, "
-              f"not all through the {want} path")
-    for name, want in (("rmsnorm", PATH_VARIANTS.get(label)),
-                       ("rglru_scan", PATH_ROUTES.get(label))):
-        if name not in kernels:
-            continue
-        got = {k for k, n in sub_counts[name].items() if n}
-        check(got == want and sum(sub_counts[name].values())
-              == launches[name],
-              f"path {label}: {name} launches went through "
-              f"{sub_counts[name]}, not {sorted(want)}")
+    check_sub_counts(label, "the search", search_counts, launches, kernels)
 
     check(res.verification["verified"], f"path {label}: the winning plan "
                                         f"did not verify")
@@ -727,27 +846,39 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     check(sorted(chosen) == sorted(expected),
           f"path {label}: forced all-kernel plan did not bind the kernels: "
           f"{chosen} ({forced.report.fallbacks})")
-    before = ops.launch_counts()
+    ops.reset_launch_counts()
     forced_out = forced(*args)
     torch.cuda.synchronize()
-    forced_launches = {k: n - before[k] for k, n in ops.launch_counts().items()
-                       if n != before[k]}
+    forced_launches = {k: n for k, n in ops.launch_counts().items() if n}
+    forced_counts = sub_counts()
     want = {name: sum(1 for p, _ in expected if PATTERN_KERNEL[p] == name)
             for name in kernels}
     check(forced_launches == want,
           f"path {label}: one forward of the forced all-kernel plan launched "
           f"{forced_launches}, not {want}")
-    # the verifier as the fitness runs it: the reference already on the
-    # host in f64, the candidate converted and compared
+    check_sub_counts(label, "one forward of the forced all-kernel plan",
+                     forced_counts, forced_launches, kernels)
+    # the verifier as the fitness runs it: the reference kept on the card,
+    # each pair compared there in f64; and as the parent commit ran it:
+    # the reference as f64 host arrays, the candidate copied over
+    t0 = time.perf_counter()
+    fv = verify(reference, forced_out, rtol=1e-2, atol=1e-2)
+    verify_s = time.perf_counter() - t0
     reference64 = pytree.tree_map(
         lambda x: x.detach().to("cpu", torch.float64).numpy(), reference)
     t0 = time.perf_counter()
-    fv = verify(reference64, forced_out, rtol=1e-2, atol=1e-2)
-    verify_s = time.perf_counter() - t0
+    fv_host = verify(reference64, forced_out, rtol=1e-2, atol=1e-2)
+    verify_host_s = time.perf_counter() - t0
     del reference64
+    check((fv_host.ok, fv_host.max_abs, fv_host.max_rel)
+          == (fv.ok, fv.max_abs, fv.max_rel),
+          f"path {label}: the verifier on the card ({fv}) and on the host "
+          f"({fv_host}) disagree")
     print(f"path {label} forced all-kernel plan: {len(chosen)} sites bound, "
           f"max_abs {fv.max_abs} max_rel {fv.max_rel}, one forward "
-          f"launched {json.dumps(forced_launches)}", flush=True)
+          f"launched {json.dumps(forced_launches)} by "
+          f"{json.dumps(forced_counts)}; verify {verify_s:.4f} s on the "
+          f"card, {verify_host_s:.4f} s on the host", flush=True)
     check(fv.ok, f"path {label}: forced all-kernel plan differs from the "
                  f"program: {fv}")
 
@@ -779,25 +910,29 @@ def phase_path(label, dev, scratch: Path) -> tuple:
         "artifact_max_abs": v.max_abs, "forced_max_abs": fv.max_abs,
         "forced_max_rel": fv.max_rel, "forced_launches": forced_launches,
         "substitute_s": substitute_s, "verify_s": verify_s,
+        "verify_host_s": verify_host_s,
         "graph_nodes": len(engine.gm.graph.nodes),
         "gene_length": res.coding.length,
+        "sites": dict(collections.Counter(
+            p for p in matched.values() if p)),
         "launches": launches, "flash_launches_by_kernel_path": flash_paths,
-        "rmsnorm_launches_by_variant": sub_counts["rmsnorm"],
-        "rglru_launches_by_route": sub_counts["rglru_scan"]}
+        "rmsnorm_launches_by_variant": search_counts["rmsnorm"],
+        "rglru_launches_by_route": search_counts["rglru_scan"]}
     print(f"path {label}:", json.dumps(summary), flush=True)
     unsubstituted = engine.substitute({})
     for name, fn in (("baseline (all ref)", unsubstituted),
                      ("plan winner", res.artifact), ("all kernels", forced)):
         print(f"where the time goes, path {label}, {name}:",
               json.dumps(where_time_goes(fn, args, iters)), flush=True)
-    return launches, {k: sub_counts[k] for k in kernels if k in sub_counts}
+    return launches, {k: search_counts[k] for k in kernels
+                      if k in search_counts}
 
 
-def bf16_diagnostic(dev) -> dict:
-    """Path M's forced all-kernel prefill in bf16 against the bf16
-    reference: each output leaf's largest errors (logits, then the K and V
-    caches of each layer).  Nothing is asserted on them."""
-    model, params, tokens = qwen3_model(dev, torch.bfloat16)
+def bf16_diagnostic(dev, label: str, make_model, n_sites: int) -> dict:
+    """Path ``label``'s forced all-kernel prefill in bf16 against the bf16
+    reference: each output leaf's largest errors (logits, then the decode
+    state's leaves).  Nothing is asserted on them."""
+    model, params, tokens = make_model(dev, torch.bfloat16)
     plan = REFERENCE_PLAN
     offloader = Offloader(OffloadConfig(
         device=str(dev), options={"example_args": (tokens,)}))
@@ -809,40 +944,40 @@ def bf16_diagnostic(dev) -> dict:
         for site in ctx.coding.sites)
     forced = engine.substitute(ctx.coding.decode(forced_bits))
     bound = sum(c.chosen == "cuda" for c in forced.report.choices)
-    check(bound == len(PATH_M_SITES),
-          f"bf16 diagnostic: {bound} sites bound to the kernels, not "
-          f"{len(PATH_M_SITES)}")
+    check(bound == n_sites,
+          f"bf16 diagnostic {label}: {bound} sites bound to the kernels, not "
+          f"{n_sites}")
     got = forced(tokens)
     torch.cuda.synchronize()
     want = engine.reference()
-    logits, state = want
-    names = ["logits"] + [f"{kv}{i}" for i in range(len(state["kv"]))
-                          for kv in ("k", "v")] + ["cache_len"]
-    leaves = zip(names, pytree.tree_leaves(want), pytree.tree_leaves(got))
     per_leaf = {}
-    for name, r, c in leaves:
+    for (path, r), c in zip(pytree.tree_flatten_with_path(want)[0],
+                            pytree.tree_leaves(got)):
         lv = verify(r, c, rtol=1e-2, atol=1e-2)
-        per_leaf[name] = {"max_abs": lv.max_abs, "max_rel": lv.max_rel,
-                          "ok": lv.ok}
+        per_leaf[pytree.keystr(path)] = {"max_abs": lv.max_abs,
+                                         "max_rel": lv.max_rel, "ok": lv.ok}
     whole = verify(want, got, rtol=1e-2, atol=1e-2)
+    worst = max(per_leaf, key=lambda n: per_leaf[n]["max_abs"])
     out = {"verified": whole.ok, "max_abs": whole.max_abs,
-           "max_rel": whole.max_rel,
+           "max_rel": whole.max_rel, "worst_leaf": worst,
            "leaves_failing": sorted(n for n, lv in per_leaf.items()
                                     if not lv["ok"]),
            "per_leaf": per_leaf}
-    print("bf16 diagnostic, path M forced all-kernel prefill:",
+    print(f"bf16 diagnostic, path {label} forced all-kernel prefill:",
           json.dumps(out), flush=True)
     return out
 
 
-def serve_phase(dev) -> dict:
-    """``Server.generate`` on the whole Qwen3-0.6B in bf16 under
-    ``OFFLOAD_PLAN``: 4 requests of 512 prompt tokens, 32 greedy new
-    tokens.  Two calls give identical tokens; after ``swap_plan(
-    REFERENCE_PLAN)`` the next call gives the tokens of a server built on
-    that plan.  Times: a prefill (``max_new = 1``: prefill and one
-    sample), the whole call, and the decode time per token between them."""
-    model, params, _ = qwen3_model(dev, torch.bfloat16)
+def serve_phase(dev, label: str, make_model, new_tokens: int,
+                swap: bool) -> dict:
+    """``Server.generate`` on path ``label``'s model in bf16 under
+    ``OFFLOAD_PLAN``: 4 requests of 512 prompt tokens, ``new_tokens``
+    greedy new tokens.  Two calls give identical tokens; with ``swap``,
+    after ``swap_plan(REFERENCE_PLAN)`` the next call gives the tokens of a
+    server built on that plan.  Times: a prefill (``max_new = 1``: prefill
+    and one sample), the whole call, and the decode time per token between
+    them; and where one decode step's time goes (its device launches)."""
+    model, params, _ = make_model(dev, torch.bfloat16)
     cfg = model.cfg
     gen = torch.Generator().manual_seed(SEED + 1)
     prompts = {"tokens": torch.randint(
@@ -857,53 +992,59 @@ def serve_phase(dev) -> dict:
         return toks, time.perf_counter() - t0
 
     _, prefill_s = timed(1)
-    first, total_s = timed(SERVE_NEW)
-    second, _ = timed(SERVE_NEW)
-    check(first.shape == (SERVE_BATCH, SERVE_NEW),
-          f"serve: tokens of shape {first.shape}")
+    first, total_s = timed(new_tokens)
+    second, _ = timed(new_tokens)
+    check(first.shape == (SERVE_BATCH, new_tokens),
+          f"serve {label}: tokens of shape {first.shape}")
     check(bool(((first >= 0) & (first < cfg.vocab)).all()),
-          "serve: a token outside the vocab")
-    check((first == second).all(), "serve: two greedy calls differ")
-    server.swap_plan(REFERENCE_PLAN)
-    check(server.plan is REFERENCE_PLAN, "serve: swap_plan did not bind")
-    swapped = server.generate(prompts, SERVE_NEW)
-    fresh = Server(model, params, REFERENCE_PLAN).generate(prompts, SERVE_NEW)
-    check((swapped == fresh).all(),
-          "serve: the call after swap_plan did not run the new plan")
-    decode_s = (total_s - prefill_s) / (SERVE_NEW - 1)
+          f"serve {label}: a token outside the vocab")
+    check((first == second).all(), f"serve {label}: two greedy calls differ")
+    out = {"requests": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT,
+           "new_tokens": new_tokens, "dtype": "bfloat16",
+           "prefill_ms": prefill_s * 1e3, "generate_ms": total_s * 1e3,
+           "decode_ms_per_token": (total_s - prefill_s) / (new_tokens - 1)
+           * 1e3, "tokens_per_s": SERVE_BATCH * new_tokens / total_s}
+    out["decode_tokens_per_s"] = SERVE_BATCH / out["decode_ms_per_token"] \
+        * 1e3
+    if swap:
+        server.swap_plan(REFERENCE_PLAN)
+        check(server.plan is REFERENCE_PLAN,
+              f"serve {label}: swap_plan did not bind")
+        swapped = server.generate(prompts, new_tokens)
+        fresh = Server(model, params, REFERENCE_PLAN).generate(prompts,
+                                                               new_tokens)
+        check((swapped == fresh).all(), f"serve {label}: the call after "
+                                        f"swap_plan did not run the new plan")
+        out["same_tokens_offload_and_reference_plan"] = \
+            bool((first == swapped).all())
     # one decode step at the last position of these requests' caches
-    # (repeating it rewrites the same cache slot), where its time goes
+    # (repeating it rewrites the same cache slot; a hybrid model's RG-LRU
+    # state is read, not written), where its time goes
     bound = server._bound
     with torch.no_grad():
-        _, state = bound.prefill(prompts, SERVE_PROMPT + SERVE_NEW)
+        _, state = bound.prefill(prompts, SERVE_PROMPT + new_tokens)
         last = prompts["tokens"][:, -1:]
         step = where_time_goes(lambda: bound.decode(last, state), (), 5)
-    out = {"requests": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT,
-           "new_tokens": SERVE_NEW, "dtype": "bfloat16",
-           "prefill_ms": prefill_s * 1e3, "generate_ms": total_s * 1e3,
-           "decode_ms_per_token": decode_s * 1e3,
-           "tokens_per_s": SERVE_BATCH * SERVE_NEW / total_s,
-           "decode_tokens_per_s": SERVE_BATCH / decode_s,
-           "same_tokens_offload_and_reference_plan":
-               bool((first == swapped).all()),
-           "decode_step_reference_plan": step}
-    print("serve, path M:", json.dumps(out), flush=True)
+    out[f"decode_step_{'reference' if swap else 'offload'}_plan"] = step
+    print(f"serve, path {label}:", json.dumps(out), flush=True)
     return out
 
 
 def where_time_goes(fn, args, iters: int) -> dict:
     """One forward of ``fn``: host wall time (synchronized, no profiler)
     beside the time ``torch.profiler`` records for the device's own
-    activities (kernels, copies, memsets; CPU-side operator rows would count
-    their kernels twice), the device's idle share, and the kernels that take
-    the most time.  ``event_ms`` is the device's span of one forward by CUDA
-    events, each forward enqueued behind a ~5 ms GPU spin so that the host
-    is ahead and the span holds no host gaps (median of ``iters``); it does
-    not depend on the profiler seeing the kernels."""
+    activities (kernels, copies, memsets; the profiler traces the device
+    only: host operator rows would count their kernels twice, and tracing
+    them costs minutes on a program of ~220k launches), the device's idle
+    share, and the kernels that take the most time.  ``event_ms`` is the
+    device's span of one forward by CUDA events, each forward enqueued
+    behind a ~5 ms GPU spin so that the host is ahead and the span holds no
+    host gaps (median of ``iters``); it does not depend on the profiler
+    seeing the kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(min(3, iters + 1)):
         fn(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -922,7 +1063,7 @@ def where_time_goes(fn, args, iters: int) -> dict:
         end.synchronize()
         spans.append(start.elapsed_time(end))
     event_ms = statistics.median(spans)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn(*args)
         torch.cuda.synchronize()
@@ -1006,8 +1147,8 @@ def main() -> int:
         scratch = Path(tempfile.mkdtemp(prefix=f"plan-{label}-",
                                         dir=build.BUILD_DIR))
         try:
-            by_path[label], sub_counts = phase_path(label, dev, scratch)
-            for name, counts in sub_counts.items():
+            by_path[label], by_kernel = phase_path(label, dev, scratch)
+            for name, counts in by_kernel.items():
                 if name in sub_keys:
                     kernels[name].setdefault(sub_keys[name], {})[label] = \
                         counts
@@ -1015,11 +1156,18 @@ def main() -> int:
             shutil.rmtree(scratch)
         print(f"path {label} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
-    bf16_diagnostic(dev)
-    print(f"bf16 diagnostic done at {time.perf_counter() - t_start:.1f} s",
-          flush=True)
-    serve_phase(dev)
-    print(f"serve done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    for label, make_model, n_sites in (
+            ("M", qwen3_model, len(PATH_M_SITES)),
+            ("H", recurrentgemma_model, len(PATH_H_SITES))):
+        bf16_diagnostic(dev, label, make_model, n_sites)
+        print(f"bf16 diagnostic {label} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    for label, make_model, new_tokens, swap in (
+            ("M", qwen3_model, SERVE_NEW, True),
+            ("H", recurrentgemma_model, SERVE_NEW_H, False)):
+        serve_phase(dev, label, make_model, new_tokens, swap)
+        print(f"serve {label} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     for name, entry in kernels.items():
         per_path = {label: counts[name] for label, counts in by_path.items()
                     if name in PATHS[label][3]}

@@ -46,17 +46,24 @@ alphabet (:func:`annotate_variants`), which is what lets the substitution
 engine turn a plan into a runnable program and
 :meth:`ExportFrontend.make_fitness` measure real wall-clock time.
 
-A plain function is exported as the forward of a wrapper that holds the
-modules (``nn.Module``) the function reads by name (closure cells,
-globals) as submodules under those names: without them ``torch.export``
-records no module scopes for their calls, so ``lambda tok:
-model.prefill(params, ...)`` would lose every region.
+A target that is not a module -- a function, a ``functools.partial`` or a
+bound method -- is exported as the forward of a wrapper that holds the
+modules (``nn.Module``) it reaches (:func:`target_modules`: closure cells,
+loaded globals, a partial's arguments, a method's ``self``) as submodules
+under stable names: without them ``torch.export`` records no module scopes
+for their calls, so ``lambda tok: model.prefill(params, ...)`` would lose
+every region.  A program that calls modules yet records no module scope
+is refused, never planned as one silent region.
 
 Not ported yet: block sites (``annotate_block_sites``).
 """
 from __future__ import annotations
 
+import dis
+import functools
+import inspect
 import operator
+import types
 from typing import Any, Callable
 
 import numpy as np
@@ -67,7 +74,7 @@ from repro_torch.core import similarity as sim
 from repro_torch.core.ir import Region, RegionGraph
 
 __all__ = ["ExportFrontend", "annotate_variants", "build_graph",
-           "resolve_device"]
+           "resolve_device", "target_modules"]
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -90,26 +97,92 @@ def _scope(node) -> tuple:
     return (path, cls.rsplit(".", 1)[-1])
 
 
-def _closure_modules(fn: Callable) -> dict:
-    """The modules (``nn.Module``) a plain function reads by name: its closure
-    cells and the globals its code names (``lambda t: model.prefill(params,
-    ...)`` reads ``params``)."""
-    code = getattr(fn, "__code__", None)
-    if code is None:
-        return {}
-    found = dict(zip(code.co_freevars,
-                     (c.cell_contents for c in fn.__closure__ or ())))
-    scope = getattr(fn, "__globals__", {})
-    found.update({n: scope[n] for n in code.co_names if n in scope})
-    return {n: m for n, m in found.items()
-            if isinstance(m, torch.nn.Module)}
+def _loaded_globals(code) -> set:
+    """The global names ``code`` loads (``LOAD_GLOBAL``/``LOAD_NAME``, in
+    nested code objects too) -- not ``co_names``, which also lists
+    attribute names (``s.p`` names ``p``)."""
+    names = {ins.argval for ins in dis.get_instructions(code)
+             if ins.opname in ("LOAD_GLOBAL", "LOAD_NAME")}
+    for const in code.co_consts:
+        if isinstance(const, types.CodeType):
+            names |= _loaded_globals(const)
+    return names
+
+
+def target_modules(fn: Any) -> dict:
+    """The modules (``nn.Module``) a target reaches, by stable names:
+
+    - a module itself (a bound method's ``self``: ``"self"``);
+    - through a ``functools.partial``: its ``func``, and its ``args`` and
+      ``keywords`` under the names of the parameters they bind (``arg0``..
+      where the signature cannot be read), recursively;
+    - through a bound method: its function, and its ``__self__``, a module
+      or a plain object whose attributes hold modules (under those
+      attributes' names);
+    - through a function's closure cells (under the free variables'
+      names), recursively, and the globals its code loads.
+
+    A module reached twice keeps its first name; names that collide get a
+    ``_1``, ``_2``.. suffix."""
+    found: dict = {}
+    seen: set = set()
+
+    def add(name: str, module: torch.nn.Module) -> None:
+        if any(m is module for m in found.values()):
+            return
+        base, i = name, 0
+        while name in found:
+            i += 1
+            name = f"{base}_{i}"
+        found[name] = module
+
+    def visit(name: str, value: Any) -> None:
+        if id(value) in seen:
+            return
+        seen.add(id(value))
+        if isinstance(value, torch.nn.Module):
+            add(name, value)
+        elif isinstance(value, functools.partial):
+            visit(name, value.func)
+            try:
+                bound = inspect.signature(value.func).bind_partial(
+                    *value.args, **value.keywords).arguments
+            except (TypeError, ValueError):
+                bound = {**{f"arg{i}": a for i, a in enumerate(value.args)},
+                         **value.keywords}
+            for n, a in bound.items():
+                visit(n, a)
+        elif inspect.ismethod(value):
+            visit(name, value.__func__)
+            owner = value.__self__
+            if isinstance(owner, torch.nn.Module):
+                add("self", owner)
+            else:
+                for n, a in getattr(owner, "__dict__", {}).items():
+                    if isinstance(a, torch.nn.Module):
+                        add(n, a)
+        elif isinstance(value, types.FunctionType):
+            code = value.__code__
+            for n, cell in zip(code.co_freevars, value.__closure__ or ()):
+                try:
+                    visit(n, cell.cell_contents)
+                except ValueError:          # an empty cell
+                    pass
+            scope = value.__globals__
+            for n in sorted(_loaded_globals(code)):
+                if isinstance(scope.get(n), torch.nn.Module):
+                    add(n, scope[n])
+
+    visit("target", fn)
+    return found
 
 
 def _as_module(fn: Callable) -> torch.nn.Module:
-    """``fn`` as the root module to export.  A plain function becomes the
-    forward of a wrapper that holds the modules it reads as submodules
-    under their names, so their calls keep their module scopes (and thus
-    their regions) in the exported graph."""
+    """``fn`` as the root module to export.  Any other callable becomes the
+    forward of a wrapper that holds the modules it reaches
+    (:func:`target_modules`) as submodules under their names, so their
+    calls keep their module scopes (and thus their regions) in the
+    exported graph."""
     if isinstance(fn, torch.nn.Module):
         return fn
 
@@ -118,9 +191,46 @@ def _as_module(fn: Callable) -> torch.nn.Module:
             return fn(*args)
 
     program = _Program()
-    for name, module in _closure_modules(fn).items():
+    for name, module in target_modules(fn).items():
+        while hasattr(program, name):       # never shadow an attribute
+            name += "_"
         program.add_module(name, module)
     return program
+
+
+def _target_name(fn: Any) -> str:
+    if isinstance(fn, functools.partial):
+        return f"partial({_target_name(fn.func)})"
+    return getattr(fn, "__name__", type(fn).__name__)
+
+
+def _export(root: torch.nn.Module, example_args: tuple, label: str):
+    """``torch.export`` of ``root``, refusing a program that calls modules
+    when none of its nodes records a module scope: its modules were not
+    reached from the target, so it would be one silent region."""
+    called: list = []
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda m, _args: called.append(m) if m is not root else None)
+    try:
+        ep = torch.export.export(root, tuple(example_args))
+    finally:
+        handle.remove()
+    # export's own wrappers hold the root, and its graph modules (a scan's
+    # body) come from torch; every other call is the program's
+    read = sorted({type(m).__name__ for m in called
+                   if not any(x is root for x in m.modules())
+                   and (not type(m).__module__.startswith("torch.")
+                        or type(m).__module__.startswith("torch.nn."))})
+    gm = ep.module()
+    if read and not any(_scope(n)[0] for n in gm.graph.nodes
+                        if n.op == "call_function"):
+        raise ValueError(
+            f"{label}: calls modules ({', '.join(read)}) that the export "
+            f"frontend did not find, so the exported graph records no "
+            f"module scope and no site could match; reach them through a "
+            f"closure cell, a loaded global, a functools.partial argument or "
+            f"a bound method's self, or pass the module itself")
+    return gm
 
 
 def _is_dim0_flip(node) -> bool:
@@ -141,8 +251,8 @@ def _scan_structure(scan) -> dict:
 
 
 def build_graph(fn: Callable, *example_args, name: str = "") -> RegionGraph:
-    ep = torch.export.export(_as_module(fn), tuple(example_args))
-    gm = ep.module()
+    label = name or _target_name(fn)
+    gm = _export(_as_module(fn), example_args, label)
     nodes = [n for n in gm.graph.nodes if n.op == "call_function"]
 
     # stable var naming by first appearance (the fingerprint hashes these)
@@ -217,7 +327,6 @@ def build_graph(fn: Callable, *example_args, name: str = "") -> RegionGraph:
             alternatives=("ref", "kernel") if kind != "stmt" else (),
             trip_count=meta["scan"]["length"] if scan is not None else None,
             meta=meta))
-    label = name or getattr(fn, "__name__", type(fn).__name__)
     g = RegionGraph(regions, "export", label)
     g.meta["whole_program_vector"] = sim.export_vector(gm)
     # the exported program the node spans name, for the substitution engine
@@ -255,7 +364,7 @@ def _check_devices(target: Any, example_args: tuple,
     tensors = [l for l in pytree.tree_leaves(example_args)
                if isinstance(l, torch.Tensor)]
     modules = [target] if isinstance(target, torch.nn.Module) \
-        else _closure_modules(target).values()
+        else target_modules(target).values()
     for module in modules:
         tensors += list(module.parameters()) + list(module.buffers())
     wrong = {str(t.device) for t in tensors if t.device.type != device.type}
@@ -304,10 +413,11 @@ class ExportFrontend:
         engine = SubstitutionEngine(graph.meta["graph_module"], example_args,
                                     graph,
                                     registry=config.options.get("registry"))
-        # the reference once, as float64 host arrays (verify compares there)
+        # the reference once, kept where it was computed and in its own
+        # dtype: verify compares each tensor pair there, in float64
         reference_output = pytree.tree_map(
-            lambda x: x.detach().to("cpu", torch.float64).numpy()
-            if isinstance(x, torch.Tensor) else x, engine.reference())
+            lambda x: x.detach() if isinstance(x, torch.Tensor) else x,
+            engine.reference())
         args_sig = ",".join(
             f"{tuple(a.shape)}:{a.dtype}" if isinstance(a, torch.Tensor)
             else f"{np.shape(a)}:{type(a).__name__}"

@@ -144,7 +144,7 @@ class ModuleFrontend:
             raise NotImplementedError(
                 "module frontend: the compiled cost model (lower_fn) waits "
                 "for CostModelFitness, roofline.py and hlo_analysis.py "
-                "(ROADMAP.md queue 1 item 9)")
+                "(ROADMAP.md queue 1 item 6)")
         block = block_offload_pass(graph, config.db or default_db(),
                                    confirm=config.confirm)
         base = (opts.get("base_plan") or ExecPlan()).replace(

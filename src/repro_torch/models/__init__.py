@@ -1,6 +1,6 @@
-"""Port of ``repro/models``: the decoder-only LM of the dense and VLM
-families (``transformer``, ``api``), its plan knobs (``plan``), layers and
-attention, the RG-LRU sublayer of the hybrid family (``rglru``,
+"""Port of ``repro/models``: the decoder-only LM of the dense, VLM and
+hybrid families (``transformer``, ``api``), its plan knobs (``plan``),
+layers and attention, the RG-LRU block of the hybrid family (``rglru``,
 ``transformer.RecurrentSublayer``) and the JAX-parameter converters
 (``convert``)."""
 from repro_torch.models.api import Model, build_model

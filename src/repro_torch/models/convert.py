@@ -3,7 +3,9 @@
 ``model_from_jax`` takes the whole tree of the reference's ``init_params``
 (``repro/models/transformer.py``) as numpy arrays — ``embed``, ``lm_head``
 when embeddings are untied, ``final_norm``, ``blocks`` (each leaf stacked
-on axis 0 over the layers) and, for a VLM, ``projector`` — and returns an
+on axis 0 over the layers; for a hybrid model over the macro blocks, each
+``{"sub0": ..., "sub1": ...}``), a hybrid model's ``pre_blocks`` (a list
+of RG-LRU sublayers) and, for a VLM, ``projector`` — and returns an
 :class:`~repro_torch.models.transformer.LMParams` holding them.
 ``dense_block_from_jax`` takes one block of ``_dense_block_init`` —
 ``ln1``, ``ln2``, ``attn`` {wq, wk, wv, wo, bq, bk, bv, q_norm, k_norm},
@@ -60,17 +62,27 @@ def model_from_jax(params: Mapping, cfg, *, dtype: torch.dtype = torch.float32,
     dev = resolve_device(device)
     with torch.device("meta"):
         model = LMParams(cfg, dtype=dtype, device="meta")
+    hybrid = cfg.family == "hybrid"
+    n_stacked = cfg.n_layers // len(cfg.block_pattern) if hybrid \
+        else cfg.n_layers
     flat = {}
     for key, value in params.items():
         if key == "blocks":
             layers = {np.shape(v)[0] for v in _leaves(value)}
-            if layers != {cfg.n_layers}:
+            if layers != {n_stacked}:
                 raise ValueError(f"blocks: stacked over {sorted(layers)} "
-                                 f"layers, config has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
+                                 f"layers, config has {n_stacked}")
+            for i in range(n_stacked):
                 layer = _map(value, lambda a: np.asarray(a)[i])
-                flat.update({f"blocks.{i}.{k}": w
-                             for k, w in _block_params(layer).items()})
+                subs = layer.items() if hybrid else [("", layer)]
+                for sub, blk in subs:
+                    prefix = f"blocks.{i}.{sub}." if sub else f"blocks.{i}."
+                    flat.update({prefix + k: w
+                                 for k, w in _block_params(blk).items()})
+        elif key == "pre_blocks":
+            for i, blk in enumerate(value):
+                flat.update({f"pre_blocks.{i}.{k}": w
+                             for k, w in _block_params(blk).items()})
         elif key == "projector":
             flat.update({f"projector.{k}": w for k, w in value.items()})
         else:

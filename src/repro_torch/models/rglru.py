@@ -1,6 +1,5 @@
 """Port of ``repro/models/rglru.py``: the Griffin / RecurrentGemma recurrent
-block, conv1d + RG-LRU gated recurrence, in its ``step`` form (the
-reference's ``rglru_impl="step"``, what ``REFERENCE_PLAN`` runs).
+block, conv1d + RG-LRU gated recurrence, with its decode state.
 
 RG-LRU (arXiv:2402.19427)::
 
@@ -9,27 +8,45 @@ RG-LRU (arXiv:2402.19427)::
     log a_t = -c * softplus(Lambda) * r_t     (c = 8)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-The time scan is the submodule :class:`LinearRecurrence`, whose ``forward``
-is one ``torch._higher_order_ops.scan`` over time-major coefficients, so
-the export frontend isolates it as a scan region; the permutes to and from
-time-major stay outside it.  The reference's ``assoc``/``chunked`` scans
-and the decode state (``RGLRUState``) are not ported: the hand-written
-kernel takes the scan's place, and the initial state is zero.
+Scan implementations (``ExecPlan.rglru_impl``), as in the reference:
+
+* ``step``    -- the submodule :class:`LinearRecurrence`, whose ``forward``
+  is one ``torch._higher_order_ops.scan`` over time-major coefficients, so
+  the export frontend isolates it as a scan region (the permutes to and
+  from time-major stay outside it) and the registry can bind the RG-LRU
+  kernel there.  A prefill starts it from the zeros it builds itself, which
+  the registry folds away; decode passes the carried state.
+* ``assoc``   -- ``torch._higher_order_ops.associative_scan`` in its
+  ``generic`` mode (log depth), ``h0`` folded into the first step.
+* ``chunked`` -- a loop over time chunks with the associative scan inside;
+  falls back to ``assoc`` when the chunk does not divide the sequence.
+
+:func:`rglru_block` returns ``(y, RGLRUState(h, conv))``: the last state of
+the scan and the trailing ``conv1d_width - 1`` conv inputs, what a decode
+step continues from.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._higher_order_ops.associative_scan import associative_scan
 from torch._higher_order_ops.scan import scan
 
-from repro_torch.models.layers import cast, dense_init
+from repro_torch.models.layers import cast, cdtype, dense_init
+from repro_torch.models.plan import ExecPlan
 
-__all__ = ["LinearRecurrence", "conv1d_causal", "rglru_block", "rglru_init"]
+__all__ = ["LinearRecurrence", "RGLRUState", "conv1d_causal", "rglru_block",
+           "rglru_init", "rglru_scan"]
 
 _C = 8.0
+
+
+class RGLRUState(NamedTuple):
+    h: torch.Tensor      # (B, d_rnn) recurrence state, f32
+    conv: torch.Tensor   # (B, width - 1, d_rnn) trailing conv inputs
 
 
 def rglru_init(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:
@@ -51,6 +68,10 @@ def rglru_init(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:
         "b_x": torch.zeros(dr),
         "lam": torch.rand(dr, generator=generator) * 0.4 + 0.4,
     }
+
+
+#: the parameters the reference reads in f32 whatever the compute dtype
+F32_LEAVES = ("w_conv", "b_conv", "b_a", "b_x", "lam")
 
 
 def _gates(x: torch.Tensor, p: Mapping, cfg) -> tuple[torch.Tensor, torch.Tensor]:
@@ -78,30 +99,100 @@ def _coeffs(x: torch.Tensor, p: Mapping, cfg) -> tuple[torch.Tensor, torch.Tenso
     return log_a, b
 
 
-class LinearRecurrence(nn.Module):
-    """``h_t = exp(log_a_t) h_{t-1} + b_t`` from ``h_0 = 0`` over time-major
-    (S, B, D) coefficients -> states (S, B, D): one ``scan``, a submodule so
-    that its region holds the scan alone."""
+# --- the three scan implementations ----------------------------------------
 
-    def forward(self, log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+
+class LinearRecurrence(nn.Module):
+    """``h_t = exp(log_a_t) h_{t-1} + b_t`` over time-major (S, B, D)
+    coefficients from ``h0`` (B, D) -> (states (S, B, D), last state
+    (B, D)): one ``scan``, a submodule so that its region holds the scan
+    alone.  ``h0=None`` starts from zeros built here (the registry's
+    ``zero_init``)."""
+
+    def forward(self, log_a: torch.Tensor, b: torch.Tensor,
+                h0: Optional[torch.Tensor] = None) -> tuple:
         def step(h, xs):
             la, bt = xs
             h = torch.exp(la) * h + bt
             return h, h.clone()        # a scan's ys may not alias its carry
 
-        h0 = torch.zeros(log_a.shape[1:], dtype=log_a.dtype,
-                         device=log_a.device)
-        _, hs = scan(step, h0, (log_a, b))
-        return hs
+        if h0 is None:
+            h0 = torch.zeros(log_a.shape[1:], dtype=log_a.dtype,
+                             device=log_a.device)
+        h_last, hs = scan(step, h0, (log_a, b))
+        return hs, h_last
 
 
-def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
-                  bias: torch.Tensor) -> torch.Tensor:
-    """Causal depthwise conv.  x: (B,S,dr); w: (width, dr); f32 sums."""
+def _combine(c1, c2):
+    la1, b1 = c1
+    la2, b2 = c2
+    return la1 + la2, torch.exp(la2) * b1 + b2
+
+
+def _fold_h0(log_a: torch.Tensor, b: torch.Tensor,
+             h0: torch.Tensor) -> torch.Tensor:
+    """``b`` with ``exp(log_a[:, 0]) * h0`` added to its first step."""
+    first = b[:, :1] + torch.exp(log_a[:, :1]) * h0[:, None]
+    return torch.cat([first, b[:, 1:]], dim=1)
+
+
+def _scan_assoc(log_a: torch.Tensor, b: torch.Tensor,
+                h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Log-depth associative scan over the time axis (dim 1) of (B, S, D)
+    coefficients; ``h0`` folded into the first step."""
+    _, hs = associative_scan(_combine, (log_a, _fold_h0(log_a, b, h0)),
+                             dim=1, combine_mode="generic")
+    return hs, hs[:, -1]
+
+
+def _scan_chunked(log_a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+                  chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Time chunks of ``chunk`` steps in order, an associative scan inside
+    each, the state carried between them; ``assoc`` when the chunk does
+    not divide S."""
+    s = b.shape[1]
+    c = min(chunk, s)
+    if s % c != 0:
+        return _scan_assoc(log_a, b, h0)
+    h, outs = h0, []
+    for t in range(0, s, c):
+        hs, h = _scan_assoc(log_a[:, t:t + c], b[:, t:t + c], h)
+        outs.append(hs)
+    return torch.cat(outs, dim=1), h
+
+
+def rglru_scan(log_a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
+               plan: ExecPlan, recurrence: LinearRecurrence
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, D) coefficients from ``h0`` (B, D; zeros when None) -> (states
+    (B, S, D), last state (B, D)) by the plan's ``rglru_impl``; ``step`` runs
+    ``recurrence`` over time-major views."""
+    if plan.rglru_impl == "step":
+        hs, h_last = recurrence(log_a.transpose(0, 1), b.transpose(0, 1), h0)
+        return hs.transpose(0, 1), h_last
+    if h0 is None:
+        h0 = torch.zeros(b.shape[0], b.shape[2], dtype=b.dtype,
+                         device=b.device)
+    if plan.rglru_impl == "assoc":
+        return _scan_assoc(log_a, b, h0)
+    if plan.rglru_impl == "chunked":
+        return _scan_chunked(log_a, b, h0, plan.rglru_chunk)
+    raise ValueError(f"unknown rglru_impl {plan.rglru_impl!r}")
+
+
+# --- conv1d (causal depthwise) ----------------------------------------------
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                  prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal depthwise conv.  x: (B,S,dr); w: (width, dr); ``prefix``
+    (B, width-1, dr): the carried inputs before x (zeros when None); f32
+    sums."""
     width, s = w.shape[0], x.shape[1]
-    prefix = torch.zeros(x.shape[0], width - 1, x.shape[2], dtype=x.dtype,
-                         device=x.device)
-    xp = torch.cat([prefix, x], dim=1)
+    if prefix is None:
+        prefix = torch.zeros(x.shape[0], width - 1, x.shape[2],
+                             dtype=x.dtype, device=x.device)
+    xp = torch.cat([cast(prefix, x.dtype), x], dim=1)
     f32 = torch.float32
     out = cast(xp[:, :s], f32) * cast(w[width - 1], f32)
     for i in range(1, width):
@@ -109,13 +200,28 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
     return cast(out + cast(bias, f32), x.dtype)
 
 
-def rglru_block(x: torch.Tensor, p: Mapping, cfg,
-                recurrence: LinearRecurrence) -> torch.Tensor:
-    """x: (B,S,d_model) -> (B,S,d_model), from a zero state.  ``p`` holds
-    the reference's ``rglru`` parameters; the compute dtype is x's."""
-    dt = x.dtype
+# --- full block ---------------------------------------------------------------
+
+
+def rglru_block(x: torch.Tensor, p: Mapping, cfg, plan: ExecPlan,
+                recurrence: LinearRecurrence,
+                state: Optional[RGLRUState] = None
+                ) -> tuple[torch.Tensor, RGLRUState]:
+    """x: (B,S,d_model) -> ((B,S,d_model), the new state for a decode
+    continuation), from ``state`` (zero when None).  ``p`` holds the
+    reference's ``rglru`` parameters; the compute dtype is the plan's."""
+    dt = cdtype(plan)
+    width = cfg.conv1d_width
     branch = F.gelu(x @ cast(p["w_branch"], dt), approximate="tanh")
-    u = conv1d_causal(x @ cast(p["w_in"], dt), p["w_conv"], p["b_conv"])
+    u_raw = x @ cast(p["w_in"], dt)
+    prefix = state.conv if state is not None else None
+    u = conv1d_causal(u_raw, p["w_conv"], p["b_conv"], prefix)
     log_a, b = _coeffs(u, p, cfg)
-    hs = recurrence(log_a.transpose(0, 1), b.transpose(0, 1)).transpose(0, 1)
-    return (cast(hs, dt) * branch) @ cast(p["w_out"], dt)
+    hs, h_last = rglru_scan(log_a, b, state.h if state is not None else None,
+                            plan, recurrence)
+    y = (cast(hs, dt) * branch) @ cast(p["w_out"], dt)
+    if prefix is None:
+        prefix = torch.zeros(x.shape[0], width - 1, u_raw.shape[2],
+                             dtype=dt, device=x.device)
+    new_conv = torch.cat([cast(prefix, dt), u_raw], dim=1)[:, -(width - 1):]
+    return y, RGLRUState(h_last, new_conv)

@@ -1,18 +1,30 @@
-"""Port of ``repro/models/transformer.py`` for the dense and VLM families:
-the decoder-only LM's parameters (:class:`LMParams`, drawn as the
-reference's ``init_params`` draws them), ``embed_inputs`` (with the VLM
-projector), ``head_table``, ``lm_logits``, ``forward_full``, ``lm_loss``
-(forward), ``prefill`` and ``decode_step``; plus :class:`RecurrentSublayer`,
-a hybrid model's RG-LRU sublayer from a zero state (the counterpart of
-``_rglru_sublayer_full``).
+"""Port of ``repro/models/transformer.py`` for the dense, VLM and hybrid
+(RecurrentGemma) families: the decoder-only LM's parameters
+(:class:`LMParams`, drawn as the reference's ``init_params`` draws them),
+``embed_inputs`` (with the VLM projector), ``head_table``, ``lm_logits``,
+``forward_full``, ``lm_loss`` (forward), ``prefill`` and ``decode_step``.
 
-Layers are an ``nn.ModuleList`` of :class:`DenseBlock`, not stacked leaves,
-and the decode state is ``{"kv": [KVCache per layer], "cache_len": int32
-device scalar}``; a decode step writes each cache in place (the
-reference's donated state) and returns the same caches with ``cache_len +
-1``.  The MoE, hybrid, SSM and enc-dec families raise
-``NotImplementedError`` (``ROADMAP.md`` queue 1 item 9 lists them).  The
-plan's ``remat``, ``gather_mode`` and ``gather_dtype`` knobs shape the
+Layers are modules, not stacked leaves.  A dense or VLM model's
+``blocks`` is an ``nn.ModuleList`` of :class:`DenseBlock`; its decode state
+is ``{"kv": [KVCache per layer], "cache_len": int32 device scalar}``.  A
+hybrid model holds ``pre_blocks`` (the ``n_layers % len(block_pattern)``
+leading RG-LRU sublayers) and ``blocks`` (one ``nn.ModuleDict`` a macro
+block, ``sub0``, ``sub1``, ... in ``block_pattern`` order: a
+:class:`RecurrentSublayer` for ``rglru``, a local-attention
+:class:`DenseBlock` otherwise).  Its decode state keeps the reference's
+keys with a list per layer where the reference stacks over layers::
+
+    {"pre_rglru": [RGLRUState per pre-block],          (only when any)
+     "macro_rglru": [{"rglru0": RGLRUState, "rglru1": RGLRUState} a macro],
+     "macro_kv": [KVCache (a ring of local_window slots) a macro],
+     "cache_len": int32 device scalar}
+
+(the reference: ``pre_rglru`` / ``macro_rglru[f"rglru{j}"]`` as ``{"h",
+"conv"}`` stacked on axis 0, ``macro_kv`` as ``{"k", "v"}`` stacked).  A
+decode step writes each KV cache in place (the reference's donated state),
+returns new RG-LRU states, and ``cache_len + 1``.  The MoE, SSM and enc-dec
+families raise ``NotImplementedError`` (``ROADMAP.md`` queue 1 items 2-4).
+The plan's ``remat``, ``gather_mode`` and ``gather_dtype`` knobs shape the
 reference's training step and sharding; a forward here reads none of them.
 
 ``RMSNorm``, ``Attention`` and the RG-LRU's ``LinearRecurrence`` are
@@ -33,7 +45,8 @@ from repro_torch.models.attention import (Attention, KVCache, attend_decode,
                                           attn_init, cache_update,
                                           project_qkv)
 from repro_torch.models.plan import ExecPlan
-from repro_torch.models.rglru import LinearRecurrence, rglru_block, rglru_init
+from repro_torch.models.rglru import (LinearRecurrence, RGLRUState,
+                                      rglru_block, rglru_init)
 
 __all__ = ["DenseBlock", "INIT_STD", "LMParams", "RecurrentSublayer",
            "check_family", "decode_step", "embed_inputs", "forward_full",
@@ -43,25 +56,25 @@ __all__ = ["DenseBlock", "INIT_STD", "LMParams", "RecurrentSublayer",
 #: ``initializer_range``
 INIT_STD = 0.02
 
-#: families not ported yet -> the part of ``ROADMAP.md`` queue 1 item 9
-#: that brings them
+#: families not ported yet -> the item of ``ROADMAP.md`` queue 1 that
+#: brings them
 _UNPORTED = {
-    "hybrid": "rglru.py decode state and the hybrid family",
-    "ssm": "rwkv.py and the SSM family",
-    "moe": "moe.py and the MoE family",
-    "encdec": "whisper.py and the enc-dec family",
+    "ssm": (2, "rwkv.py and the SSM family"),
+    "moe": (3, "moe.py and the MoE family"),
+    "encdec": (4, "whisper.py and the enc-dec family"),
 }
 
 
 def check_family(cfg) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense or VLM
-    decoder this port runs (never treat another family as dense)."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense, VLM or
+    hybrid decoder this port runs (never treat another family as dense)."""
     family = "moe" if cfg.moe is not None else cfg.family
     if family in _UNPORTED:
+        item, what = _UNPORTED[family]
         raise NotImplementedError(
             f"{cfg.arch_id}: the {family} family is not ported yet "
-            f"(ROADMAP.md queue 1 item 9: {_UNPORTED[family]})")
-    if family not in ("dense", "vlm"):
+            f"(ROADMAP.md queue 1 item {item}: {what})")
+    if family not in ("dense", "vlm", "hybrid"):
         raise ValueError(f"{cfg.arch_id}: unknown family {family!r}")
 
 
@@ -195,14 +208,17 @@ class DenseBlock(nn.Module):
 
 
 class LMParams(nn.Module):
-    """The parameters of a dense or VLM decoder, as the reference's
+    """The parameters of a dense, VLM or hybrid decoder, as the reference's
     ``init_params`` lays them out: ``embed`` (vocab, d), ``lm_head`` when
-    embeddings are untied, ``final_norm``, ``blocks`` (one
-    :class:`DenseBlock` a layer) and, for a VLM, ``projector``
-    (``vis_w1``, ``vis_b1``, ``vis_w2``, ``vis_b2``).  Drawn from
-    ``generator`` (a CPU generator; seed 0 when None) in the reference's
-    distributions, then moved to ``device`` (``cuda`` unless ``"cpu"`` is
-    asked for) in ``dtype``."""
+    embeddings are untied, ``final_norm``, ``blocks`` (dense and VLM: one
+    :class:`DenseBlock` a layer; hybrid: one ``nn.ModuleDict`` of
+    ``sub0``.. a macro block), for a hybrid model ``pre_blocks`` (the
+    leading RG-LRU sublayers that fill no macro block) and, for a VLM,
+    ``projector`` (``vis_w1``, ``vis_b1``, ``vis_w2``, ``vis_b2``).  Drawn
+    from ``generator`` (a CPU generator; seed 0 when None) in the
+    reference's distributions, then moved to ``device`` (``cuda`` unless
+    ``"cpu"`` is asked for) in ``dtype`` (RG-LRU ``lam`` stays f32, as in
+    the reference)."""
 
     def __init__(self, cfg, *, dtype: torch.dtype = torch.float32,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -223,9 +239,28 @@ class LMParams(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else param(
             L.embed_init((cfg.vocab, d), generator))
         self.final_norm = L.RMSNorm(d, cfg.norm_eps, dtype=dtype, device=dev)
-        self.blocks = nn.ModuleList(
-            DenseBlock(cfg, dtype=dtype, device=dev, generator=generator,
-                       init="reference") for _ in range(cfg.n_layers))
+        self.pre_blocks = None
+        if cfg.family == "hybrid":
+            def sub(kind):
+                if kind == "rglru":
+                    return RecurrentSublayer(cfg, dtype=dtype, device=dev,
+                                             generator=generator,
+                                             init="reference")
+                return DenseBlock(cfg, dtype=dtype, device=dev,
+                                  generator=generator, init="reference")
+
+            n_macro, rem = divmod(cfg.n_layers, len(cfg.block_pattern))
+            if rem:
+                self.pre_blocks = nn.ModuleList(sub("rglru")
+                                                for _ in range(rem))
+            self.blocks = nn.ModuleList(
+                nn.ModuleDict({f"sub{j}": sub(kind) for j, kind
+                               in enumerate(cfg.block_pattern)})
+                for _ in range(n_macro))
+        else:
+            self.blocks = nn.ModuleList(
+                DenseBlock(cfg, dtype=dtype, device=dev, generator=generator,
+                           init="reference") for _ in range(cfg.n_layers))
         self.projector = None
         if cfg.vision_patches:
             self.projector = nn.ParameterDict({
@@ -249,8 +284,13 @@ def forward_full(params: LMParams, x: torch.Tensor, cfg, plan: ExecPlan,
                  positions: torch.Tensor, want_cache: bool = False,
                  cache_capacity: int = 0) -> tuple:
     """x: (B,S,d) embedded inputs.  Returns (hidden, aux (2,), caches):
-    ``caches`` is ``{"kv": [KVCache per layer]}`` when ``want_cache``."""
+    with ``want_cache``, ``caches`` is ``{"kv": [KVCache per layer]}`` (a
+    hybrid model: ``pre_rglru``, ``macro_rglru`` and ``macro_kv``)."""
     cache_capacity = cache_capacity or x.shape[1]
+    aux = torch.zeros(2, device=x.device)    # MoE losses: no MoE here
+    if cfg.family == "hybrid":
+        x, caches = _hybrid_full(params, x, cfg, plan, positions, want_cache)
+        return x, aux, caches
     caches = []
     for blk in params.blocks:
         if want_cache:
@@ -259,8 +299,37 @@ def forward_full(params: LMParams, x: torch.Tensor, cfg, plan: ExecPlan,
             caches.append(kv)
         else:
             x = blk(x, plan, positions=positions)
-    aux = torch.zeros(2, device=x.device)    # MoE losses: no MoE here
     return x, aux, ({"kv": caches} if want_cache else {})
+
+
+def _hybrid_full(params: LMParams, x: torch.Tensor, cfg, plan: ExecPlan,
+                 positions: torch.Tensor, want_cache: bool) -> tuple:
+    """The reference's hybrid trunk: the pre-blocks, then each macro block's
+    sublayers in ``block_pattern`` order (``_hybrid_macro_full``)."""
+    pre = []
+    for sub in params.pre_blocks or ():
+        x, st = sub(x, plan, with_state=True)
+        pre.append(st)
+    macro_rglru, macro_kv = [], []
+    for blk in params.blocks:
+        states, kv = {}, None
+        for j, kind in enumerate(cfg.block_pattern):
+            sub = blk[f"sub{j}"]
+            if kind == "rglru":
+                x, states[f"rglru{j}"] = sub(x, plan, with_state=True)
+            elif want_cache:
+                x, kv = sub(x, plan, positions=positions,
+                            cache_capacity=cfg.local_window)
+            else:
+                x = sub(x, plan, positions=positions)
+        macro_rglru.append(states)
+        macro_kv.append(kv)
+    if not want_cache:
+        return x, {}
+    caches = {"macro_rglru": macro_rglru, "macro_kv": macro_kv}
+    if pre:
+        caches["pre_rglru"] = pre
+    return x, caches
 
 
 # ---------------------------------------------------------------------------
@@ -340,47 +409,81 @@ def prefill(params: LMParams, cfg, plan: ExecPlan, tokens: torch.Tensor,
 
 def decode_step(params: LMParams, cfg, plan: ExecPlan, token: torch.Tensor,
                 state: dict) -> tuple:
-    """token: (B,1) int.  Returns (logits (B,1,V), new state); the caches
-    are updated in place."""
+    """token: (B,1) int.  Returns (logits (B,1,V), new state); the KV
+    caches are updated in place, RG-LRU states replaced."""
     cache_len = state["cache_len"]
     x1 = embed_inputs(params, cfg, plan, token)
-    for blk, kv in zip(params.blocks, state["kv"]):
-        x1 = blk.decode(x1, kv, cache_len, plan)
-    return lm_logits(params, cfg, plan, x1), {"kv": state["kv"],
-                                              "cache_len": cache_len + 1}
+    new_state = {"cache_len": cache_len + 1}
+    if cfg.family == "hybrid":
+        pre = []
+        for sub, st in zip(params.pre_blocks or (), state.get("pre_rglru", ())):
+            x1, st = sub(x1, plan, state=st, with_state=True)
+            pre.append(st)
+        if pre:
+            new_state["pre_rglru"] = pre
+        macro_rglru = []
+        for blk, rg, kv in zip(params.blocks, state["macro_rglru"],
+                               state["macro_kv"]):
+            new_rg = {}
+            for j, kind in enumerate(cfg.block_pattern):
+                sub = blk[f"sub{j}"]
+                if kind == "rglru":
+                    x1, new_rg[f"rglru{j}"] = sub(
+                        x1, plan, state=rg[f"rglru{j}"], with_state=True)
+                else:
+                    x1 = sub.decode(x1, kv, cache_len, plan)
+            macro_rglru.append(new_rg)
+        new_state.update(macro_rglru=macro_rglru, macro_kv=state["macro_kv"])
+    else:
+        for blk, kv in zip(params.blocks, state["kv"]):
+            x1 = blk.decode(x1, kv, cache_len, plan)
+        new_state["kv"] = state["kv"]
+    return lm_logits(params, cfg, plan, x1), new_state
 
 
 # ---------------------------------------------------------------------------
-# the hybrid family's RG-LRU sublayer (slice 2)
+# the hybrid family's RG-LRU sublayer
 # ---------------------------------------------------------------------------
 
 
 class RecurrentSublayer(nn.Module):
     """One RG-LRU sublayer of a hybrid model at ``cfg``'s widths: ``x +
-    rglru(ln1(x))``, then ``+ mlp(ln2(x))``, from a zero recurrence state.
+    rglru(ln1(x))``, then ``+ mlp(ln2(x))`` (the reference's
+    ``_rglru_sublayer_full`` and ``_rglru_sublayer_decode``).
 
     Runs on ``cuda`` unless ``device="cpu"`` is asked for (raises when CUDA
     is wanted and absent).  Weights are drawn from ``generator`` (a CPU
     ``torch.Generator``; seed 0 when None) in the shapes and distributions
-    of the reference's ``rglru_init`` and ``mlp_init``, except that the two
-    projections that write into the residual stream (``rglru.w_out``,
-    ``w_down``) are scaled by 1/sqrt(2 * n_layers), as in
-    :class:`DenseBlock`: it keeps the sublayer's outputs where bf16
-    resolves the verifier's 1e-2.  ``rglru.lam`` stays f32, as in the
-    reference; norm scales start at zero.
+    of the reference's ``rglru_init`` and ``mlp_init``.  ``init="scaled"``
+    (a lone sublayer) scales the two projections that write into the
+    residual stream (``rglru.w_out``, ``w_down``) by 1/sqrt(2 * n_layers),
+    as in :class:`DenseBlock`: it keeps the sublayer's outputs where bf16
+    resolves the verifier's 1e-2; ``init="reference"`` (a whole model)
+    leaves them as drawn.  ``rglru.lam`` stays f32, as in the reference;
+    norm scales start at zero.
+
+    ``forward(x, plan, state=None, with_state=False)`` runs the sublayer
+    under the plan (the reference form in x's dtype when none is given)
+    from ``state`` (an :class:`~repro_torch.models.rglru.RGLRUState`; zero
+    when None) and, with ``with_state``, also returns the new state.
     """
 
     def __init__(self, cfg, *, dtype: torch.dtype = torch.float32,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 init: str = "scaled"):
         from repro_torch.core.frontends.export_frontend import resolve_device
 
         super().__init__()
+        if init not in ("scaled", "reference"):
+            raise ValueError(f"init must be 'scaled' or 'reference', not "
+                             f"{init!r}")
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
         d, ff = cfg.d_model, cfg.d_ff
-        out_scale = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
+        out_scale = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1)) \
+            if init == "scaled" else 1.0
 
         def param(w, dt=dtype):
             return nn.Parameter(w.to(device=dev, dtype=dt))
@@ -397,8 +500,12 @@ class RecurrentSublayer(nn.Module):
         self.w_up = param(L.dense_init((d, ff), generator))
         self.w_down = param(L.dense_init((ff, d), generator) * out_scale)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        plan = L.plan_for(x, None)
-        x = x + rglru_block(self.ln1(x), self.rglru, self.cfg, self.scan)
+    def forward(self, x: torch.Tensor, plan: Optional[ExecPlan] = None, *,
+                state: Optional[RGLRUState] = None, with_state: bool = False):
+        plan = L.plan_for(x, plan)
+        y, new_state = rglru_block(self.ln1(x, plan), self.rglru, self.cfg,
+                                   plan, self.scan, state)
+        x = x + y
         p = {"w_gate": self.w_gate, "w_up": self.w_up, "w_down": self.w_down}
-        return x + L.mlp_ref(self.ln2(x), p, self.cfg.mlp_act, plan)
+        x = x + L.mlp(self.ln2(x, plan), p, self.cfg.mlp_act, plan)
+        return (x, new_state) if with_state else x

@@ -1,16 +1,18 @@
 """Port of ``repro/runtime/serve.py``: the serving loop — batched prefill,
-then autoregressive decode against the KV caches.
+then autoregressive decode against the decode state (KV caches; for a
+hybrid model also the RG-LRU states and local-attention rings).
 
 ``Server`` owns the parameters and a plan; ``generate`` prefills a request
 batch, then decodes greedily (``argmax``) or with temperature sampling from
 a ``torch.Generator`` seeded by ``ServeConfig.seed`` on every call.  Decode
-steps write the caches in place, and ``cache_len`` stays a device scalar, so
+steps write the KV caches in place (a hybrid model's RG-LRU states are
+replaced), and ``cache_len`` stays a device scalar, so
 no step synchronises with the host; the generated tokens are copied to the
 host once, at the end.
 
 The plan is **hot-swappable**: everything derived from it — here the
-parameters cast once to the plan's compute dtype, where the reference casts
-at each use (same values) — lives in one immutable ``_Bound`` snapshot
+parameters cast once to the plan's compute dtype where the reference casts
+them at each use (same values) — lives in one immutable ``_Bound`` snapshot
 published by a single reference assignment.  ``generate`` reads the
 snapshot once per call, so an in-flight generation always runs one complete
 plan end to end; a concurrent :meth:`Server.swap_plan` takes effect on the
@@ -31,6 +33,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.api import Model
 from repro_torch.models.plan import ExecPlan
+from repro_torch.models.rglru import F32_LEAVES
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -45,16 +48,20 @@ class ServeConfig:
 
 
 def _cast_params(params: torch.nn.Module, dtype: torch.dtype):
-    """``params`` with every floating weight in ``dtype`` — all but the
-    norm scales, which the reference reads in f32 — sharing the weights
+    """``params`` with every floating weight in ``dtype`` — all but those
+    the reference reads in f32 whatever the compute dtype (the norm scales,
+    and an RG-LRU's conv, gate biases and ``lam``) — sharing the weights
     that are in ``dtype`` already (no copy when nothing needs a cast)."""
-    norms = {id(m.weight) for m in params.modules()
-             if isinstance(m, L.RMSNorm)}
+    keep = {id(m.weight) for m in params.modules()
+            if isinstance(m, L.RMSNorm)}
+    keep |= {id(p) for name, p in params.named_parameters()
+             if name.rsplit(".", 2)[-2:-1] == ["rglru"]
+             and name.rsplit(".", 1)[-1] in F32_LEAVES}
     memo = {id(p): torch.nn.Parameter(p.detach().to(dtype),
                                       requires_grad=False)
             for p in params.parameters()
             if p.is_floating_point() and p.dtype != dtype
-            and id(p) not in norms}
+            and id(p) not in keep}
     return copy.deepcopy(params, memo) if memo else params
 
 

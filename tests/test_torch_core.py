@@ -144,6 +144,82 @@ def test_verify_verdicts_match(i):
             assert got.max_rel == pytest.approx(want.max_rel)
 
 
+def _verify_trees(case: str, seed: int = 0):
+    """(reference, candidate) numpy pytrees for one verifier case, drawn
+    from ``seed``: nested dicts and lists of f32 and int leaves."""
+    rng = np.random.default_rng(seed)
+
+    def tree(noise):
+        r = {"logits": rng.normal(size=(2, 1, 7)).astype(np.float32),
+             "kv": [rng.normal(size=(2, 5, 1, 4)).astype(np.float32)
+                    for _ in range(3)],
+             "cache_len": np.array(5, np.int32)}
+        c = {"logits": r["logits"] + noise,
+             "kv": [k + noise for k in r["kv"]],
+             "cache_len": r["cache_len"].copy()}
+        return r, c
+
+    if case == "close":
+        return tree(np.float32(1e-4))
+    if case == "far":
+        return tree(np.float32(0.3))
+    r, c = tree(np.float32(0.0))
+    if case == "shape":
+        c["kv"][1] = c["kv"][1][:, :4]
+    elif case == "leaf_count":
+        c["kv"] = c["kv"][:2]
+    elif case == "nan_inf_same":
+        for t in (r, c):
+            t["kv"][0][0, 0, 0, 0], t["kv"][2][1, 1, 0, 2] = np.nan, -np.inf
+    elif case == "nan_moved":
+        r["kv"][0][0, 0, 0, 0] = c["kv"][0][0, 0, 0, 1] = np.nan
+    elif case == "inf_vs_finite":
+        r["logits"][0, 0, 3] = np.inf
+    elif case == "nan_then_shape":     # the first failing leaf decides
+        r["kv"][0][0, 0, 0, 0] = np.nan
+        c["kv"][2] = c["kv"][2][:1]
+    elif case == "shape_then_nan":
+        c["kv"][0] = c["kv"][0][:1]
+        r["kv"][2][0, 0, 0, 0] = np.nan
+    return r, c
+
+
+_TREE_CASES = ["close", "far", "shape", "leaf_count", "nan_inf_same",
+               "nan_moved", "inf_vs_finite", "nan_then_shape",
+               "shape_then_nan"]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+@pytest.mark.parametrize("case", _TREE_CASES)
+@pytest.mark.parametrize("cand_dtype", [torch.float32, torch.bfloat16])
+def test_verify_torch_path_matches_numpy_path(case, cand_dtype):
+    """The same candidate tensors against the reference as torch tensors
+    (each pair compared where it lives, in f64) and as numpy arrays (each
+    pair through numpy): the same ``VerifyResult``, and the reference
+    verifier's verdict."""
+    ref, cand = _verify_trees(case)
+    ref_t = _tree_map(torch.as_tensor, ref)
+    cand_t = _tree_map(lambda a: torch.as_tensor(a).to(cand_dtype)
+                       if a.dtype == np.float32 else torch.as_tensor(a), cand)
+    got, want = tver.verify(ref_t, cand_t), tver.verify(ref, cand_t)
+    np.testing.assert_equal(
+        (got.ok, got.max_abs, got.max_rel, got.detail),
+        (want.ok, want.max_abs, want.max_rel, want.detail))
+    jref = jver.verify(ref, _tree_map(
+        lambda t: t.double().numpy() if t.is_floating_point() else t.numpy(),
+        cand_t))
+    assert (got.ok, got.detail) == (jref.ok, jref.detail)
+    np.testing.assert_allclose([got.max_abs, got.max_rel],
+                               [jref.max_abs, jref.max_rel])
+
+
 def test_verify_bf16_tensor_against_host_reference():
     x = torch.linspace(-1, 1, 64, dtype=torch.bfloat16)
     ref = x.double().numpy()

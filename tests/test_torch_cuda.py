@@ -350,6 +350,52 @@ def test_rglru_wrapper_counts_its_route_on_card(cuda, b, s, d, time_major,
                                atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_at_recurrentgemma_width_on_card(cuda, dtype):
+    """RecurrentGemma-2B's local attention at S = window: MQA, 10 query
+    heads of 256, causal -- the ``scalar`` path (head dim 256 takes neither
+    ``wgmma`` nor ``mma``); f32 at 2e-5, bf16 within 1e-2 block-relative."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    dt = _DTYPES[dtype]
+    q = torch.randn(2, 2048, 10, 256, generator=g).to(cuda, dt)
+    k = torch.randn(2, 2048, 1, 256, generator=g).to(cuda, dt)
+    v = torch.randn(2, 2048, 1, 256, generator=g).to(cuda, dt)
+    assert tfa.select_path(q, k, v) == "scalar"
+    before = tops.flash_attention.launches_by_path["scalar"]
+    got = tops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tops.flash_attention.launches_by_path["scalar"] == before + 1
+    want = tfa.flash_attention_plain(q, k, v, causal=True,
+                                     scale=1 / np.sqrt(256))
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        assert tfa.block_rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,time_major", [
+    (2, 2048, 2560, True),     # a prefill's time-major views
+    (4, 1, 2560, False)])      # one decode step
+@pytest.mark.parametrize("route", ["tma", "cp_async"])
+def test_rglru_routes_continue_from_a_nonzero_state_on_card(
+        cuda, b, s, d, time_major, route):
+    """A decode continuation: ``h0`` folded into ``b[:, 0]`` as the
+    wrapper folds it, then each route forced."""
+    la, bb = _rglru_inputs(cuda, b, s, d, time_major, seed=10)
+    h0 = torch.randn(b, d, generator=torch.Generator().manual_seed(11)).to(
+        cuda)
+    folded = bb.clone()
+    folded[:, 0] += torch.exp(la[:, 0]) * h0
+    assert trg.select_route(la, folded) == "tma"     # either route fits
+    out = torch.empty(b, s, d, device=cuda)
+    trg.launch(la, folded, out, route=route)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, trg.rglru_scan_plain(la, bb, h0),
+                               atol=1e-5, rtol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # a whole (reduced) model on the card: the kernels at every site, serving
 # ---------------------------------------------------------------------------
@@ -441,3 +487,72 @@ def test_server_generates_on_card(cuda):
     np.testing.assert_array_equal(
         server.generate({"tokens": tokens}, 6),
         Server(model, params, REFERENCE_PLAN).generate({"tokens": tokens}, 6))
+
+
+def _reduced_hybrid(device, dtype=torch.float32):
+    """RecurrentGemma reduced to 5 layers (two pre-blocks, one macro
+    block; window 32), weights from seed 0, 64 tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("recurrentgemma_2b").reduced(),
+                              n_layers=5)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), dtype=dtype,
+                        device=device)
+    tokens = torch.randint(0, cfg.vocab, (2, 32),
+                           generator=torch.Generator().manual_seed(1))
+    return cfg, model, params, tokens.to(device)
+
+
+@pytest.mark.gpu
+def test_hybrid_prefill_plan_binds_the_kernels_at_every_site_on_card(cuda):
+    """The forced all-kernel plan of a reduced hybrid prefill (S = window,
+    so local attention is exactly causal): RG-LRU at each recurrent
+    sublayer, flash at the attention sublayer, RMSNorm at every norm; it
+    verifies against the unsubstituted program."""
+    from repro_torch.core.offload import OffloadConfig, Offloader
+    from repro_torch.models import REFERENCE_PLAN
+
+    cfg, model, params, tokens = _reduced_hybrid(cuda)
+    plan = REFERENCE_PLAN.replace(compute_dtype="float32")
+    ctx = Offloader(OffloadConfig(options={"example_args": (tokens,)})).prepare(
+        lambda tok: model.prefill(params, {"tokens": tok}, plan))
+    engine = ctx.bundle.context["engine"]
+    bits = tuple(2 if ctx.graph.by_name(s.region).meta.get("pattern") else 0
+                 for s in ctx.coding.sites)
+    sub = engine.substitute(ctx.coding.decode(bits))
+    chosen = sorted(c.pattern for c in sub.report.choices
+                    if c.chosen == "cuda")
+    assert chosen == ["linear_recurrence"] * 4 + ["rmsnorm"] * 11 + \
+        ["softmax_attention"]
+    tops.reset_launch_counts()
+    sub(tokens)
+    torch.cuda.synchronize()
+    assert tops.launch_counts() == {"flash_attention": 1, "rmsnorm": 11,
+                                    "rglru_scan": 4, "wkv6": 0}
+    assert engine.verify(sub).ok
+
+
+@pytest.mark.gpu
+def test_hybrid_server_generates_the_cpu_tokens_on_card(cuda):
+    """Greedy tokens of a reduced hybrid model in f32 under
+    ``OFFLOAD_PLAN`` (the ``assoc`` scan in prefill, RG-LRU states and
+    ring caches in decode; 32 + 6 tokens wrap the window of 32) on the card
+    and on the CPU."""
+    from repro_torch.models import OFFLOAD_PLAN
+    from repro_torch.runtime.serve import Server
+
+    plan = OFFLOAD_PLAN.replace(compute_dtype="float32")
+    toks = []
+    for dev in (cuda, "cpu"):
+        cfg, model, params, tokens = _reduced_hybrid(dev)
+        server = Server(model, params, plan)
+        toks.append(server.generate({"tokens": tokens}, 6))
+        np.testing.assert_array_equal(
+            toks[-1], server.generate({"tokens": tokens}, 6))
+    assert toks[0].shape == (2, 6) and ((toks[0] >= 0)
+                                        & (toks[0] < cfg.vocab)).all()
+    np.testing.assert_array_equal(toks[0], toks[1])

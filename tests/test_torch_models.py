@@ -1,7 +1,8 @@
 """The port's model zoo against the JAX reference on the CPU: configs, the
-ExecPlan ABI, each layer and attention function, and the dense and VLM
-decoders (loss, prefill, decode) at reduced widths in f32, weights carried
-across from the reference's ``init_params`` by ``model_from_jax``."""
+ExecPlan ABI, each layer and attention function, and the dense, VLM and
+hybrid decoders (loss, prefill, decode) at reduced widths in f32 (and under
+the bf16 ``REFERENCE_PLAN``), weights carried across from the reference's
+``init_params`` by ``model_from_jax``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -36,9 +37,14 @@ PLANS = {"reference": (F32, JF32),
          "offload": (OFFLOAD_PLAN.replace(compute_dtype="float32", **SMALL),
                      jplan.OFFLOAD_PLAN.replace(compute_dtype="float32",
                                                 **SMALL))}
+#: ``arch@n`` is ``arch`` reduced to ``n`` layers: RecurrentGemma at 5 has
+#: two pre-blocks before its macro block, its ``reduced()`` 3 has none
 PORTED = ["qwen3_0_6b", "tinyllama_1_1b", "qwen1_5_4b", "gemma_7b",
-          "llava_next_mistral_7b"]
+          "llava_next_mistral_7b", "recurrentgemma_2b",
+          "recurrentgemma_2b@5"]
 ATOL = 1e-5
+#: the reference's bf16 tolerance (``tests/test_kernels.py``)
+BF16_TOL = 2e-2
 
 
 def _t(x):
@@ -290,11 +296,16 @@ def test_attention_site_keeps_q_k_v_inputs():
 # ---------------------------------------------------------------------------
 
 
+def _reduced(base, spec: str):
+    arch, _, layers = spec.partition("@")
+    cfg = base.get_config(arch).reduced()
+    return dataclasses.replace(cfg, n_layers=int(layers)) if layers else cfg
+
+
 @pytest.fixture(scope="module", params=PORTED)
 def zoo(request):
     arch = request.param
-    jcfg, cfg = jbase.get_config(arch).reduced(), \
-        tbase.get_config(arch).reduced()
+    jcfg, cfg = _reduced(jbase, arch), _reduced(tbase, arch)
     jm, model = jbuild_model(jcfg), build_model(cfg)
     jparams = jm.init(jax.random.key(0))
     params = model_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg,
@@ -303,6 +314,30 @@ def zoo(request):
     batch = {k: np.asarray(v, np.float32) if v.dtype == jnp.bfloat16
              else np.asarray(v) for k, v in batch.items()}
     return arch, cfg, model, params, jm, jparams, batch
+
+
+def _state_pairs(state, jstate):
+    """(name, port leaf, reference leaf stacked over layers, layer) for
+    every leaf of a decode state: dense ``kv``, or the hybrid
+    ``pre_rglru``, ``macro_rglru`` and ``macro_kv``."""
+    assert sorted(state) == sorted(jstate)
+    for i, kv in enumerate(state.get("kv", ())):
+        for f in ("k", "v"):
+            yield f"kv.{f}{i}", getattr(kv, f), jstate["kv"][f], i
+    for i, st in enumerate(state.get("pre_rglru", ())):
+        for f in ("h", "conv"):
+            yield f"pre_rglru.{f}{i}", getattr(st, f), \
+                jstate["pre_rglru"][f], i
+    for i, rg in enumerate(state.get("macro_rglru", ())):
+        assert sorted(rg) == sorted(jstate["macro_rglru"])
+        for name, st in rg.items():
+            for f in ("h", "conv"):
+                yield f"{name}.{f}{i}", getattr(st, f), \
+                    jstate["macro_rglru"][name][f], i
+    for i, kv in enumerate(state.get("macro_kv", ())):
+        for f in ("k", "v"):
+            yield f"macro_kv.{f}{i}", getattr(kv, f), \
+                jstate["macro_kv"][f], i
 
 
 def _tb(batch, drop=()):
@@ -326,6 +361,9 @@ def test_loss_matches_reference(zoo, which):
 
 @pytest.mark.parametrize("which", ["reference", "offload"])
 def test_prefill_and_decode_match_reference(zoo, which):
+    """Last-token logits and every state leaf after a prefill of 64 tokens
+    and three decode steps (a hybrid model's window is 32: the prefill
+    takes the banded local attention, decode wraps the ring)."""
     _, cfg, model, params, jm, jparams, batch = zoo
     plan, jp = PLANS[which]
     cap = 70
@@ -337,20 +375,40 @@ def test_prefill_and_decode_match_reference(zoo, which):
     _close(logits, jlogits, 1e-4)
     assert int(state["cache_len"]) == int(jstate["cache_len"])
     assert state["cache_len"].dtype == torch.int32
-    assert len(state["kv"]) == cfg.n_layers
-    for i, kv in enumerate(state["kv"]):
-        _close(kv.k, jstate["kv"]["k"][i], 1e-4)
-        _close(kv.v, jstate["kv"]["v"][i], 1e-4)
-    tok = batch["tokens"][:, :1]
-    jlogits2, jstate2 = jm.decode(jparams, jnp.asarray(tok), jstate, jp)
+    pairs = list(_state_pairs(state, jstate))
+    assert len(pairs) == 2 * cfg.n_layers     # (k, v) or (h, conv) a layer
+    for _, got, want, i in pairs:
+        _close(got, want[i], 1e-4)
+    caches = [kv.k for kv in state.get("kv", state.get("macro_kv"))]
+    for step in range(3):
+        tok = batch["tokens"][:, step:step + 1]
+        jlogits, jstate = jm.decode(jparams, jnp.asarray(tok), jstate, jp)
+        with torch.no_grad():
+            logits, state = model.decode(params, _t(tok), state, plan)
+        _close(logits, jlogits, 1e-4)
+        assert int(state["cache_len"]) == int(jstate["cache_len"])
+        for _, got, want, i in _state_pairs(state, jstate):
+            _close(got, want[i], 1e-4)
+    # the KV caches are updated in place
+    assert all(kv.k is k for kv, k in zip(
+        state.get("kv", state.get("macro_kv")), caches, strict=True))
+
+
+@pytest.mark.parametrize("which", ["loss", "prefill"])
+def test_bf16_reference_plan_matches_reference(zoo, which):
+    """The bf16 ``REFERENCE_PLAN`` (the default compute dtype) against the
+    reference's, on the same f32 weights, at the reference's bf16
+    tolerance."""
+    _, _, model, params, jm, jparams, batch = zoo
+    plan, jp = REFERENCE_PLAN, jplan.REFERENCE_PLAN
     with torch.no_grad():
-        logits2, state2 = model.decode(params, _t(tok), state, plan)
-    _close(logits2, jlogits2, 1e-4)
-    assert int(state2["cache_len"]) == int(jstate2["cache_len"])
-    for i, kv in enumerate(state2["kv"]):
-        assert kv.k is state["kv"][i].k       # updated in place
-        _close(kv.k, jstate2["kv"]["k"][i], 1e-4)
-        _close(kv.v, jstate2["kv"]["v"][i], 1e-4)
+        if which == "loss":
+            got = model.loss(params, _tb(batch), plan)[0]
+        else:
+            got = model.prefill(params, _tb(batch, ("labels",)), plan)[0]
+    want = jm.loss(jparams, _jb(batch), jp)[0] if which == "loss" else \
+        jm.prefill(jparams, _jb(batch, ("labels",)), jp)[0]
+    _close(got.float(), np.asarray(want, np.float32), BF16_TOL)
 
 
 def test_decode_matches_full_forward(zoo):
@@ -384,10 +442,12 @@ def test_input_and_state_specs_match_reference(zoo):
         if kind == "decode":
             state, jstate = specs["state"], jspecs["state"]
             assert tuple(specs["token"].shape) == jspecs["token"].shape
-            assert [tuple(kv.k.shape) for kv in state["kv"]] == \
-                [jstate["kv"]["k"].shape[1:]] * cfg.n_layers
-            assert str(state["kv"][0].v.dtype)[6:] == \
-                str(jstate["kv"]["v"].dtype)
+            pairs = list(_state_pairs(state, jstate))
+            assert len(pairs) == 2 * cfg.n_layers
+            for name, got, want, _ in pairs:
+                assert got.device.type == "meta"
+                assert tuple(got.shape) == want.shape[1:], name
+                assert str(got.dtype)[6:] == str(want.dtype), name
             assert state["cache_len"].dtype == torch.int32
             continue
         assert sorted(specs) == sorted(jspecs)
@@ -417,8 +477,7 @@ def test_init_draws_the_reference_distributions():
 
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "llama4_scout_17b_a16e",
-                                  "recurrentgemma_2b", "rwkv6_3b",
-                                  "whisper_small"])
+                                  "rwkv6_3b", "whisper_small"])
 def test_unported_family_raises(arch):
     cfg = tbase.get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):

@@ -1,12 +1,14 @@
 """The port's module frontend against the reference's on the CPU: region
 graphs for all ten architectures, chromosome decoding, and the static-cost
 search (same GA history and best chromosome from the same seed); plus the
-export frontend over a whole reduced model's prefill."""
+export frontend over a whole reduced model's prefill, however the target
+holds its modules (a lambda, a ``functools.partial``, a bound method)."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -19,14 +21,20 @@ from repro.core.offload import OffloadConfig as JOffloadConfig  # noqa: E402
 from repro.core.offload import Offloader as JOffloader  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.frontends import module_frontend as mf  # noqa: E402
+from repro_torch.core.frontends.export_frontend import (  # noqa: E402
+    annotate_variants, build_graph, target_modules)
 from repro_torch.core.frontends.registry import detect_frontend  # noqa: E402
 from repro_torch.core.ga import GAConfig  # noqa: E402
 from repro_torch.core.genes import VARIANT_ALPHABET, coding_from_graph  # noqa: E402
 from repro_torch.core.offload import OffloadConfig, Offloader  # noqa: E402
+from repro_torch.core.pattern_db import default_db  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import REFERENCE_PLAN, build_model  # noqa: E402
 
 F32 = REFERENCE_PLAN.replace(compute_dtype="float32")
+#: a global module that a method reading ``self.p`` must not pick up (on
+#: the meta device, so a device check that saw it would refuse the plan)
+p = torch.nn.Linear(2, 2, device="meta")
 
 
 def _region(r):
@@ -191,3 +199,79 @@ def test_planning_checks_the_devices_of_the_modules_a_function_reads():
     with pytest.raises(ValueError, match="tensors live on"):
         Offloader(config).prepare(
             lambda tok: model.prefill(params, {"tokens": tok}, F32))
+
+
+# ---------------------------------------------------------------------------
+# the modules a target reaches, however it holds them
+# ---------------------------------------------------------------------------
+
+
+def _prefill(model, params, tok):
+    return model.prefill(params, {"tokens": tok}, F32)
+
+
+class _Holder:
+    """A plain object holding the parameters; its method reads ``self.p``."""
+
+    def __init__(self, model, params):
+        self.model, self.p = model, params
+
+    def run(self, tok):
+        return self.model.prefill(self.p, {"tokens": tok}, F32)
+
+
+@pytest.fixture(scope="module")
+def reduced_prefill():
+    cfg = get_config("qwen3_0_6b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    return cfg, model, params, tokens
+
+
+@pytest.mark.parametrize("form", ["lambda", "partial", "method"])
+def test_export_frontend_finds_the_same_sites_for_every_target_form(
+        reduced_prefill, form):
+    cfg, model, params, tokens = reduced_prefill
+    target = {"lambda": lambda tok: model.prefill(params, {"tokens": tok},
+                                                  F32),
+              "partial": functools.partial(_prefill, model, params),
+              "method": _Holder(model, params).run}[form]
+    found = target_modules(target)
+    assert list(found.values()) == [params]
+    assert list(found) == [{"method": "p"}.get(form, "params")]
+    graph = annotate_variants(build_graph(target, tokens), default_db())
+    assert len(graph.offloadable()) == 17
+    assert sorted(r.meta["pattern"] for r in graph.regions
+                  if r.meta.get("pattern")) == \
+        ["rmsnorm"] * (4 * cfg.n_layers + 1) + \
+        ["softmax_attention"] * cfg.n_layers
+
+
+def test_a_method_reading_an_attribute_does_not_pick_up_a_global(
+        reduced_prefill):
+    """``self.p`` names ``p`` in the method's ``co_names``: the module
+    global ``p`` (on the meta device) stays out of the program and out of
+    the device check."""
+    _, model, params, tokens = reduced_prefill
+    run = _Holder(model, params).run
+    assert all(m is not p for m in target_modules(run).values())
+    ctx = Offloader(OffloadConfig(device="cpu", options={
+        "example_args": (tokens,)})).prepare(run)
+    assert ctx.coding.length > 0
+
+
+def test_a_module_reading_target_without_module_scopes_raises(
+        reduced_prefill):
+    """Parameters held in a dict are not reached: the exported graph would
+    record no module scope, so planning refuses it, naming the target."""
+    _, model, params, tokens = reduced_prefill
+    box = {"params": params}
+
+    def boxed(tok):
+        return model.prefill(box["params"], {"tokens": tok}, F32)
+
+    assert target_modules(boxed) == {}
+    with pytest.raises(ValueError, match="boxed: calls modules"):
+        build_graph(boxed, tokens)

@@ -378,3 +378,95 @@ def test_first_generation_tries_the_kernels_on_paths_r_and_w(sublayer, rng):
     assert _first_generation_kernel_sites(
         _wkv_app, tuple(torch.from_numpy(a) for a in args), 6) == {
         "wkv_recurrence"}
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family's scans and conv against the reference's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("impl", ["step", "assoc", "chunked"])
+@pytest.mark.parametrize("s,h0", [(24, False), (24, True), (26, True)])
+def test_rglru_scans_match_the_reference_scans(impl, s, h0):
+    """``rglru_scan`` under each ``rglru_impl`` against the reference's
+    ``_scan_step``/``_scan_assoc``/``_scan_chunked`` (chunk 8: S = 26 is no
+    multiple of it, so ``chunked`` falls back to ``assoc`` as there), from a
+    zero and a nonzero state: the states and the last state."""
+    from repro.models import rglru as R
+    from repro_torch.models.rglru import LinearRecurrence, rglru_scan
+
+    rng = np.random.default_rng(s + 2 * h0)
+    la = (-np.abs(rng.normal(size=(2, s, 16))) * 0.3).astype(np.float32)
+    b = rng.normal(size=(2, s, 16)).astype(np.float32)
+    h = rng.normal(size=(2, 16)).astype(np.float32) if h0 \
+        else np.zeros((2, 16), np.float32)
+    ref = {"step": R._scan_step, "assoc": R._scan_assoc,
+           "chunked": lambda *a: R._scan_chunked(*a, 8)}[impl]
+    want_hs, want_h = ref(jnp.asarray(la), jnp.asarray(b), jnp.asarray(h))
+    plan = PLAN_F32.replace(rglru_impl=impl, rglru_chunk=8)
+    got_hs, got_h = rglru_scan(torch.from_numpy(la), torch.from_numpy(b),
+                               torch.from_numpy(h) if h0 else None, plan,
+                               LinearRecurrence())
+    tol = TOL["linear_recurrence"]
+    np.testing.assert_allclose(got_hs.numpy(), np.asarray(want_hs), **tol)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), **tol)
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+def test_conv1d_causal_matches_the_reference(prefix):
+    """The causal depthwise conv (width 4), from zeros and from a decode
+    state's carried inputs, over a sequence shorter than the width too."""
+    from repro.models import rglru as R
+    from repro_torch.models.rglru import conv1d_causal
+
+    rng = np.random.default_rng(5)
+    w = rng.normal(size=(4, 8)).astype(np.float32)
+    bias = rng.normal(size=(8,)).astype(np.float32)
+    pre = rng.normal(size=(2, 3, 8)).astype(np.float32) if prefix else None
+    for s in (9, 2):
+        x = rng.normal(size=(2, s, 8)).astype(np.float32)
+        got = conv1d_causal(torch.from_numpy(x), torch.from_numpy(w),
+                            torch.from_numpy(bias),
+                            torch.from_numpy(pre) if prefix else None)
+        want = R.conv1d_causal(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(bias),
+                               jnp.asarray(pre) if prefix else None)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_recurrence_site_folds_only_the_zeros_it_builds(sublayer, with_state):
+    """The ``linear_recurrence`` site of a sublayer run from zero is
+    ``zero_init`` (the kernel needs no fold); run from a decode state it is
+    not, and the forced kernel plan still matches the program."""
+    from repro_torch.models.rglru import RGLRUState
+
+    _, layer, x, _ = sublayer
+    cfg = layer.cfg
+    gen = torch.Generator().manual_seed(4)
+    h = torch.randn(B, cfg.d_rnn_resolved, generator=gen)
+    conv = torch.randn(B, cfg.conv1d_width - 1, cfg.d_rnn_resolved,
+                       generator=gen)
+
+    class Continue(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layer = layer
+
+        def forward(self, x, h, conv):
+            state = RGLRUState(h, conv) if with_state else None
+            return self.layer(x, state=state, with_state=True)
+
+    args = (x, h, conv)
+    graph = annotate_variants(build_graph(Continue(), *args), default_db())
+    loop = _loop(graph)
+    assert loop.meta["pattern"] == "linear_recurrence"
+    engine = SubstitutionEngine(graph.meta["graph_module"], args, graph)
+    assert engine._site(loop.name).params["zero_init"] is not with_state
+    sub = engine.substitute({loop.name: "cuda"})
+    assert [c.chosen for c in sub.report.choices
+            if c.region == loop.name] == ["cuda"]
+    (y, st), (want_y, want_st) = sub(*args), engine.reference()
+    for got, want in ((y, want_y), (st.h, want_st.h),
+                      (st.conv, want_st.conv)):
+        torch.testing.assert_close(got, want, **TOL["linear_recurrence"])

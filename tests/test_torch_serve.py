@@ -126,3 +126,50 @@ def test_vlm_generate_reserves_room_for_patches():
               "patch_feats": batch["patch_feats"].float()}
     out = Server(model, params, F32).generate(inputs, 5)
     assert out.shape == (2, 5)
+
+
+@pytest.fixture(scope="module")
+def served_hybrid():
+    """A reduced RecurrentGemma (5 layers: two pre-blocks and a macro
+    block, window 32) and 30 prompt tokens, so that decode wraps the
+    local-attention ring."""
+    import dataclasses
+
+    jcfg = dataclasses.replace(jget_config("recurrentgemma_2b").reduced(),
+                               n_layers=5)
+    cfg = dataclasses.replace(get_config("recurrentgemma_2b").reduced(),
+                              n_layers=5)
+    jm, model = jbuild_model(jcfg), build_model(cfg)
+    jparams = jm.init(jax.random.key(0))
+    params = model_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg,
+                            device="cpu")
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 30)).astype(np.int32)
+    return model, params, jm, jparams, tokens
+
+
+@pytest.mark.parametrize("which", ["reference", "offload"])
+def test_hybrid_greedy_tokens_equal_the_reference_server(served_hybrid,
+                                                          which):
+    """RG-LRU states and ring caches carried through 8 decode steps, under
+    the step scan (``REFERENCE_PLAN``) and the associative one
+    (``OFFLOAD_PLAN``), in f32."""
+    model, params, jm, jparams, tokens = served_hybrid
+    plan, jplan = {"reference": (F32, JF32),
+                   "offload": (OFFLOAD_PLAN.replace(compute_dtype="float32"),
+                               JOFF.replace(compute_dtype="float32"))}[which]
+    want = JServer(jm, jparams, jplan).generate(
+        {"tokens": jnp.asarray(tokens)}, 8)
+    got = Server(model, params, plan).generate(
+        {"tokens": torch.from_numpy(tokens)}, 8)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_hybrid_cast_keeps_the_leaves_read_in_f32(served_hybrid):
+    """Under a bf16 plan the RG-LRU's conv, gate biases and ``lam`` stay
+    f32 (the reference reads them in f32), its projections go bf16."""
+    model, params, _, _, _ = served_hybrid
+    rg = Server(model, params, REFERENCE_PLAN)._bound.params.pre_blocks[0].rglru
+    assert {k for k, w in rg.items() if w.dtype == torch.float32} == {
+        "w_conv", "b_conv", "b_a", "b_x", "lam"}
+    assert rg["w_in"].dtype == rg["w_a"].dtype == torch.bfloat16
