@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero before the last line:
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (path H's: flash at (2, 2048, 10 / 1 heads, 256) f32 and
    bf16, RMSNorm at (4096, 2560) and (2, 2560) f32, RG-LRU from a nonzero
-   state; and a few edge cases), with its time (CUDA events, median
+   state; path E's: flash at (2, 2048, 16 / 16 heads, 128) f32, RMSNorm at
+   (4096, 2048) and (2, 2048) f32 on the generic loop; and a few edge
+   cases), with its time (CUDA events, median
    of 25 launches, L2 flushed before each; the plain scan loops, median of
    5), the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one (``library_ms``, timed
@@ -75,8 +77,9 @@ Phases, in order; any failure exits non-zero before the last line:
      the reference's distributions) built with ``build_model``, its
      prefill of (2, 2048) tokens -- S = the local window, so the local
      attention is exactly causal -- planned like M in f32 (the ``step``
-     scan: one scan site a recurrent sublayer), GA 6 x 3: 18
-     ``linear_recurrence`` + 8 ``softmax_attention`` + 53 ``rmsnorm`` sites;
+     scan: one scan site a recurrent sublayer), GA 4 x 2 (cut from 6 x 3
+     for the run's time): 18 ``linear_recurrence`` + 8
+     ``softmax_attention`` + 53 ``rmsnorm`` sites;
      one forward of the forced all-kernel plan must launch RG-LRU 18 times
      (all ``tma``), flash 8 times (all ``scalar``) and RMSNorm 53 times
      (all ``d2560_l32``).  The all-reference program (~220k launches) is
@@ -84,12 +87,37 @@ Phases, in order; any failure exits non-zero before the last line:
      all-kernel prefill, and ``Server.generate`` in bf16 under
      ``OFFLOAD_PLAN`` (the ``assoc`` scan in prefill; RG-LRU states and ring
      caches in decode): 4 requests of 512 prompt tokens and 16 greedy new
-     tokens, twice (identical tokens), with the launches of a decode step.
+     tokens, twice (identical tokens), with the launches of a decode step;
+   - E: the whole OLMoE-1B-7B (16 layers at full width, 64 experts top-8 of
+     width 1024, MHA with QK-norm; random weights from seed 0), alone on the
+     card, its prefill of (2, 2048) tokens planned in f32 under the
+     ``scatter_ep`` MoE, GA 6 x 3 seeded with the forced all-kernel
+     chromosome: exactly 16 ``softmax_attention`` + 65 ``rmsnorm`` sites
+     (no router, expert or MoE region binds); one forward of the forced
+     plan must launch flash 16 times (all ``scalar``) and RMSNorm 65 times
+     (33 ``generic_l32``, 32 ``d128_l32``); no chromosome may fail with an
+     error; the all-reference prefill run twice gives the same bits.  The
+     forced plan verifies (outcome a), or (outcome b) a routing diagnostic
+     finds a (layer, token) whose top-k set the kernels' rounding changed
+     while the layer-0 K and V stay within 1e-4 of the reference's; either
+     is printed with the per-layer K/V errors.  Then one all-reference
+     forward under ``dense_onehot`` (time only), and ``Server.generate``
+     in bf16 under ``OFFLOAD_PLAN`` (16 new tokens);
+   - F: the whole RWKV-6-3B (32 layers at full width, 40 heads of 64),
+     alone on the card: its f32 prefill of (2, 2048) tokens once under the
+     ``step`` WKV form and once ``chunked`` (they must agree under the
+     verifier's rule), then the ``chunked`` prefill planned with GA 4 x 2,
+     seeded like E: only the final norm binds (``d2560_l32``); the 65
+     LayerNorm regions (x, scale, bias) and the 32 multi-head WKV scans
+     match and are refused; the forced plan verifies.  Then
+     ``Server.generate`` in bf16 under ``OFFLOAD_PLAN`` (chunked prefill,
+     RWKV states replaced in decode; 16 new tokens).
 
    On every path the verifier runs as the fitness runs it (the reference
    kept on the card, each pair compared there in f64; ``verify_s``) and as
    the parent commit ran it (the reference as f64 host arrays, the
-   candidate copied over; ``verify_host_s``);
+   candidate copied over; ``verify_host_s``), and the path's peak device
+   memory is printed;
 4. a ``{"kernels": [...]}`` line (each RMSNorm and RG-LRU entry carries its
    per-shape rows beside the path sums), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -102,6 +130,7 @@ import collections
 import copy
 import ctypes
 import functools
+import gc
 import json
 import math
 import shutil
@@ -116,6 +145,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+import torch._dynamo  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch._higher_order_ops.scan import scan  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
@@ -136,6 +166,8 @@ from repro_torch.kernels.rmsnorm import (rmsnorm_plain,  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6_plain  # noqa: E402
 from repro_torch.models import (OFFLOAD_PLAN, REFERENCE_PLAN,  # noqa: E402
                                 build_model)
+from repro_torch.models.attention import Attention  # noqa: E402
+from repro_torch.models.layers import RMSNorm  # noqa: E402
 from repro_torch.models.transformer import (INIT_STD, DenseBlock,  # noqa: E402
                                             RecurrentSublayer)
 from repro_torch.runtime.serve import Server  # noqa: E402
@@ -489,6 +521,22 @@ def phase_kernels(dev) -> dict:
     for n, d in sorted(set(path_h_norms)):
         norms_h[(n, d)] = rmsnorm_case(dev, n, d, f32, 1e-5, flush, gen)
         print("rmsnorm  ", json.dumps(norms_h[(n, d)]), flush=True)
+    # path E's 65 calls per prefill, in f32: ln1, q-norm, k-norm (16 kv
+    # heads: as many rows as the q-norm) and ln2 of each of 16 layers, and
+    # the final norm; d_model 2048 takes the generic loop.  Path F's one
+    # call is path H's final norm, (2, 2560)
+    olmoe = get_config("olmoe_1b_7b")
+    oh = olmoe.resolved_head_dim
+    path_e_norms = [(tokens, olmoe.d_model), (tokens * olmoe.n_heads, oh),
+                    (tokens * olmoe.n_kv_heads, oh),
+                    (tokens, olmoe.d_model)] * olmoe.n_layers \
+        + [(BATCH, olmoe.d_model)]
+    norms_e = {}
+    for n, d in sorted(set(path_e_norms)):
+        norms_e[(n, d)] = norms_m.get((n, d)) or rmsnorm_case(
+            dev, n, d, f32, 1e-5, flush, gen)
+        print("rmsnorm  ", json.dumps(norms_e[(n, d)]), flush=True)
+    path_f_norms = [(BATCH, get_config("rwkv6_3b").d_model)]
 
     path_flash = flash_case(dev, BATCH, SEQ, SEQ, nq, nkv, hd, True, bf16,
                             2e-2, 1e-2, flush, gen)
@@ -504,6 +552,11 @@ def phase_kernels(dev) -> dict:
         for dt, tols in ((f32, (2e-5, 1e-4)), (bf16, (2e-2, 1e-2)))}
     for row in path_h_flash.values():
         print("flash    ", json.dumps(row), flush=True)
+    # path E's causal MHA, 16 heads of 128, f32
+    path_e_flash = flash_case(dev, BATCH, SEQ, SEQ, olmoe.n_heads,
+                              olmoe.n_kv_heads, oh, True, f32, 2e-5, 1e-4,
+                              flush, gen)
+    print("flash    ", json.dumps(path_e_flash), flush=True)
     for case in [(2, 1000, 1000, 4, 2, 128, True),    # ragged S=1000
                  (2, 130, 70, 4, 2, 64, True),        # Sq != Sk, hd 64
                  (2, 512, 512, 4, 2, 64, False),      # non-causal
@@ -572,6 +625,12 @@ def phase_kernels(dev) -> dict:
                 **norm_sums(path_h_norms, norms_h),
                 "shapes": [{k: norms_h[nd][k] for k in row_keys}
                            for nd in sorted(norms_h)]},
+        path_e={"calls_per_prefill": len(path_e_norms),
+                **norm_sums(path_e_norms, norms_e),
+                "shapes": [{k: norms_e[nd][k] for k in row_keys}
+                           for nd in sorted(norms_e)]},
+        path_f={"calls_per_prefill": len(path_f_norms),
+                **norm_sums(path_f_norms, norms_h)},
         shapes=[{k: norms[nd][k] for k in row_keys}
                 for nd in sorted(norms)])
     flash_entry = _entry("flash_attention", path_flash,
@@ -584,7 +643,9 @@ def phase_kernels(dev) -> dict:
                                  **flash_keys(path_m_flash)},
                          path_h={"calls_per_prefill": rg.n_layers // 3,
                                  **flash_keys(path_h_flash[f32]),
-                                 "bf16": flash_keys(path_h_flash[bf16])})
+                                 "bf16": flash_keys(path_h_flash[bf16])},
+                         path_e={"calls_per_prefill": olmoe.n_layers,
+                                 **flash_keys(path_e_flash)})
     rglru_entry = _entry("rglru_scan", path_rglru,
                          replaces="src/repro/kernels/rglru_scan.py:55",
                          path_h={"calls_per_prefill": 2 * (rg.n_layers // 3)
@@ -685,11 +746,20 @@ def path_m(dev):
 
 
 @functools.lru_cache(maxsize=1)
-def _recurrentgemma_f32(dev):
-    cfg = get_config("recurrentgemma_2b")
+def _model_f32(dev, arch: str):
+    """The whole ``arch`` at its published widths, weights drawn from seed
+    0 in the reference's distributions on a CPU generator and moved to the
+    card in f32 as drawn (the host holds one tensor at a time); tokens
+    uniform in [0, vocab) from the same generator, batch 2 x 2048.  Kept
+    on the card until another model is asked for or ``free_models``."""
+    cfg = get_config(arch)
     gen = torch.Generator().manual_seed(SEED)
     model = build_model(cfg)
+    t0 = time.perf_counter()
     params = model.init(gen, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    print(f"{arch}: {sum(w.numel() for w in params.parameters())} "
+          f"parameters drawn in {time.perf_counter() - t0:.1f} s", flush=True)
     tokens = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=gen)
     return model, params, tokens.to(dev)
 
@@ -701,7 +771,7 @@ def recurrentgemma_model(dev, dtype):
     generator, batch 2 x 2048 (= the local window).  The f32 draw is made
     once and kept on the card; another ``dtype`` is that draw cast as
     ``Model.init`` casts it (every weight but the RG-LRU's ``lam``)."""
-    model, params, tokens = _recurrentgemma_f32(dev)
+    model, params, tokens = _model_f32(dev, "recurrentgemma_2b")
     if dtype != torch.float32:
         memo = {id(w): torch.nn.Parameter(w.detach().to(dtype))
                 for name, w in params.named_parameters()
@@ -720,6 +790,41 @@ def path_h(dev):
             (tokens,))
 
 
+#: path E's plan: the reference's production MoE (capacity-limited
+#: dispatch), f32
+PATH_E_PLAN = REFERENCE_PLAN.replace(compute_dtype="float32",
+                                     moe_impl="scatter_ep")
+
+
+def path_e(dev):
+    model, params, tokens = _model_f32(dev, "olmoe_1b_7b")
+    return (lambda tok: model.prefill(params, {"tokens": tok}, PATH_E_PLAN),
+            (tokens,))
+
+
+#: path F's plan: the chunked WKV form, f32
+PATH_F_PLAN = REFERENCE_PLAN.replace(compute_dtype="float32",
+                                     wkv_impl="chunked")
+
+
+def path_f(dev):
+    model, params, tokens = _model_f32(dev, "rwkv6_3b")
+    return (lambda tok: model.prefill(params, {"tokens": tok}, PATH_F_PLAN),
+            (tokens,))
+
+
+def free_models() -> None:
+    """Drop the full-depth model kept on the card, so the next path's peak
+    memory is its own.  Dynamo's caches are reset too: the export of a
+    program with a ``scan`` (paths R, W, H, F) leaves them holding the
+    program, its modules and their weights, until ``torch._dynamo.reset``
+    (``ROADMAP.md`` §3)."""
+    _model_f32.cache_clear()
+    torch._dynamo.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 #: path M plans the prefill in f32: in bf16 one rounding flip of a
 #: normalized key (|k| up to ~4, a bf16 step of 0.0156 there) fails the
 #: verifier's 1e-2 (see the bf16 diagnostic)
@@ -734,6 +839,16 @@ PATH_H_SITES = ([("linear_recurrence", "cuda")] * 18
                 + [("softmax_attention", "cuda")] * 8
                 + [("rmsnorm", "cuda")] * (2 * 26 + 1))
 
+#: sites of path E: attention and four norms a layer, and the final norm;
+#: no router, expert or MoE region
+PATH_E_SITES = ([("softmax_attention", "cuda")] * 16
+                + [("rmsnorm", "cuda")] * (4 * 16 + 1))
+#: sites of path F: the final norm binds; the embedding's and each
+#: layer's two LayerNorms (x, scale, bias) and the 32 multi-head WKV scans
+#: match and are refused
+PATH_F_SITES = ([("rmsnorm", "cuda")] + [("rmsnorm", "ref")] * (1 + 2 * 32)
+                + [("wkv_recurrence", "ref")] * 32)
+
 PATHS = {
     # label: (program maker, GA population x generations, expected (pattern,
     # variant) bindings of the forced all-kernel plan, the kernels it runs,
@@ -745,9 +860,18 @@ PATHS = {
           + [("rmsnorm", "cuda")] * 2, ("rglru_scan", "rmsnorm"), 3),
     "W": (path_w, (6, 3), [("wkv_recurrence", "cuda")], ("wkv6",), 2),
     "M": (path_m, (8, 4), PATH_M_SITES, ("flash_attention", "rmsnorm"), 3),
-    "H": (path_h, (6, 3), PATH_H_SITES,
+    "H": (path_h, (4, 2), PATH_H_SITES,
           ("flash_attention", "rmsnorm", "rglru_scan"), 1),
+    "E": (path_e, (6, 3), PATH_E_SITES, ("flash_attention", "rmsnorm"), 1),
+    "F": (path_f, (4, 2), PATH_F_SITES, ("rmsnorm",), 1),
 }
+#: paths with top-k routing: the reference must repeat bit for bit, and
+#: the forced plan verifies or a routing diagnostic explains why not
+ROUTED = {"E"}
+#: paths whose search is seeded with the forced all-kernel chromosome
+#: (``Offloader.search``'s ``extra_seeds``), and on which no chromosome at
+#: all may fail with an error
+SEEDED = {"E", "F"}
 
 
 #: the kernel each pattern's ``cuda`` variant launches
@@ -759,11 +883,16 @@ PATTERN_KERNEL = {"softmax_attention": "flash_attention",
 #: the q/k-norms' head_dim 128; path R: d_model 2560, all bf16), and the
 #: RG-LRU route path R's time-major views take
 PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"},
-                 "M": {"d1024_l32", "d128_l32"}, "H": {"d2560_l32"}}
+                 "M": {"d1024_l32", "d128_l32"}, "H": {"d2560_l32"},
+                 "E": {"generic_l32", "d128_l32"}, "F": {"d2560_l32"}}
+#: RMSNorm launches by variant of one forward of the forced plan, where
+#: a path pins them: path E's ln1, ln2 and final norm at d 2048 take the
+#: generic loop, its q- and k-norms the d = 128 instance
+PATH_VARIANT_COUNTS = {"E": {"generic_l32": 33, "d128_l32": 32}}
 PATH_ROUTES = {"R": {"tma"}, "H": {"tma"}}
 #: the flash path each path's launches take (paths M and H in f32, path H
 #: at head dim 256: ``scalar``)
-PATH_FLASH = {"Q": "wgmma", "M": "scalar", "H": "scalar"}
+PATH_FLASH = {"Q": "wgmma", "M": "scalar", "H": "scalar", "E": "scalar"}
 
 
 def sub_counts() -> dict:
@@ -789,9 +918,18 @@ def check_sub_counts(label, what, counts, launches, kernels) -> None:
               f"{counts[name]}, not {sorted(want[name])}")
 
 
+def forced_chromosome(graph, coding) -> tuple:
+    """Every matched site on its ``cuda`` variant, every other site on
+    ``ref``."""
+    return tuple(2 if graph.by_name(s.region).meta.get("pattern") else 0
+                 for s in coding.sites)
+
+
 def phase_path(label, dev, scratch: Path) -> tuple:
     make, (pop, gens), expected, kernels, iters = PATHS[label]
+    torch.cuda.reset_peak_memory_stats()
     target, args = make(dev)
+    resident_gb = torch.cuda.memory_allocated() / 1e9
     with torch.no_grad():
         reference = target(*args)
     torch.cuda.synchronize()
@@ -799,6 +937,14 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     print(f"path {label} output: {len(pytree.tree_leaves(reference))} "
           f"tensor(s), the first {tuple(first.shape)} max |y| "
           f"{first.float().abs().max().item():.4f}", flush=True)
+    if label in ROUTED:
+        # the fitness's baseline must not move under top-k routing
+        with torch.no_grad():
+            again = target(*args)
+        check(all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(reference), pytree.tree_leaves(again))),
+            f"path {label}: two runs of the all-reference program differ")
+        del again
 
     ga = GAConfig(population=pop, generations=gens, seed=SEED,
                   cache_dir=str(scratch))
@@ -808,9 +954,16 @@ def phase_path(label, dev, scratch: Path) -> tuple:
                                                flush=True))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = Offloader(config).plan(target)
+    offloader = Offloader(config)
+    if label in SEEDED:
+        ctx = offloader.prepare(target)
+        res = offloader.search(ctx, extra_seeds=[
+            forced_chromosome(ctx.graph, ctx.coding)])
+    else:
+        res = offloader.plan(target)
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
+    planned_gb = torch.cuda.memory_allocated() / 1e9
     launches = ops.launch_counts()
     search_counts = sub_counts()
     flash_paths = search_counts["flash_attention"]
@@ -836,8 +989,7 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     engine = res.details["engine"]
     matched = {s.region: res.graph.by_name(s.region).meta.get("pattern")
                for s in res.coding.sites}
-    forced_bits = tuple(2 if matched[s.region] else 0
-                        for s in res.coding.sites)
+    forced_bits = forced_chromosome(res.graph, res.coding)
     t0 = time.perf_counter()
     forced = engine.substitute(res.coding.decode(forced_bits))
     substitute_s = time.perf_counter() - t0
@@ -851,13 +1003,19 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     torch.cuda.synchronize()
     forced_launches = {k: n for k, n in ops.launch_counts().items() if n}
     forced_counts = sub_counts()
-    want = {name: sum(1 for p, _ in expected if PATTERN_KERNEL[p] == name)
+    want = {name: sum(1 for p, v in expected
+                      if v == "cuda" and PATTERN_KERNEL[p] == name)
             for name in kernels}
     check(forced_launches == want,
           f"path {label}: one forward of the forced all-kernel plan launched "
           f"{forced_launches}, not {want}")
     check_sub_counts(label, "one forward of the forced all-kernel plan",
                      forced_counts, forced_launches, kernels)
+    if label in PATH_VARIANT_COUNTS:
+        got = {k: n for k, n in forced_counts["rmsnorm"].items() if n}
+        check(got == PATH_VARIANT_COUNTS[label],
+              f"path {label}: one forward of the forced all-kernel plan ran "
+              f"RMSNorm by {got}, not {PATH_VARIANT_COUNTS[label]}")
     # the verifier as the fitness runs it: the reference kept on the card,
     # each pair compared there in f64; and as the parent commit ran it:
     # the reference as f64 host arrays, the candidate copied over
@@ -879,8 +1037,12 @@ def phase_path(label, dev, scratch: Path) -> tuple:
           f"launched {json.dumps(forced_launches)} by "
           f"{json.dumps(forced_counts)}; verify {verify_s:.4f} s on the "
           f"card, {verify_host_s:.4f} s on the host", flush=True)
-    check(fv.ok, f"path {label}: forced all-kernel plan differs from the "
-                 f"program: {fv}")
+    routing = None
+    if label in ROUTED:
+        routing = routing_outcome(label, dev, reference, forced_out, fv)
+    else:
+        check(fv.ok, f"path {label}: forced all-kernel plan differs from "
+                     f"the program: {fv}")
 
     # every measured chromosome, from the search's measurement journal
     records = MeasurementCache(str(scratch),
@@ -888,8 +1050,9 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     kernel_errors, verify_fails = [], {}
     for bits, ev in records.items():
         impl = res.coding.decode(bits)
-        if "error" in ev.detail and any(
-                engine.resolved_impl(r, i) == "cuda" for r, i in impl.items()):
+        if "error" in ev.detail and (label in SEEDED or any(
+                engine.resolved_impl(r, i) == "cuda"
+                for r, i in impl.items())):
             kernel_errors.append(("".join(map(str, bits)), ev.detail["error"]))
         if "verify" in ev.detail:
             verify_fails["".join(map(str, bits))] = ev.detail["verify"]
@@ -917,15 +1080,126 @@ def phase_path(label, dev, scratch: Path) -> tuple:
             p for p in matched.values() if p)),
         "launches": launches, "flash_launches_by_kernel_path": flash_paths,
         "rmsnorm_launches_by_variant": search_counts["rmsnorm"],
-        "rglru_launches_by_route": search_counts["rglru_scan"]}
+        "rglru_launches_by_route": search_counts["rglru_scan"],
+        "routing": routing}
     print(f"path {label}:", json.dumps(summary), flush=True)
     unsubstituted = engine.substitute({})
     for name, fn in (("baseline (all ref)", unsubstituted),
                      ("plan winner", res.artifact), ("all kernels", forced)):
         print(f"where the time goes, path {label}, {name}:",
               json.dumps(where_time_goes(fn, args, iters)), flush=True)
+    print(f"path {label} device memory: {resident_gb:.2f} GB held when the "
+          f"program is made, {planned_gb:.2f} GB after planning, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return launches, {k: search_counts[k] for k in kernels
                       if k in search_counts}
+
+
+def routing_flips(model, params, tokens) -> dict:
+    """Each layer's top-k experts for every token of path E's eager
+    prefill, once as it is and once with the forced plan's kernels swapped
+    in by forward hooks (each RMSNorm's output replaced by the RMSNorm
+    kernel's on its input, each attention's by the flash kernel's): the
+    (layer, token) pairs whose top-k set differs, and the first layer where
+    one does.  The kernels change each router's input by rounding only.
+    (``norm_impl="fused"`` would not: it is the reference's expression op
+    for op, bitwise the same output.)"""
+    def run(kernels: bool) -> list:
+        picks, hooks = [], []
+        for blk in params.blocks:
+            hooks.append(blk.moe.router.register_forward_hook(
+                lambda m, a, out: picks.append(torch.sort(out[1], -1).values)))
+        if kernels:
+            for m in params.modules():
+                if isinstance(m, RMSNorm):
+                    hooks.append(m.register_forward_hook(
+                        lambda m, a, out: ops.rmsnorm(a[0], m.weight,
+                                                      eps=m.eps)))
+                elif isinstance(m, Attention):
+                    hooks.append(m.register_forward_hook(
+                        lambda m, a, out: ops.flash_attention(*a[:3],
+                                                              causal=True)))
+        try:
+            with torch.no_grad():
+                model.prefill(params, {"tokens": tokens}, PATH_E_PLAN)
+        finally:
+            for h in hooks:
+                h.remove()
+        return picks
+
+    per_layer = [int((a != b).any(-1).sum())
+                 for a, b in zip(run(False), run(True), strict=True)]
+    return {"routing_flips": sum(per_layer), "flips_by_layer": per_layer,
+            "first_flip_layer": next((i for i, n in enumerate(per_layer)
+                                      if n), None)}
+
+
+def routing_outcome(label, dev, reference, forced_out, fv) -> dict:
+    """Path ``label``'s verification finding, fixed before any card run:
+    (a) the forced all-kernel plan verifies; or (b) it does not, the
+    routing diagnostic finds at least one (layer, token) whose top-k set
+    the kernels' rounding changed, and the forced plan's layer-0 K and V
+    (no routing decision comes before them) are within 1e-4 of the
+    reference's.  Fails unless (a) or (b) holds."""
+    model, params, tokens = _model_f32(dev, "olmoe_1b_7b")
+    n = model.cfg.n_layers
+    ref, got = pytree.tree_leaves(reference), pytree.tree_leaves(forced_out)
+    check(len(ref) == len(got) == 2 + 2 * n,
+          f"path {label}: {len(ref)} output leaves, not logits, {n} (K, V) "
+          f"pairs and cache_len")
+    kv_err = [[(got[1 + 2 * i + j].float() - ref[1 + 2 * i + j].float())
+               .abs().max().item() for j in (0, 1)] for i in range(n)]
+    out = {"verified": fv.ok, "max_abs": fv.max_abs, "max_rel": fv.max_rel,
+           "logits_max_abs": (got[0] - ref[0]).abs().max().item(),
+           "kv_max_abs_by_layer": kv_err,
+           **routing_flips(model, params, tokens)}
+    if fv.ok:
+        out["outcome"] = "a"
+    else:
+        check(out["routing_flips"] >= 1 and max(kv_err[0]) <= 1e-4,
+              f"path {label}: the forced plan does not verify ({fv}) and "
+              f"no routing flip explains it: {json.dumps(out)}")
+        out["outcome"] = "b"
+    print(f"path {label} verification finding:", json.dumps(out), flush=True)
+    return out
+
+
+def moe_dense_forward(dev) -> dict:
+    """One all-reference forward of path E's prefill under
+    ``dense_onehot`` (every token through all 64 experts): where its time
+    goes and the peak device memory."""
+    model, params, tokens = _model_f32(dev, "olmoe_1b_7b")
+    plan = PATH_E_PLAN.replace(moe_impl="dense_onehot")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = where_time_goes(
+            lambda tok: model.prefill(params, {"tokens": tok}, plan),
+            (tokens,), 1)
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print("where the time goes, path E, all reference under dense_onehot:",
+          json.dumps(out), flush=True)
+    return out
+
+
+def rwkv_forms(dev) -> dict:
+    """Path F's prefill once under the ``step`` WKV form (the reference's
+    oracle: a scan of 2048 steps a layer) and once under ``chunked``: the
+    wall time of each, and the verifier's rule between them."""
+    model, params, tokens = _model_f32(dev, "rwkv6_3b")
+    outs, out = {}, {}
+    for form in ("step", "chunked"):
+        plan = PATH_F_PLAN.replace(wkv_impl=form)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs[form] = model.prefill(params, {"tokens": tokens}, plan)
+        torch.cuda.synchronize()
+        out[f"{form}_wall_s"] = time.perf_counter() - t0
+    v = verify(outs["step"], outs["chunked"], rtol=1e-2, atol=1e-2)
+    out.update(verified=v.ok, max_abs=v.max_abs, max_rel=v.max_rel)
+    print("path F, step against chunked:", json.dumps(out), flush=True)
+    check(v.ok, f"path F: the chunked prefill differs from the step one: {v}")
+    return out
 
 
 def bf16_diagnostic(dev, label: str, make_model, n_sites: int) -> dict:
@@ -971,7 +1245,9 @@ def bf16_diagnostic(dev, label: str, make_model, n_sites: int) -> dict:
 def serve_phase(dev, label: str, make_model, new_tokens: int,
                 swap: bool) -> dict:
     """``Server.generate`` on path ``label``'s model in bf16 under
-    ``OFFLOAD_PLAN``: 4 requests of 512 prompt tokens, ``new_tokens``
+    ``OFFLOAD_PLAN`` (``make_model`` gives its weights in bf16, or in f32
+    for the ``Server`` to cast once, keeping the leaves the reference reads
+    in f32): 4 requests of 512 prompt tokens, ``new_tokens``
     greedy new tokens.  Two calls give identical tokens; with ``swap``,
     after ``swap_plan(REFERENCE_PLAN)`` the next call gives the tokens of a
     server built on that plan.  Times: a prefill (``max_new = 1``: prefill
@@ -1143,7 +1419,8 @@ def main() -> int:
     sub_keys = {"flash_attention": "launches_by_kernel_path",
                 "rmsnorm": "launches_by_variant",
                 "rglru_scan": "launches_by_route"}
-    for label in PATHS:
+
+    def run_path(label):
         scratch = Path(tempfile.mkdtemp(prefix=f"plan-{label}-",
                                         dir=build.BUILD_DIR))
         try:
@@ -1154,20 +1431,41 @@ def main() -> int:
                         counts
         finally:
             shutil.rmtree(scratch)
-        print(f"path {label} done at {time.perf_counter() - t_start:.1f} s",
+        done(f"path {label}")
+
+    def done(what):
+        print(f"{what} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
+
+    for label in ("Q", "R", "W", "M", "H"):
+        run_path(label)
     for label, make_model, n_sites in (
             ("M", qwen3_model, len(PATH_M_SITES)),
             ("H", recurrentgemma_model, len(PATH_H_SITES))):
         bf16_diagnostic(dev, label, make_model, n_sites)
-        print(f"bf16 diagnostic {label} done at "
-              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        done(f"bf16 diagnostic {label}")
     for label, make_model, new_tokens, swap in (
             ("M", qwen3_model, SERVE_NEW, True),
             ("H", recurrentgemma_model, SERVE_NEW_H, False)):
         serve_phase(dev, label, make_model, new_tokens, swap)
-        print(f"serve {label} done at {time.perf_counter() - t_start:.1f} s",
-              flush=True)
+        done(f"serve {label}")
+    # the whole OLMoE, then the whole RWKV-6: each alone on the card; the
+    # Server casts the f32 draw to its plan's bf16 once
+    free_models()
+    run_path("E")
+    moe_dense_forward(dev)
+    done("path E under dense_onehot")
+    serve_phase(dev, "E", lambda d, _: _model_f32(d, "olmoe_1b_7b"),
+                SERVE_NEW_H, False)
+    done("serve E")
+    free_models()
+    rwkv_forms(dev)
+    done("path F, step and chunked")
+    run_path("F")
+    serve_phase(dev, "F", lambda d, _: _model_f32(d, "rwkv6_3b"),
+                SERVE_NEW_H, False)
+    done("serve F")
+    free_models()
     for name, entry in kernels.items():
         per_path = {label: counts[name] for label, counts in by_path.items()
                     if name in PATHS[label][3]}

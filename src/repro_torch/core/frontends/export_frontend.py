@@ -207,12 +207,19 @@ def _target_name(fn: Any) -> str:
 def _export(root: torch.nn.Module, example_args: tuple, label: str):
     """``torch.export`` of ``root``, refusing a program that calls modules
     when none of its nodes records a module scope: its modules were not
-    reached from the target, so it would be one silent region."""
+    reached from the target, so it would be one silent region.
+
+    The export runs without autograd: the planner plans forward programs
+    (the fitness runs them under ``no_grad``), the graph is the same, and a
+    ``scan`` whose inputs require grad (RWKV-6's bonus ``u`` is a
+    parameter) is not traced into a joint forward and backward graph and
+    partitioned, which costs seconds a layer."""
     called: list = []
     handle = torch.nn.modules.module.register_module_forward_pre_hook(
         lambda m, _args: called.append(m) if m is not root else None)
     try:
-        ep = torch.export.export(root, tuple(example_args))
+        with torch.no_grad():
+            ep = torch.export.export(root, tuple(example_args))
     finally:
         handle.remove()
     # export's own wrappers hold the root, and its graph modules (a scan's

@@ -1,8 +1,9 @@
-"""Port of ``repro/models``: the decoder-only LM of the dense, VLM and
-hybrid families (``transformer``, ``api``), its plan knobs (``plan``),
-layers and attention, the RG-LRU block of the hybrid family (``rglru``,
-``transformer.RecurrentSublayer``) and the JAX-parameter converters
-(``convert``)."""
+"""Port of ``repro/models``: the decoder-only LM of the dense, VLM, MoE,
+hybrid and SSM families (``transformer``, ``api``), its plan knobs
+(``plan``), layers and attention, the MoE block (``moe``), the RG-LRU
+block of the hybrid family (``rglru``, ``transformer.RecurrentSublayer``),
+the RWKV-6 block of the SSM family (``rwkv``, ``transformer.RWKVBlock``)
+and the JAX-parameter converters (``convert``)."""
 from repro_torch.models.api import Model, build_model
 from repro_torch.models.plan import OFFLOAD_PLAN, REFERENCE_PLAN, ExecPlan
 

@@ -1,6 +1,6 @@
 """Port of ``repro/models/api.py``: the :class:`Model` facade, one uniform
-interface over the ported architectures (the dense, VLM and hybrid
-families).
+interface over the ported architectures (the dense, VLM, MoE, hybrid
+and SSM families).
 
 ``build_model(cfg)`` returns a :class:`Model` with
 ``init(generator, dtype, device)`` / ``param_shapes`` / ``loss`` /

@@ -5,17 +5,21 @@
 when embeddings are untied, ``final_norm``, ``blocks`` (each leaf stacked
 on axis 0 over the layers; for a hybrid model over the macro blocks, each
 ``{"sub0": ..., "sub1": ...}``), a hybrid model's ``pre_blocks`` (a list
-of RG-LRU sublayers) and, for a VLM, ``projector`` — and returns an
-:class:`~repro_torch.models.transformer.LMParams` holding them.
-``dense_block_from_jax`` takes one block of ``_dense_block_init`` —
-``ln1``, ``ln2``, ``attn`` {wq, wk, wv, wo, bq, bk, bv, q_norm, k_norm},
-``mlp`` {w_gate, w_up, w_down}, all in the reference's (in, out) layout —
-and returns a :class:`~repro_torch.models.transformer.DenseBlock`.
-``recurrent_sublayer_from_jax`` takes one ``_hybrid_sub_init(...,
-"rglru", ...)`` dict — ``ln1``, ``ln2``, ``rglru`` {w_branch, w_in, w_out,
-w_conv, b_conv, w_a, b_a, w_x, b_x, lam}, ``mlp`` {w_gate, w_up, w_down}
-— and returns a :class:`~repro_torch.models.transformer.RecurrentSublayer`.
-All three reject a missing, extra or misshapen key.
+of RG-LRU sublayers), an SSM model's ``embed_norm_s`` and ``embed_norm_b``
+and, for a VLM, ``projector`` — and returns an
+:class:`~repro_torch.models.transformer.LMParams` holding them.  A block
+is the reference's ``_dense_block_init`` — ``ln1``, ``ln2``, ``attn`` {wq,
+wk, wv, wo, bq, bk, bv, q_norm, k_norm}, and ``mlp`` {w_gate, w_up,
+w_down} or, for a MoE model, ``moe`` {w_router, w_gate, w_up, w_down,
+shared} — its ``_hybrid_sub_init`` (``rglru`` {w_branch, w_in, w_out,
+w_conv, b_conv, w_a, b_a, w_x, b_x, lam} in place of ``attn``), or its
+``_rwkv_block_init`` (``ln1_s``, ``ln1_b``, ``ln2_s``, ``ln2_b``,
+``tm_cm``), all in the reference's (in, out) layout.
+``dense_block_from_jax`` takes one dense or MoE block and returns a
+:class:`~repro_torch.models.transformer.DenseBlock`;
+``recurrent_sublayer_from_jax`` takes one RG-LRU sublayer and returns a
+:class:`~repro_torch.models.transformer.RecurrentSublayer`.  All three
+reject a missing, extra or misshapen key.
 """
 from __future__ import annotations
 
@@ -32,26 +36,46 @@ __all__ = ["dense_block_from_jax", "model_from_jax",
            "recurrent_sublayer_from_jax"]
 
 _NORMS = ("ln1", "ln2", "q_norm", "k_norm", "final_norm")
+#: the reference's LayerNorm leaves and MoE router -> the port's names
+_RENAMED = {"ln1_s": "ln1.weight", "ln1_b": "ln1.bias",
+            "ln2_s": "ln2.weight", "ln2_b": "ln2.bias",
+            "embed_norm_s": "embed_norm.weight",
+            "embed_norm_b": "embed_norm.bias",
+            "w_router": "router.weight"}
 
 
 def _name(key: str) -> str:
     """A reference leaf name -> the port's parameter name."""
-    return f"{key}.weight" if key in _NORMS else key
+    return f"{key}.weight" if key in _NORMS else _RENAMED.get(key, key)
 
 
 def _block_params(blk: Mapping) -> dict:
-    """One reference block (dense or RG-LRU sublayer), flattened to the
-    port block's parameter names.  ``ln1``, ``ln2`` and ``mlp`` are
-    required (KeyError); unknown keys pass through unchanged, so
-    :func:`_load` rejects them."""
-    out = {"ln1.weight": blk["ln1"], "ln2.weight": blk["ln2"], **blk["mlp"]}
+    """One reference block (dense, MoE, RG-LRU sublayer or RWKV),
+    flattened to the port block's parameter names: ``attn`` and ``mlp``
+    leaves sit on the block, ``moe``, ``rglru`` and ``tm_cm`` leaves under
+    their submodule.  A block that is not RWKV's must hold ``ln1``, ``ln2``
+    and its feed-forward (``mlp`` or ``moe``; KeyError); unknown keys pass
+    through unchanged, so :func:`_load` rejects them (as it rejects any
+    other missing one)."""
+    if "tm_cm" not in blk:
+        missing = [k for k in ("ln1", "ln2", "moe" if "moe" in blk else "mlp")
+                   if k not in blk]
+        if missing:
+            raise KeyError(f"block lacks {missing}")
+    out = {}
     for key, value in blk.items():
-        if key == "attn":
+        if key in ("attn", "mlp"):
             out.update({_name(k): w for k, w in value.items()})
-        elif key == "rglru":
-            out.update({f"rglru.{k}": w for k, w in value.items()})
-        elif key not in ("ln1", "ln2", "mlp"):
-            out[key] = value
+        elif key == "moe":
+            for k, w in value.items():
+                if k == "shared":
+                    out.update({f"moe.shared.{n}": x for n, x in w.items()})
+                else:
+                    out[f"moe.{_name(k)}"] = w
+        elif key in ("rglru", "tm_cm"):
+            out.update({f"{key}.{k}": w for k, w in value.items()})
+        else:
+            out[_name(key)] = value
     return out
 
 

@@ -1,9 +1,9 @@
 """Port of ``repro/models/layers.py``: initializers (``dense_init``,
 ``embed_init``, ``mlp_init``), RMSNorm (``rmsnorm_ref``, ``rmsnorm_fused``,
 the ``rmsnorm`` dispatch and the :class:`RMSNorm` submodule around it),
-``layernorm``, rotary embeddings, the gated MLP (``mlp_ref``,
-``mlp_fused``, the ``mlp`` dispatch), embeddings, logits and the two
-cross-entropy forms.
+``layernorm`` and its :class:`LayerNorm` submodule, rotary embeddings, the
+gated MLP (``mlp_ref``, ``mlp_fused``, the ``mlp`` dispatch), embeddings,
+logits and the two cross-entropy forms.
 
 Every layer has a ``ref`` implementation and, where the reference has one,
 an offloaded form the :class:`~repro_torch.models.plan.ExecPlan` selects.
@@ -28,8 +28,9 @@ from torch import nn
 
 from repro_torch.models.plan import REFERENCE_PLAN, ExecPlan
 
-__all__ = ["RMSNorm", "apply_rope", "cast", "cdtype", "cross_entropy_chunked",
-           "cross_entropy_full", "dense_init", "embed_init", "embed_tokens",
+__all__ = ["LayerNorm", "RMSNorm", "apply_rope", "cast", "cdtype",
+           "cross_entropy_chunked", "cross_entropy_full", "dense_init",
+           "embed_init", "embed_tokens",
            "layernorm", "logits_from_hidden", "mlp", "mlp_fused", "mlp_init",
            "mlp_ref", "plan_for", "rmsnorm", "rmsnorm_fused", "rmsnorm_ref",
            "rope_freqs"]
@@ -133,6 +134,24 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = (xf - mu) * torch.rsqrt(var + eps)
     return cast(y * cast(scale, torch.float32) + cast(bias, torch.float32),
                 x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """:func:`layernorm` over the last dim with ``weight`` (starts at one)
+    and ``bias`` (zero), both read in f32.  A submodule, so the export
+    frontend sees it as one region (x, weight, bias): the ``rmsnorm``
+    record matches it by name, and the kernel's binder, which takes (x,
+    scale), refuses it."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x, self.weight, self.bias, self.eps)
 
 
 # ---------------------------------------------------------------------------

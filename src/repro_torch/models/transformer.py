@@ -1,33 +1,42 @@
-"""Port of ``repro/models/transformer.py`` for the dense, VLM and hybrid
-(RecurrentGemma) families: the decoder-only LM's parameters
-(:class:`LMParams`, drawn as the reference's ``init_params`` draws them),
-``embed_inputs`` (with the VLM projector), ``head_table``, ``lm_logits``,
-``forward_full``, ``lm_loss`` (forward), ``prefill`` and ``decode_step``.
+"""Port of ``repro/models/transformer.py``: the decoder-only LM's
+parameters (:class:`LMParams`, drawn as the reference's ``init_params``
+draws them), ``embed_inputs`` (with the VLM projector and the SSM
+embedding LayerNorm), ``head_table``, ``lm_logits``, ``forward_full``,
+``lm_loss`` (forward, with the MoE auxiliary losses), ``prefill`` and
+``decode_step``, for the dense, VLM, MoE, hybrid (RecurrentGemma) and SSM
+(RWKV-6) families.
 
-Layers are modules, not stacked leaves.  A dense or VLM model's
-``blocks`` is an ``nn.ModuleList`` of :class:`DenseBlock`; its decode state
-is ``{"kv": [KVCache per layer], "cache_len": int32 device scalar}``.  A
-hybrid model holds ``pre_blocks`` (the ``n_layers % len(block_pattern)``
-leading RG-LRU sublayers) and ``blocks`` (one ``nn.ModuleDict`` a macro
-block, ``sub0``, ``sub1``, ... in ``block_pattern`` order: a
-:class:`RecurrentSublayer` for ``rglru``, a local-attention
-:class:`DenseBlock` otherwise).  Its decode state keeps the reference's
-keys with a list per layer where the reference stacks over layers::
+Layers are modules, not stacked leaves.  A dense, VLM or MoE model's
+``blocks`` is an ``nn.ModuleList`` of :class:`DenseBlock` (a MoE block
+holds a :class:`~repro_torch.models.moe.MoE` where a dense block holds its
+MLP weights); its decode state is ``{"kv": [KVCache per layer],
+"cache_len": int32 device scalar}``.  A hybrid model holds ``pre_blocks``
+(the ``n_layers % len(block_pattern)`` leading RG-LRU sublayers) and
+``blocks`` (one ``nn.ModuleDict`` a macro block, ``sub0``, ``sub1``, ... in
+``block_pattern`` order: a :class:`RecurrentSublayer` for ``rglru``, a
+local-attention :class:`DenseBlock` otherwise).  An SSM model's ``blocks``
+is an ``nn.ModuleList`` of :class:`RWKVBlock`.  The decode state keeps the
+reference's keys with a list per layer where the reference stacks over
+layers::
 
     {"pre_rglru": [RGLRUState per pre-block],          (only when any)
      "macro_rglru": [{"rglru0": RGLRUState, "rglru1": RGLRUState} a macro],
      "macro_kv": [KVCache (a ring of local_window slots) a macro],
-     "cache_len": int32 device scalar}
+     "cache_len": int32 device scalar}                 (hybrid)
+    {"rwkv": [RWKVState(wkv, shift_tm, shift_cm) per layer],
+     "cache_len": int32 device scalar}                 (SSM)
 
 (the reference: ``pre_rglru`` / ``macro_rglru[f"rglru{j}"]`` as ``{"h",
-"conv"}`` stacked on axis 0, ``macro_kv`` as ``{"k", "v"}`` stacked).  A
-decode step writes each KV cache in place (the reference's donated state),
-returns new RG-LRU states, and ``cache_len + 1``.  The MoE, SSM and enc-dec
-families raise ``NotImplementedError`` (``ROADMAP.md`` queue 1 items 2-4).
-The plan's ``remat``, ``gather_mode`` and ``gather_dtype`` knobs shape the
-reference's training step and sharding; a forward here reads none of them.
+"conv"}`` stacked on axis 0, ``macro_kv`` as ``{"k", "v"}`` stacked,
+``rwkv`` as ``{"wkv", "shift_tm", "shift_cm"}`` stacked).  A decode step
+writes each KV cache in place (the reference's donated state), returns new
+RG-LRU and RWKV states, and ``cache_len + 1``.  The enc-dec family raises
+``NotImplementedError`` (``ROADMAP.md`` queue 1 item 4).  The plan's
+``remat``, ``gather_mode`` and ``gather_dtype`` knobs shape the reference's
+training step and sharding; a forward here reads none of them.
 
-``RMSNorm``, ``Attention`` and the RG-LRU's ``LinearRecurrence`` are
+``RMSNorm``, ``LayerNorm``, ``Attention``, the MoE's ``Router``, the
+RG-LRU's ``LinearRecurrence`` and RWKV's ``WKVRecurrence`` are
 submodules, so the export frontend isolates them as regions; the
 projection and MLP weights sit on the block in the reference's (in, out)
 layout.
@@ -44,13 +53,17 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import (Attention, KVCache, attend_decode,
                                           attn_init, cache_update,
                                           project_qkv)
+from repro_torch.models.moe import MoE
 from repro_torch.models.plan import ExecPlan
 from repro_torch.models.rglru import (LinearRecurrence, RGLRUState,
                                       rglru_block, rglru_init)
+from repro_torch.models.rwkv import (RWKVState, WKVRecurrence, channel_mix,
+                                     rwkv_init, time_mix)
 
-__all__ = ["DenseBlock", "INIT_STD", "LMParams", "RecurrentSublayer",
-           "check_family", "decode_step", "embed_inputs", "forward_full",
-           "head_table", "init_params", "lm_logits", "lm_loss", "prefill"]
+__all__ = ["DenseBlock", "INIT_STD", "LMParams", "RWKVBlock",
+           "RecurrentSublayer", "check_family", "decode_step",
+           "embed_inputs", "forward_full", "head_table", "init_params",
+           "lm_logits", "lm_loss", "prefill"]
 
 #: weight init std of the ``scaled`` block init: Qwen3's published
 #: ``initializer_range``
@@ -59,22 +72,21 @@ INIT_STD = 0.02
 #: families not ported yet -> the item of ``ROADMAP.md`` queue 1 that
 #: brings them
 _UNPORTED = {
-    "ssm": (2, "rwkv.py and the SSM family"),
-    "moe": (3, "moe.py and the MoE family"),
     "encdec": (4, "whisper.py and the enc-dec family"),
 }
 
 
 def check_family(cfg) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense, VLM or
-    hybrid decoder this port runs (never treat another family as dense)."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense, VLM, MoE,
+    hybrid or SSM decoder this port runs (never treat another family as
+    dense)."""
     family = "moe" if cfg.moe is not None else cfg.family
     if family in _UNPORTED:
         item, what = _UNPORTED[family]
         raise NotImplementedError(
             f"{cfg.arch_id}: the {family} family is not ported yet "
             f"(ROADMAP.md queue 1 item {item}: {what})")
-    if family not in ("dense", "vlm", "hybrid"):
+    if family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
         raise ValueError(f"{cfg.arch_id}: unknown family {family!r}")
 
 
@@ -92,10 +104,16 @@ class DenseBlock(nn.Module):
     lone block's outputs where bf16 resolves the verifier's 1e-2.  Norm
     scales start at zero, the reference's unit ``(1 + scale)`` weighting.
 
+    With ``cfg.moe`` set the block's feed-forward is a
+    :class:`~repro_torch.models.moe.MoE` (``self.moe``), drawn by the
+    reference's ``moe_init`` in either init, in place of the gated MLP.
+
     ``forward(x)`` is the full-sequence block under the plan (the
     reference form in x's dtype when none is given); with
     ``cache_capacity`` it also returns the layer's :class:`KVCache`
-    (prefill).  :meth:`decode` is one token against that cache.
+    (prefill), and with ``with_aux`` (a MoE block) the layer's MoE losses
+    (load balance, router z) as a (2,) tensor, last.  :meth:`decode` is
+    one token against that cache.
     """
 
     def __init__(self, cfg, *, dtype: torch.dtype = torch.float32,
@@ -104,8 +122,6 @@ class DenseBlock(nn.Module):
         from repro_torch.core.frontends.export_frontend import resolve_device
 
         super().__init__()
-        if cfg.moe is not None:
-            check_family(cfg)
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -125,8 +141,9 @@ class DenseBlock(nn.Module):
             w = {"wq": weight(d, nq * hd), "wk": weight(d, nkv * hd),
                  "wv": weight(d, nkv * hd), "wo": weight(nq * hd, d,
                                                          std=out_std)}
-            w.update(w_gate=weight(d, ff), w_up=weight(d, ff),
-                     w_down=weight(ff, d, std=out_std))
+            if cfg.moe is None:
+                w.update(w_gate=weight(d, ff), w_up=weight(d, ff),
+                         w_down=weight(ff, d, std=out_std))
             if cfg.qkv_bias:
                 w.update(bq=torch.zeros(nq * hd), bk=torch.zeros(nkv * hd),
                          bv=torch.zeros(nkv * hd))
@@ -134,7 +151,8 @@ class DenseBlock(nn.Module):
             w = attn_init(cfg, generator)
             w.pop("q_norm", None)
             w.pop("k_norm", None)
-            w.update(L.mlp_init(d, ff, generator))
+            if cfg.moe is None:
+                w.update(L.mlp_init(d, ff, generator))
         else:
             raise ValueError(f"init must be 'scaled' or 'reference', not "
                              f"{init!r}")
@@ -150,16 +168,25 @@ class DenseBlock(nn.Module):
             self.q_norm, self.k_norm = norm(hd), norm(hd)
         self.attn = Attention(cfg.attn_kind, cfg.local_window)
         self.ln2 = norm(d)
-        self.w_gate, self.w_up = param(w["w_gate"]), param(w["w_up"])
-        self.w_down = param(w["w_down"])
+        if cfg.moe is not None:
+            self.moe = MoE(cfg, dtype=dtype, device=dev, generator=generator)
+        else:
+            self.w_gate, self.w_up = param(w["w_gate"]), param(w["w_up"])
+            self.w_down = param(w["w_down"])
 
-    def _mlp(self, x: torch.Tensor, plan: ExecPlan) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor, plan: ExecPlan) -> tuple:
+        """The second sublayer's update from the residual ``x``, and the
+        MoE losses as a (2,) tensor (None for a dense block)."""
+        h = self.ln2(x, plan)
+        if self.cfg.moe is not None:
+            y, aux = self.moe(h, plan)
+            return y, torch.stack([aux.load_balance, aux.router_z])
         p = {"w_gate": self.w_gate, "w_up": self.w_up, "w_down": self.w_down}
-        return L.mlp(self.ln2(x, plan), p, self.cfg.mlp_act, plan)
+        return L.mlp(h, p, self.cfg.mlp_act, plan), None
 
     def forward(self, x: torch.Tensor, plan: Optional[ExecPlan] = None, *,
                 positions: Optional[torch.Tensor] = None,
-                cache_capacity: Optional[int] = None):
+                cache_capacity: Optional[int] = None, with_aux: bool = False):
         plan = L.plan_for(x, plan)
         b, s, _ = x.shape
         if positions is None:
@@ -168,10 +195,13 @@ class DenseBlock(nn.Module):
                               positions)
         o = self.attn(q, k, v, plan).reshape(b, s, -1)
         x = x + o @ L.cast(self.wo, L.cdtype(plan))
-        x = x + self._mlp(x, plan)
-        if cache_capacity is None:
-            return x
-        return x, self._prefill_cache(k, v, cache_capacity)
+        y, aux = self._ffn(x, plan)
+        out = (x + y,)
+        if cache_capacity is not None:
+            out += (self._prefill_cache(k, v, cache_capacity),)
+        if with_aux:
+            out += (aux,)
+        return out if len(out) > 1 else out[0]
 
     def _prefill_cache(self, k: torch.Tensor, v: torch.Tensor,
                        capacity: int) -> KVCache:
@@ -204,21 +234,24 @@ class DenseBlock(nn.Module):
                           self.cfg.local_window if ring else 0, plan, ring)
         x1 = x1 + o.reshape(x1.shape[0], 1, -1) @ L.cast(self.wo,
                                                         L.cdtype(plan))
-        return x1 + self._mlp(x1, plan)
+        return x1 + self._ffn(x1, plan)[0]
 
 
 class LMParams(nn.Module):
-    """The parameters of a dense, VLM or hybrid decoder, as the reference's
-    ``init_params`` lays them out: ``embed`` (vocab, d), ``lm_head`` when
-    embeddings are untied, ``final_norm``, ``blocks`` (dense and VLM: one
-    :class:`DenseBlock` a layer; hybrid: one ``nn.ModuleDict`` of
-    ``sub0``.. a macro block), for a hybrid model ``pre_blocks`` (the
-    leading RG-LRU sublayers that fill no macro block) and, for a VLM,
+    """The parameters of a decoder, as the reference's ``init_params`` lays
+    them out: ``embed`` (vocab, d), ``lm_head`` when embeddings are untied,
+    ``final_norm``, ``blocks`` (dense, VLM and MoE: one :class:`DenseBlock`
+    a layer; hybrid: one ``nn.ModuleDict`` of ``sub0``.. a macro block;
+    SSM: one :class:`RWKVBlock` a layer), for a hybrid model
+    ``pre_blocks`` (the leading RG-LRU sublayers that fill no macro block),
+    for an SSM model ``embed_norm`` (the embedding's LayerNorm, the
+    reference's ``embed_norm_s`` and ``embed_norm_b``) and, for a VLM,
     ``projector`` (``vis_w1``, ``vis_b1``, ``vis_w2``, ``vis_b2``).  Drawn
     from ``generator`` (a CPU generator; seed 0 when None) in the
-    reference's distributions, then moved to ``device`` (``cuda`` unless
-    ``"cpu"`` is asked for) in ``dtype`` (RG-LRU ``lam`` stays f32, as in
-    the reference)."""
+    reference's distributions and moved to ``device`` (``cuda`` unless
+    ``"cpu"`` is asked for) in ``dtype`` as drawn, so the host holds one
+    block's weights at most (a MoE block's, one expert tensor); the RG-LRU
+    ``lam`` and the MoE router stay f32, as in the reference."""
 
     def __init__(self, cfg, *, dtype: torch.dtype = torch.float32,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -239,8 +272,14 @@ class LMParams(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else param(
             L.embed_init((cfg.vocab, d), generator))
         self.final_norm = L.RMSNorm(d, cfg.norm_eps, dtype=dtype, device=dev)
-        self.pre_blocks = None
-        if cfg.family == "hybrid":
+        self.pre_blocks = self.embed_norm = None
+        if cfg.family == "ssm":
+            self.embed_norm = L.LayerNorm(d, cfg.norm_eps, dtype=dtype,
+                                          device=dev)
+            self.blocks = nn.ModuleList(
+                RWKVBlock(cfg, dtype=dtype, device=dev, generator=generator)
+                for _ in range(cfg.n_layers))
+        elif cfg.family == "hybrid":
             def sub(kind):
                 if kind == "rglru":
                     return RecurrentSublayer(cfg, dtype=dtype, device=dev,
@@ -284,21 +323,32 @@ def forward_full(params: LMParams, x: torch.Tensor, cfg, plan: ExecPlan,
                  positions: torch.Tensor, want_cache: bool = False,
                  cache_capacity: int = 0) -> tuple:
     """x: (B,S,d) embedded inputs.  Returns (hidden, aux (2,), caches):
-    with ``want_cache``, ``caches`` is ``{"kv": [KVCache per layer]}`` (a
-    hybrid model: ``pre_rglru``, ``macro_rglru`` and ``macro_kv``)."""
+    ``aux`` sums the MoE blocks' (load balance, router z) losses (zeros
+    without MoE); with ``want_cache``, ``caches`` is ``{"kv": [KVCache per
+    layer]}`` (a hybrid model: ``pre_rglru``, ``macro_rglru`` and
+    ``macro_kv``; an SSM model: ``rwkv``)."""
     cache_capacity = cache_capacity or x.shape[1]
-    aux = torch.zeros(2, device=x.device)    # MoE losses: no MoE here
+    aux = torch.zeros(2, device=x.device)
     if cfg.family == "hybrid":
         x, caches = _hybrid_full(params, x, cfg, plan, positions, want_cache)
         return x, aux, caches
+    if cfg.family == "ssm":
+        states = []
+        for blk in params.blocks:
+            x, st = blk(x, plan)
+            states.append(st)
+        return x, aux, ({"rwkv": states} if want_cache else {})
+    moe = cfg.moe is not None
     caches = []
     for blk in params.blocks:
+        out = blk(x, plan, positions=positions, with_aux=moe,
+                  cache_capacity=cache_capacity if want_cache else None)
+        out = out if isinstance(out, tuple) else (out,)
+        x = out[0]
         if want_cache:
-            x, kv = blk(x, plan, positions=positions,
-                        cache_capacity=cache_capacity)
-            caches.append(kv)
-        else:
-            x = blk(x, plan, positions=positions)
+            caches.append(out[1])
+        if moe:
+            aux = aux + out[-1]
     return x, aux, ({"kv": caches} if want_cache else {})
 
 
@@ -347,6 +397,8 @@ def embed_inputs(params: LMParams, cfg, plan: ExecPlan, tokens: torch.Tensor,
             + L.cast(pj["vis_b1"], dt), approximate="tanh")
         v = v @ L.cast(pj["vis_w2"], dt) + L.cast(pj["vis_b2"], dt)
         x = torch.cat([v, x], dim=1)
+    if cfg.family == "ssm":
+        x = params.embed_norm(x)
     return x
 
 
@@ -367,12 +419,15 @@ def lm_logits(params: LMParams, cfg, plan: ExecPlan,
 
 def lm_loss(params: LMParams, batch: dict, cfg, plan: ExecPlan) -> tuple:
     """Masked next-token cross-entropy (labels < 0 carry no loss; a VLM's
-    image prefix carries none).  Returns (loss, {"ce", "loss"})."""
+    image prefix carries none), plus, for a MoE model, ``aux_loss`` times
+    the mean load-balance loss and ``router_z_loss`` times the mean router
+    z-loss over the layers.  Returns (loss, {"ce", "loss"} and, for a MoE
+    model, "moe_lb" and "moe_z")."""
     tokens, labels = batch["tokens"], batch["labels"]
     x = embed_inputs(params, cfg, plan, tokens, batch.get("patch_feats"))
     s_total = x.shape[1]
     positions = torch.arange(s_total, device=x.device)
-    hidden, _, _ = forward_full(params, x, cfg, plan, positions)
+    hidden, aux, _ = forward_full(params, x, cfg, plan, positions)
     hidden = hidden[:, s_total - tokens.shape[1]:]
     hidden = params.final_norm(hidden, plan)
     mask = (labels >= 0).float()
@@ -385,7 +440,14 @@ def lm_loss(params: LMParams, batch: dict, cfg, plan: ExecPlan) -> tuple:
                                       cfg.logit_softcap)
         nll = L.cross_entropy_full(logits, safe)
     ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return ce, {"ce": ce, "loss": ce}
+    metrics = {"ce": ce}
+    loss = ce
+    if cfg.moe is not None:
+        lb, z = aux[0] / cfg.n_layers, aux[1] / cfg.n_layers
+        loss = loss + cfg.moe.aux_loss * lb + cfg.moe.router_z_loss * z
+        metrics.update(moe_lb=lb, moe_z=z)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(params: LMParams, cfg, plan: ExecPlan, tokens: torch.Tensor,
@@ -410,11 +472,17 @@ def prefill(params: LMParams, cfg, plan: ExecPlan, tokens: torch.Tensor,
 def decode_step(params: LMParams, cfg, plan: ExecPlan, token: torch.Tensor,
                 state: dict) -> tuple:
     """token: (B,1) int.  Returns (logits (B,1,V), new state); the KV
-    caches are updated in place, RG-LRU states replaced."""
+    caches are updated in place, RG-LRU and RWKV states replaced."""
     cache_len = state["cache_len"]
     x1 = embed_inputs(params, cfg, plan, token)
     new_state = {"cache_len": cache_len + 1}
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        rwkv = []
+        for blk, st in zip(params.blocks, state["rwkv"]):
+            x1, st = blk(x1, plan, state=st)
+            rwkv.append(st)
+        new_state["rwkv"] = rwkv
+    elif cfg.family == "hybrid":
         pre = []
         for sub, st in zip(params.pre_blocks or (), state.get("pre_rglru", ())):
             x1, st = sub(x1, plan, state=st, with_state=True)
@@ -509,3 +577,51 @@ class RecurrentSublayer(nn.Module):
         p = {"w_gate": self.w_gate, "w_up": self.w_up, "w_down": self.w_down}
         x = x + L.mlp(self.ln2(x, plan), p, self.cfg.mlp_act, plan)
         return (x, new_state) if with_state else x
+
+
+# ---------------------------------------------------------------------------
+# the SSM family's RWKV-6 block
+# ---------------------------------------------------------------------------
+
+
+class RWKVBlock(nn.Module):
+    """One RWKV-6 block at ``cfg``'s widths (the reference's
+    ``_rwkv_block_full``): ``x + time_mix(ln1(x))``, then ``+
+    channel_mix(ln2(x))``, each half token-shifted from ``state`` (zeros
+    when None).  ``ln1`` and ``ln2`` are :class:`~repro_torch.models.layers.
+    LayerNorm` submodules (the reference's ``ln1_s``/``ln1_b``,
+    ``ln2_s``/``ln2_b``), ``tm_cm`` the reference's ``rwkv_init`` leaves
+    drawn from ``generator`` in its distributions, and ``wkv`` the
+    :class:`~repro_torch.models.rwkv.WKVRecurrence` scan.  Runs on
+    ``cuda`` unless ``device="cpu"`` is asked for.
+
+    ``forward(x, plan, state=None)`` -> (x, the new
+    :class:`~repro_torch.models.rwkv.RWKVState`).
+    """
+
+    def __init__(self, cfg, *, dtype: torch.dtype = torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        from repro_torch.core.frontends.export_frontend import resolve_device
+
+        super().__init__()
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        d = cfg.d_model
+        self.ln1 = L.LayerNorm(d, cfg.norm_eps, dtype=dtype, device=dev)
+        self.ln2 = L.LayerNorm(d, cfg.norm_eps, dtype=dtype, device=dev)
+        self.tm_cm = nn.ParameterDict(
+            {k: nn.Parameter(w.to(device=dev, dtype=dtype))
+             for k, w in rwkv_init(cfg, generator).items()})
+        self.wkv = WKVRecurrence()
+
+    def forward(self, x: torch.Tensor, plan: Optional[ExecPlan] = None, *,
+                state: Optional[RWKVState] = None) -> tuple:
+        plan = L.plan_for(x, plan)
+        y, wkv, last_tm = time_mix(self.ln1(x), self.tm_cm, self.cfg, plan,
+                                   state, self.wkv)
+        x = x + y
+        y2, last_cm = channel_mix(self.ln2(x), self.tm_cm, self.cfg, plan,
+                                  state)
+        return x + y2, RWKVState(wkv, last_tm, last_cm)

@@ -1,11 +1,12 @@
 """Port of ``repro/runtime/serve.py``: the serving loop — batched prefill,
 then autoregressive decode against the decode state (KV caches; for a
-hybrid model also the RG-LRU states and local-attention rings).
+hybrid model also the RG-LRU states and local-attention rings; for an SSM
+model the RWKV states).
 
 ``Server`` owns the parameters and a plan; ``generate`` prefills a request
 batch, then decodes greedily (``argmax``) or with temperature sampling from
 a ``torch.Generator`` seeded by ``ServeConfig.seed`` on every call.  Decode
-steps write the KV caches in place (a hybrid model's RG-LRU states are
+steps write the KV caches in place (RG-LRU and RWKV states are
 replaced), and ``cache_len`` stays a device scalar, so
 no step synchronises with the host; the generated tokens are copied to the
 host once, at the end.
@@ -32,8 +33,10 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.api import Model
+from repro_torch.models.moe import Router
 from repro_torch.models.plan import ExecPlan
-from repro_torch.models.rglru import F32_LEAVES
+from repro_torch.models.rglru import F32_LEAVES as RGLRU_F32
+from repro_torch.models.rwkv import F32_LEAVES as RWKV_F32
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -47,16 +50,26 @@ class ServeConfig:
     seed: int = 0
 
 
+#: a submodule's leaves that the reference reads in f32 whatever the
+#: compute dtype
+_F32_LEAVES = {"rglru": RGLRU_F32, "tm_cm": RWKV_F32}
+
+
 def _cast_params(params: torch.nn.Module, dtype: torch.dtype):
     """``params`` with every floating weight in ``dtype`` — all but those
-    the reference reads in f32 whatever the compute dtype (the norm scales,
-    and an RG-LRU's conv, gate biases and ``lam``) — sharing the weights
-    that are in ``dtype`` already (no copy when nothing needs a cast)."""
-    keep = {id(m.weight) for m in params.modules()
-            if isinstance(m, L.RMSNorm)}
-    keep |= {id(p) for name, p in params.named_parameters()
-             if name.rsplit(".", 2)[-2:-1] == ["rglru"]
-             and name.rsplit(".", 1)[-1] in F32_LEAVES}
+    the reference reads in f32 whatever the compute dtype (the RMSNorm
+    scales, the LayerNorm scales and biases, the MoE router, an RG-LRU's
+    conv, gate biases and ``lam``, and RWKV's decay ``w0`` and
+    ``w_lora_b``, bonus ``u`` and head-norm scale and bias) — sharing the
+    weights that are in ``dtype`` already (no copy when nothing needs a
+    cast)."""
+    keep = {id(p) for m in params.modules()
+            if isinstance(m, (L.RMSNorm, L.LayerNorm, Router))
+            for p in m.parameters(recurse=False)}
+    for name, p in params.named_parameters():
+        parts = name.split(".")
+        if len(parts) >= 2 and parts[-1] in _F32_LEAVES.get(parts[-2], ()):
+            keep.add(id(p))
     memo = {id(p): torch.nn.Parameter(p.detach().to(dtype),
                                       requires_grad=False)
             for p in params.parameters()

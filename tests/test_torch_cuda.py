@@ -556,3 +556,123 @@ def test_hybrid_server_generates_the_cpu_tokens_on_card(cuda):
     assert toks[0].shape == (2, 6) and ((toks[0] >= 0)
                                         & (toks[0] < cfg.vocab)).all()
     np.testing.assert_array_equal(toks[0], toks[1])
+
+
+# ---------------------------------------------------------------------------
+# the MoE and SSM families (paths E and F)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4096, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_generic_loop_at_olmoe_width_on_card(cuda, n, dtype):
+    """d_model 2048 has no row-in-registers instance: OLMoE's ln1, ln2 and
+    final norm take the generic loop at 32 lanes a row."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(n, 2048, generator=g).to(cuda, _DTYPES[dtype])
+    s = (torch.randn(2048, generator=g) * 0.1).to(cuda, _DTYPES[dtype])
+    assert trn.variant_name(trn.select_variant(x)) == "generic_l32"
+    before = tops.rmsnorm.launches_by_variant.get("generic_l32", 0)
+    got = tops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert tops.rmsnorm.launches_by_variant["generic_l32"] == before + 1
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(got.float(), trn.rmsnorm_plain(x, s).float(),
+                               atol=tol, rtol=tol)
+
+
+def _reduced_family(arch, device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    tokens = torch.randint(0, cfg.vocab, (2, 32),
+                           generator=torch.Generator().manual_seed(1))
+    return cfg, model, params, tokens.to(device)
+
+
+@pytest.mark.gpu
+def test_moe_prefill_plan_on_card_matches_the_cpu(cuda):
+    """The forced all-kernel plan of a reduced OLMoE prefill (the
+    ``scatter_ep`` MoE, f32) launches flash once a layer and RMSNorm at
+    every norm, and matches the unsubstituted prefill on the CPU at 1e-4."""
+    from repro_torch.core.offload import OffloadConfig, Offloader
+    from repro_torch.models import REFERENCE_PLAN
+
+    plan = REFERENCE_PLAN.replace(compute_dtype="float32",
+                                  moe_impl="scatter_ep")
+    cfg, model, params, tokens = _reduced_family("olmoe_1b_7b", cuda)
+    ctx = Offloader(OffloadConfig(options={"example_args": (tokens,)})).prepare(
+        lambda tok: model.prefill(params, {"tokens": tok}, plan))
+    engine = ctx.bundle.context["engine"]
+    bits = tuple(2 if ctx.graph.by_name(s.region).meta.get("pattern") else 0
+                 for s in ctx.coding.sites)
+    sub = engine.substitute(ctx.coding.decode(bits))
+    tops.reset_launch_counts()
+    logits, state = sub(tokens)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert tops.launch_counts()["rmsnorm"] == 4 * cfg.n_layers + 1
+    _, _, cpu_params, cpu_tokens = _reduced_family("olmoe_1b_7b", "cpu")
+    with torch.no_grad():
+        want_logits, want_state = model.prefill(
+            cpu_params, {"tokens": cpu_tokens}, plan)
+    torch.testing.assert_close(logits.cpu(), want_logits, atol=1e-4, rtol=0)
+    for kv, want in zip(state["kv"], want_state["kv"]):
+        torch.testing.assert_close(kv.k.cpu(), want.k, atol=1e-4, rtol=0)
+        torch.testing.assert_close(kv.v.cpu(), want.v, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["scatter_ep", "dense_onehot"])
+def test_moe_forward_repeats_bit_for_bit_on_card(cuda, impl):
+    """OLMoE's routing (64 experts, top-8) over 4096 tokens at a reduced
+    width: two forwards give the same bits (no atomics in the dispatch or
+    the combine), so a later layer's routing repeats."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import REFERENCE_PLAN
+    from repro_torch.models.moe import MoE
+
+    cfg = get_config("olmoe_1b_7b")
+    cfg = dataclasses.replace(cfg, d_model=256, moe=dataclasses.replace(
+        cfg.moe, d_ff_expert=128))
+    moe = MoE(cfg, dtype=torch.float32, device=cuda,
+              generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 2048, 256,
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    plan = REFERENCE_PLAN.replace(compute_dtype="float32", moe_impl=impl)
+    with torch.no_grad():
+        a, aux_a = moe(x, plan)
+        b, aux_b = moe(x, plan)
+    assert torch.equal(a, b)
+    assert torch.equal(aux_a.load_balance, aux_b.load_balance)
+
+
+@pytest.mark.gpu
+def test_rwkv_chunked_prefill_and_decode_on_card_match_the_cpu(cuda):
+    """A reduced RWKV-6 under the chunked WKV form (chunks of 8 over 32
+    tokens), then two decode steps, on the card and on the CPU, f32."""
+    from repro_torch.models import REFERENCE_PLAN
+
+    plan = REFERENCE_PLAN.replace(compute_dtype="float32", wkv_impl="chunked",
+                                  wkv_chunk=8)
+    outs = []
+    for dev in (cuda, "cpu"):
+        _, model, params, tokens = _reduced_family("rwkv6_3b", dev)
+        with torch.no_grad():
+            logits, state = model.prefill(params, {"tokens": tokens}, plan)
+            for i in range(2):
+                logits, state = model.decode(params, tokens[:, i:i + 1],
+                                             state, plan)
+        outs.append((logits, state))
+    (g, gs), (c, cs) = outs
+    torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=0)
+    for a, b in zip(gs["rwkv"], cs["rwkv"], strict=True):
+        for f in ("wkv", "shift_tm", "shift_cm"):
+            torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f),
+                                       atol=1e-4, rtol=0)

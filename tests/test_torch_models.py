@@ -1,8 +1,8 @@
 """The port's model zoo against the JAX reference on the CPU: configs, the
-ExecPlan ABI, each layer and attention function, and the dense, VLM and
-hybrid decoders (loss, prefill, decode) at reduced widths in f32 (and under
-the bf16 ``REFERENCE_PLAN``), weights carried across from the reference's
-``init_params`` by ``model_from_jax``."""
+ExecPlan ABI, each layer and attention function, and the dense, VLM, MoE,
+hybrid and SSM decoders (loss, prefill, decode) at reduced widths in f32
+(and under the bf16 ``REFERENCE_PLAN``), weights carried across from the
+reference's ``init_params`` by ``model_from_jax``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -41,7 +41,8 @@ PLANS = {"reference": (F32, JF32),
 #: two pre-blocks before its macro block, its ``reduced()`` 3 has none
 PORTED = ["qwen3_0_6b", "tinyllama_1_1b", "qwen1_5_4b", "gemma_7b",
           "llava_next_mistral_7b", "recurrentgemma_2b",
-          "recurrentgemma_2b@5"]
+          "recurrentgemma_2b@5", "olmoe_1b_7b", "llama4_scout_17b_a16e",
+          "rwkv6_3b"]
 ATOL = 1e-5
 #: the reference's bf16 tolerance (``tests/test_kernels.py``)
 BF16_TOL = 2e-2
@@ -318,9 +319,12 @@ def zoo(request):
 
 def _state_pairs(state, jstate):
     """(name, port leaf, reference leaf stacked over layers, layer) for
-    every leaf of a decode state: dense ``kv``, or the hybrid
-    ``pre_rglru``, ``macro_rglru`` and ``macro_kv``."""
+    every leaf of a decode state: dense ``kv``, the hybrid ``pre_rglru``,
+    ``macro_rglru`` and ``macro_kv``, or the SSM ``rwkv``."""
     assert sorted(state) == sorted(jstate)
+    for i, st in enumerate(state.get("rwkv", ())):
+        for f in ("wkv", "shift_tm", "shift_cm"):
+            yield f"rwkv.{f}{i}", getattr(st, f), jstate["rwkv"][f], i
     for i, kv in enumerate(state.get("kv", ())):
         for f in ("k", "v"):
             yield f"kv.{f}{i}", getattr(kv, f), jstate["kv"][f], i
@@ -340,6 +344,16 @@ def _state_pairs(state, jstate):
                 jstate["macro_kv"][f], i
 
 
+def _leaves_per_layer(cfg) -> int:
+    """(k, v), (h, conv), or an SSM layer's (wkv, shift_tm, shift_cm)."""
+    return 3 if cfg.family == "ssm" else 2
+
+
+def _in_place_caches(state) -> list:
+    """The KV caches a decode step writes in place (none for SSM)."""
+    return list(state.get("kv") or state.get("macro_kv") or ())
+
+
 def _tb(batch, drop=()):
     return {k: _t(v) for k, v in batch.items() if k not in drop}
 
@@ -350,13 +364,19 @@ def _jb(batch, drop=()):
 
 @pytest.mark.parametrize("which", ["reference", "offload"])
 def test_loss_matches_reference(zoo, which):
-    _, _, model, params, jm, jparams, batch = zoo
+    _, cfg, model, params, jm, jparams, batch = zoo
     plan, jp = PLANS[which]
     with torch.no_grad():
         loss, metrics = model.loss(params, _tb(batch), plan)
-    jloss, _ = jm.loss(jparams, _jb(batch), jp)
+    jloss, jmetrics = jm.loss(jparams, _jb(batch), jp)
     assert abs(float(loss) - float(jloss)) < 1e-4
-    assert float(metrics["ce"]) == float(loss)
+    assert sorted(metrics) == sorted(jmetrics)
+    assert metrics["loss"] is loss
+    for key in ("ce", "moe_lb", "moe_z"):     # MoE: the auxiliary losses
+        if key in jmetrics:
+            assert abs(float(metrics[key]) - float(jmetrics[key])) < 1e-4
+    if cfg.moe is None:
+        assert float(metrics["ce"]) == float(loss)
 
 
 @pytest.mark.parametrize("which", ["reference", "offload"])
@@ -376,10 +396,10 @@ def test_prefill_and_decode_match_reference(zoo, which):
     assert int(state["cache_len"]) == int(jstate["cache_len"])
     assert state["cache_len"].dtype == torch.int32
     pairs = list(_state_pairs(state, jstate))
-    assert len(pairs) == 2 * cfg.n_layers     # (k, v) or (h, conv) a layer
+    assert len(pairs) == _leaves_per_layer(cfg) * cfg.n_layers
     for _, got, want, i in pairs:
         _close(got, want[i], 1e-4)
-    caches = [kv.k for kv in state.get("kv", state.get("macro_kv"))]
+    caches = [kv.k for kv in _in_place_caches(state)]
     for step in range(3):
         tok = batch["tokens"][:, step:step + 1]
         jlogits, jstate = jm.decode(jparams, jnp.asarray(tok), jstate, jp)
@@ -391,7 +411,7 @@ def test_prefill_and_decode_match_reference(zoo, which):
             _close(got, want[i], 1e-4)
     # the KV caches are updated in place
     assert all(kv.k is k for kv, k in zip(
-        state.get("kv", state.get("macro_kv")), caches, strict=True))
+        _in_place_caches(state), caches, strict=True))
 
 
 @pytest.mark.parametrize("which", ["loss", "prefill"])
@@ -443,7 +463,7 @@ def test_input_and_state_specs_match_reference(zoo):
             state, jstate = specs["state"], jspecs["state"]
             assert tuple(specs["token"].shape) == jspecs["token"].shape
             pairs = list(_state_pairs(state, jstate))
-            assert len(pairs) == 2 * cfg.n_layers
+            assert len(pairs) == _leaves_per_layer(cfg) * cfg.n_layers
             for name, got, want, _ in pairs:
                 assert got.device.type == "meta"
                 assert tuple(got.shape) == want.shape[1:], name
@@ -476,11 +496,11 @@ def test_init_draws_the_reference_distributions():
         cfg.d_model                          # + norm scales, uncounted there
 
 
-@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "llama4_scout_17b_a16e",
-                                  "rwkv6_3b", "whisper_small"])
+@pytest.mark.parametrize("arch", ["whisper_small"])
 def test_unported_family_raises(arch):
     cfg = tbase.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item 4"):
         build_model(cfg)
     with pytest.raises(NotImplementedError, match="not ported"):
         from repro_torch.models.transformer import init_params
@@ -503,6 +523,35 @@ def test_model_from_jax_rejects_bad_trees():
                      (bad, "shape"), (short, "layers")):
         with pytest.raises(ValueError, match=match):
             model_from_jax(t, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch,sub,leaf", [
+    ("olmoe_1b_7b", "moe", "w_router"), ("olmoe_1b_7b", "moe", "w_gate"),
+    ("llama4_scout_17b_a16e", "moe", "shared"), ("rwkv6_3b", "tm_cm", "u")])
+def test_model_from_jax_rejects_bad_moe_and_rwkv_trees(arch, sub, leaf):
+    """A MoE or RWKV block leaf missing, an extra one, or one misshapen."""
+    jcfg, cfg = jbase.get_config(arch).reduced(), \
+        tbase.get_config(arch).reduced()
+    tree = jax.tree_util.tree_map(
+        np.asarray, jbuild_model(jcfg).init(jax.random.key(0)))
+    model_from_jax(tree, cfg, device="cpu")
+
+    def blocks_with(**kw):
+        inner = {k: v for k, v in tree["blocks"][sub].items() if k != leaf}
+        inner.update(kw)
+        return dict(tree, blocks=dict(tree["blocks"], **{sub: inner}))
+
+    w = tree["blocks"][sub][leaf]
+    bad = jax.tree_util.tree_map(lambda a: a[..., :3], w)
+    for t, match in ((blocks_with(), "differ"),
+                     (blocks_with(**{leaf: w, "extra": w}), "differ"),
+                     (blocks_with(**{leaf: bad}), "shape")):
+        with pytest.raises(ValueError, match=match):
+            model_from_jax(t, cfg, device="cpu")
+    if arch == "rwkv6_3b":
+        with pytest.raises(ValueError, match="differ"):
+            model_from_jax({k: v for k, v in tree.items()
+                            if k != "embed_norm_b"}, cfg, device="cpu")
 
 
 def test_model_entry_points_run_on_cuda_unless_cpu_is_asked_for():

@@ -2,7 +2,8 @@
 graphs for all ten architectures, chromosome decoding, and the static-cost
 search (same GA history and best chromosome from the same seed); plus the
 export frontend over a whole reduced model's prefill, however the target
-holds its modules (a lambda, a ``functools.partial``, a bound method)."""
+holds its modules (a lambda, a ``functools.partial``, a bound method), and
+over the MoE (OLMoE) and SSM (RWKV-6) prefills."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -275,3 +276,85 @@ def test_a_module_reading_target_without_module_scopes_raises(
     assert target_modules(boxed) == {}
     with pytest.raises(ValueError, match="boxed: calls modules"):
         build_graph(boxed, tokens)
+
+
+# ---------------------------------------------------------------------------
+# the MoE and SSM families' prefills
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=["olmoe_1b_7b", "rwkv6_3b"])
+def family_prefill(request):
+    """The reduced prefill under the production MoE and the chunked WKV
+    form, prepared for planning (graph, coding, substitution engine)."""
+    cfg = get_config(request.param).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    plan = F32.replace(moe_impl="scatter_ep", wkv_impl="chunked",
+                       wkv_chunk=8)
+    ctx = Offloader(OffloadConfig(device="cpu", options={
+        "example_args": (tokens,)})).prepare(
+            lambda tok: model.prefill(params, {"tokens": tok}, plan))
+    return cfg, ctx
+
+
+def test_family_prefill_matches_its_norms_attention_and_scans(
+        family_prefill):
+    """OLMoE: 4 * n_layers + 1 ``rmsnorm`` and n_layers
+    ``softmax_attention`` sites, and no router, expert or MoE region
+    matches; RWKV-6: the embedding's and each layer's two LayerNorms and
+    the final norm match ``rmsnorm`` by name, each layer's WKV scan
+    ``wkv_recurrence``."""
+    cfg, ctx = family_prefill
+    matched = {}
+    for s in ctx.coding.sites:
+        r = ctx.graph.by_name(s.region)
+        if r.meta.get("pattern"):
+            matched[r.meta["module"]] = r.meta["pattern"]
+    want = {"params.final_norm": "rmsnorm"}
+    for i in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            want.update({f"params.blocks.{i}.ln1": "rmsnorm",
+                         f"params.blocks.{i}.ln2": "rmsnorm",
+                         f"params.blocks.{i}.wkv": "wkv_recurrence"})
+        else:
+            want[f"params.blocks.{i}.attn"] = "softmax_attention"
+            for norm in ("ln1", "q_norm", "k_norm", "ln2"):
+                want[f"params.blocks.{i}.{norm}"] = "rmsnorm"
+    if cfg.family == "ssm":
+        want["params.embed_norm"] = "rmsnorm"
+        assert all(ctx.graph.by_name(s.region).kind == "loop"
+                   for s in ctx.coding.sites
+                   if matched.get(ctx.graph.by_name(s.region).meta["module"])
+                   == "wkv_recurrence")
+    assert matched == want
+    assert not any(".moe" in r.meta.get("module", "") and
+                   r.meta.get("pattern") for r in ctx.graph.regions)
+
+
+def test_forced_family_prefill_binds_what_the_kernels_take(family_prefill):
+    """Every matched site on ``cuda``: OLMoE binds all of them; RWKV-6
+    binds only the final norm -- a LayerNorm region has three inputs (x,
+    scale, bias) and the multi-head WKV scan is not the kernel's
+    single-head (S, D) form -- and both programs verify against the
+    unsubstituted prefill."""
+    cfg, ctx = family_prefill
+    engine = ctx.bundle.context["engine"]
+    bits = tuple(2 if ctx.graph.by_name(s.region).meta.get("pattern") else 0
+                 for s in ctx.coding.sites)
+    sub = engine.substitute(ctx.coding.decode(bits))
+    chosen = sorted((c.pattern, c.chosen) for c in sub.report.choices
+                    if c.pattern)
+    n = cfg.n_layers
+    if cfg.family == "ssm":
+        assert chosen == sorted([("rmsnorm", "cuda")]
+                                + [("rmsnorm", "ref")] * (1 + 2 * n)
+                                + [("wkv_recurrence", "ref")] * n)
+        why = {c.why for c in sub.report.choices if c.chosen == "ref"}
+        assert any("exactly (x, scale)" in w for w in why)
+    else:
+        assert chosen == sorted([("rmsnorm", "cuda")] * (4 * n + 1)
+                                + [("softmax_attention", "cuda")] * n)
+    assert engine.verify(sub).ok

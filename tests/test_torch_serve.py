@@ -1,7 +1,9 @@
 """The port's serving loop against the reference ``Server`` on the CPU:
-greedy tokens on a reduced Qwen3 in f32 (weights from the reference's
-``init_params`` through ``model_from_jax``), plan hot-swap, the traffic
-rate, seeded temperature sampling, and the parameters cast once per plan."""
+greedy tokens on a reduced Qwen3, RecurrentGemma, OLMoE and RWKV-6 in f32
+(weights from the reference's ``init_params`` through ``model_from_jax``),
+plan hot-swap, the traffic rate, seeded temperature sampling, and the
+parameters cast once per plan (keeping the leaves the reference reads in
+f32)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -173,3 +175,64 @@ def test_hybrid_cast_keeps_the_leaves_read_in_f32(served_hybrid):
     assert {k for k, w in rg.items() if w.dtype == torch.float32} == {
         "w_conv", "b_conv", "b_a", "b_x", "lam"}
     assert rg["w_in"].dtype == rg["w_a"].dtype == torch.bfloat16
+
+
+@pytest.fixture(scope="module", params=["olmoe_1b_7b", "rwkv6_3b"])
+def served_family(request):
+    """A reduced OLMoE (4 experts, top-2) or RWKV-6 and 20 prompt tokens
+    for each of 3 requests."""
+    arch = request.param
+    jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    jm, model = jbuild_model(jcfg), build_model(cfg)
+    jparams = jm.init(jax.random.key(0))
+    params = model_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg,
+                            device="cpu")
+    tokens = np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(3, 20)).astype(np.int32)
+    return model, params, jm, jparams, tokens
+
+
+@pytest.mark.parametrize("which", ["reference", "offload"])
+def test_family_greedy_tokens_equal_the_reference_server(served_family,
+                                                          which):
+    """8 greedy tokens under ``REFERENCE_PLAN`` (dense one-hot MoE, step
+    WKV) and ``OFFLOAD_PLAN`` (capacity-limited MoE, whose decode steps of
+    3 tokens route at capacity 1 or 2; chunked WKV), in f32."""
+    model, params, jm, jparams, tokens = served_family
+    plan, jplan = {"reference": (F32, JF32),
+                   "offload": (OFFLOAD_PLAN.replace(compute_dtype="float32"),
+                               JOFF.replace(compute_dtype="float32"))}[which]
+    want = JServer(jm, jparams, jplan).generate(
+        {"tokens": jnp.asarray(tokens)}, 8)
+    got = Server(model, params, plan).generate(
+        {"tokens": torch.from_numpy(tokens)}, 8)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_family_cast_keeps_the_leaves_read_in_f32(served_family):
+    """Under a bf16 plan the MoE router, the LayerNorm scales and biases,
+    and RWKV's ``w0``, ``w_lora_b``, ``u`` and head-norm scale and bias
+    stay f32 (the reference reads them in f32); the projections go bf16."""
+    model, params, _, _, _ = served_family
+    cast = Server(model, params, REFERENCE_PLAN)._bound.params
+    f32 = {name for name, w in cast.named_parameters()
+           if w.dtype == torch.float32}
+    if model.cfg.family == "ssm":
+        blk = cast.blocks[0]
+        assert {k for k, w in blk.tm_cm.items()
+                if w.dtype == torch.float32} == {
+            "w0", "w_lora_b", "u", "ln_x_scale", "ln_x_bias"}
+        assert blk.tm_cm["wr"].dtype == torch.bfloat16
+        assert {"embed_norm.weight", "embed_norm.bias", "blocks.0.ln1.weight",
+                "blocks.0.ln1.bias", "blocks.0.ln2.bias"} <= f32
+    else:
+        moe = cast.blocks[0].moe
+        assert moe.router.weight.dtype == torch.float32
+        assert moe.w_gate.dtype == moe.w_down.dtype == torch.bfloat16
+        assert "blocks.0.moe.router.weight" in f32
+    assert cast.embed.dtype == torch.bfloat16
+    batch = model.demo_batch(torch.Generator().manual_seed(3), 2, 12,
+                             device="cpu")
+    out = Server(model, params, REFERENCE_PLAN).generate(
+        {"tokens": batch["tokens"]}, 3)
+    assert out.shape == (2, 3)
