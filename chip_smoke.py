@@ -14,8 +14,12 @@ Phases, in order; any failure exits non-zero before the last line:
    paths' shapes (path H's: flash at (2, 2048, 10 / 1 heads, 256) f32 and
    bf16, RMSNorm at (4096, 2560) and (2, 2560) f32, RG-LRU from a nonzero
    state; path E's: flash at (2, 2048, 16 / 16 heads, 128) f32, RMSNorm at
-   (4096, 2048) and (2, 2048) f32 on the generic loop; and a few edge
-   cases), with its time (CUDA events, median
+   (4096, 2048) and (2, 2048) f32 on the generic loop; path X's: flash at
+   (2, 448, 12 / 12 heads, 64) causal f32, RMSNorm at (3000, 768), (896,
+   768) and (2, 768) f32 on the generic loop, and flash at the encoder's
+   and the cross-attention's non-causal shapes, (2, 1500 / 448 queries,
+   1500 keys, 12 heads of 64) in f32 and bf16, which no path binds yet;
+   and a few edge cases), with its time (CUDA events, median
    of 25 launches, L2 flushed before each; the plain scan loops, median of
    5), the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one (``library_ms``, timed
@@ -111,7 +115,26 @@ Phases, in order; any failure exits non-zero before the last line:
      LayerNorm regions (x, scale, bias) and the 32 multi-head WKV scans
      match and are refused; the forced plan verifies.  Then
      ``Server.generate`` in bf16 under ``OFFLOAD_PLAN`` (chunked prefill,
-     RWKV states replaced in decode; 16 new tokens).
+     RWKV states replaced in decode; 16 new tokens);
+   - X: the whole Whisper-small (12 encoder and 12 decoder layers at full
+     width, d_model 768, 12 heads of 64; random weights from seed 0),
+     alone on the card: its f32 prefill of 2 x 448 tokens over 2 x 1500
+     stub frames (bf16, seed 1) -> (last-token logits, each layer's k, v,
+     xk, xv), planned with GA 6 x 3 seeded with the forced chromosome.  The
+     export must find 62 ``rmsnorm`` and 36 ``softmax_attention`` sites in
+     program order (``whisper_sites``).  Both packages' attention binders
+     compute attention causal whatever the region's mask, so the forced
+     plan binds ``cuda`` at every norm and at each site whose module is a
+     causal attention core (the 12 decoder self-attentions), ``ref`` at
+     the 12 encoder and 12 cross-attentions; one forward of it must launch
+     flash 12 times (``scalar``) and RMSNorm 62 times (``generic_l32``)
+     and verify.  The finding of the causal binder: ``cuda`` at every
+     matched site, and ``fused_torch`` at one encoder site alone, each run
+     once, must fail verification (not raise); their errors by leaf group
+     are printed.  Then the bf16 diagnostic of the forced plan, and
+     ``Server.generate`` in bf16 under ``OFFLOAD_PLAN`` (path SW): 4
+     requests of a 4-token prompt over (4, 1500, 768) frames, 32 greedy new
+     tokens, twice (identical tokens), then after ``swap_plan``.
 
    On every path the verifier runs as the fitness runs it (the reference
    kept on the card, each pair compared there in f64; ``verify_s``) and as
@@ -131,6 +154,7 @@ import copy
 import ctypes
 import functools
 import gc
+import itertools
 import json
 import math
 import shutil
@@ -184,6 +208,11 @@ WKV_SEQ, WKV_DIM = 4096, 64
 #: serving requests: 4 prompts of 512 tokens, 32 new tokens each (path M's
 #: model), 16 (path H's)
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_NEW_H = 4, 512, 32, 16
+#: path X: the whole Whisper-small over its 1500 encoder frames, with
+#: tokens of its published decoder context; its serving prompts are the
+#: 4-token start-of-transcript prefix
+WHISPER = get_config("whisper_small")
+X_TOKENS, SERVE_PROMPT_X = 448, 4
 SEED = 0
 REPEATS = 25
 #: the plain scan loops take thousands of launches a call
@@ -472,6 +501,17 @@ def launch_breakdown_us(fn, calls: int = 5) -> dict:
             for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
+def x_norm_calls(cfg) -> list:
+    """Path X's RMSNorm calls of one prefill, as (rows, width): ln1 and
+    ln2 of each encoder layer and the encoder's final norm over B x 1500
+    frames, ln1, ln_x and ln2 of each decoder layer over B x 448 tokens,
+    and the final norm over the last token's rows."""
+    enc, dec = BATCH * cfg.encoder_seq, BATCH * X_TOKENS
+    return ([(enc, cfg.d_model)] * (2 * cfg.n_encoder_layers + 1)
+            + [(dec, cfg.d_model)] * (3 * cfg.n_layers)
+            + [(BATCH, cfg.d_model)])
+
+
 def flash_keys(row: dict) -> dict:
     return {k: row[k] for k in ("shape", "dtype", "path", "design",
                                 "max_abs_err", "block_rel_err", "ms",
@@ -537,6 +577,15 @@ def phase_kernels(dev) -> dict:
             dev, n, d, f32, 1e-5, flush, gen)
         print("rmsnorm  ", json.dumps(norms_e[(n, d)]), flush=True)
     path_f_norms = [(BATCH, get_config("rwkv6_3b").d_model)]
+    # path X's 62 calls per prefill, in f32: the encoder's ln1 and ln2 of
+    # each of 12 layers and its final norm over 2 x 1500 frames, the
+    # decoder's ln1, ln_x and ln2 of each of 12 layers over 2 x 448 tokens,
+    # and the final norm; d_model 768 takes the generic loop
+    path_x_norms = x_norm_calls(WHISPER)
+    norms_x = {}
+    for n, d in sorted(set(path_x_norms)):
+        norms_x[(n, d)] = rmsnorm_case(dev, n, d, f32, 1e-5, flush, gen)
+        print("rmsnorm  ", json.dumps(norms_x[(n, d)]), flush=True)
 
     path_flash = flash_case(dev, BATCH, SEQ, SEQ, nq, nkv, hd, True, bf16,
                             2e-2, 1e-2, flush, gen)
@@ -557,6 +606,22 @@ def phase_kernels(dev) -> dict:
                               olmoe.n_kv_heads, oh, True, f32, 2e-5, 1e-4,
                               flush, gen)
     print("flash    ", json.dumps(path_e_flash), flush=True)
+    # path X's decoder self-attention, causal MHA, 12 heads of 64, f32; and
+    # the encoder's and the cross-attention's non-causal shapes, which no
+    # path binds yet (Sk = 1500 is not a multiple of the KV tile; bf16
+    # takes the wgmma path)
+    wh, wd = WHISPER, WHISPER.resolved_head_dim
+    path_x_flash = flash_case(dev, BATCH, X_TOKENS, X_TOKENS, wh.n_heads,
+                              wh.n_kv_heads, wd, True, f32, 2e-5, 1e-4,
+                              flush, gen)
+    print("flash    ", json.dumps(path_x_flash), flush=True)
+    x_non_causal = []
+    for sq in (wh.encoder_seq, X_TOKENS):
+        for dt, tols in ((f32, (2e-5, 1e-4)), (bf16, (2e-2, 1e-2))):
+            x_non_causal.append(flash_case(
+                dev, BATCH, sq, wh.encoder_seq, wh.n_heads, wh.n_kv_heads,
+                wd, False, dt, *tols, flush, gen))
+            print("flash    ", json.dumps(x_non_causal[-1]), flush=True)
     for case in [(2, 1000, 1000, 4, 2, 128, True),    # ragged S=1000
                  (2, 130, 70, 4, 2, 64, True),        # Sq != Sk, hd 64
                  (2, 512, 512, 4, 2, 64, False),      # non-causal
@@ -631,6 +696,10 @@ def phase_kernels(dev) -> dict:
                            for nd in sorted(norms_e)]},
         path_f={"calls_per_prefill": len(path_f_norms),
                 **norm_sums(path_f_norms, norms_h)},
+        path_x={"calls_per_prefill": len(path_x_norms),
+                **norm_sums(path_x_norms, norms_x),
+                "shapes": [{k: norms_x[nd][k] for k in row_keys}
+                           for nd in sorted(norms_x)]},
         shapes=[{k: norms[nd][k] for k in row_keys}
                 for nd in sorted(norms)])
     flash_entry = _entry("flash_attention", path_flash,
@@ -645,7 +714,12 @@ def phase_kernels(dev) -> dict:
                                  **flash_keys(path_h_flash[f32]),
                                  "bf16": flash_keys(path_h_flash[bf16])},
                          path_e={"calls_per_prefill": olmoe.n_layers,
-                                 **flash_keys(path_e_flash)})
+                                 **flash_keys(path_e_flash)},
+                         path_x={"calls_per_prefill": WHISPER.n_layers,
+                                 **flash_keys(path_x_flash),
+                                 "non_causal": [
+                                     {**flash_keys(r), "causal": False}
+                                     for r in x_non_causal]})
     rglru_entry = _entry("rglru_scan", path_rglru,
                          replaces="src/repro/kernels/rglru_scan.py:55",
                          path_h={"calls_per_prefill": 2 * (rg.n_layers // 3)
@@ -813,6 +887,67 @@ def path_f(dev):
             (tokens,))
 
 
+#: path X's plan: f32, as for M, H and E
+PATH_X_PLAN = REFERENCE_PLAN.replace(compute_dtype="float32")
+
+
+def whisper_model(dev, dtype):
+    """The whole Whisper-small (12 encoder and 12 decoder layers at full
+    width; weights drawn from seed 0 in the reference's distributions in
+    f32 and kept on the card; another ``dtype`` is that draw cast whole, as
+    ``Model.init`` would draw it) and its inputs from seed 1, as
+    ``Model.demo_batch`` draws them: 2 x 448 tokens uniform in [0, vocab)
+    and 2 x 1500 stub frames ~ N(0, 1) in bf16 (the reference's input
+    specs)."""
+    model, params, _ = _model_f32(dev, "whisper_small")
+    if dtype != torch.float32:
+        params = copy.deepcopy(params).to(dtype)
+    batch = model.demo_batch(torch.Generator().manual_seed(SEED + 1), BATCH,
+                             X_TOKENS, device=dev)
+    return model, params, {k: batch[k] for k in ("tokens", "frames")}
+
+
+def causal_sites(params):
+    """A matched site's variant by its module, as path X binds it:
+    ``cuda`` at a norm or a causal attention core, ``ref`` at a non-causal
+    one (both packages' binders compute attention causal whatever the
+    region's mask)."""
+    def variant(module_path: str) -> str:
+        module = params.get_submodule(module_path.removeprefix("params."))
+        return "cuda" if getattr(module, "causal", True) else "ref"
+    return variant
+
+
+def path_x(dev):
+    model, params, inputs = whisper_model(dev, torch.float32)
+    return (lambda tok, fr: model.prefill(params, {"tokens": tok,
+                                                   "frames": fr},
+                                          PATH_X_PLAN),
+            (inputs["tokens"], inputs["frames"]), causal_sites(params))
+
+
+def whisper_sites(cfg) -> list:
+    """Path X's matched sites in program order, each (module path,
+    pattern, the variant the forced plan must bind): each encoder layer's
+    ln1, self-attention (non-causal: ``ref``) and ln2; the encoder's final
+    norm; each decoder layer's ln1, self-attention (causal: ``cuda``),
+    ln_x, cross-attention (non-causal: ``ref``) and ln2; the final norm."""
+    norm, attn = "rmsnorm", "softmax_attention"
+    out = []
+    for i in range(cfg.n_encoder_layers):
+        p = f"params.enc_blocks.{i}."
+        out += [(p + "ln1", norm, "cuda"), (p + "attn", attn, "ref"),
+                (p + "ln2", norm, "cuda")]
+    out.append(("params.enc_final_norm", norm, "cuda"))
+    for i in range(cfg.n_layers):
+        p = f"params.blocks.{i}."
+        out += [(p + "ln1", norm, "cuda"), (p + "attn", attn, "cuda"),
+                (p + "ln_x", norm, "cuda"), (p + "cross", attn, "ref"),
+                (p + "ln2", norm, "cuda")]
+    out.append(("params.final_norm", norm, "cuda"))
+    return out
+
+
 def free_models() -> None:
     """Drop the full-depth model kept on the card, so the next path's peak
     memory is its own.  Dynamo's caches are reset too: the export of a
@@ -848,6 +983,11 @@ PATH_E_SITES = ([("softmax_attention", "cuda")] * 16
 #: match and are refused
 PATH_F_SITES = ([("rmsnorm", "cuda")] + [("rmsnorm", "ref")] * (1 + 2 * 32)
                 + [("wkv_recurrence", "ref")] * 32)
+#: sites of path X: 62 norms and 12 causal self-attentions on the
+#: kernels, the 12 encoder and 12 cross-attentions on ``ref``
+PATH_X_SITES = [(p, v) for _, p, v in whisper_sites(WHISPER)]
+#: paths whose matched sites the export must find in this program order
+PATH_SITE_ORDER = {"X": [(m, p) for m, p, _ in whisper_sites(WHISPER)]}
 
 PATHS = {
     # label: (program maker, GA population x generations, expected (pattern,
@@ -864,14 +1004,15 @@ PATHS = {
           ("flash_attention", "rmsnorm", "rglru_scan"), 1),
     "E": (path_e, (6, 3), PATH_E_SITES, ("flash_attention", "rmsnorm"), 1),
     "F": (path_f, (4, 2), PATH_F_SITES, ("rmsnorm",), 1),
+    "X": (path_x, (6, 3), PATH_X_SITES, ("flash_attention", "rmsnorm"), 3),
 }
 #: paths with top-k routing: the reference must repeat bit for bit, and
 #: the forced plan verifies or a routing diagnostic explains why not
 ROUTED = {"E"}
-#: paths whose search is seeded with the forced all-kernel chromosome
+#: paths whose search is seeded with the forced chromosome
 #: (``Offloader.search``'s ``extra_seeds``), and on which no chromosome at
 #: all may fail with an error
-SEEDED = {"E", "F"}
+SEEDED = {"E", "F", "X"}
 
 
 #: the kernel each pattern's ``cuda`` variant launches
@@ -884,15 +1025,19 @@ PATTERN_KERNEL = {"softmax_attention": "flash_attention",
 #: RG-LRU route path R's time-major views take
 PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"},
                  "M": {"d1024_l32", "d128_l32"}, "H": {"d2560_l32"},
-                 "E": {"generic_l32", "d128_l32"}, "F": {"d2560_l32"}}
+                 "E": {"generic_l32", "d128_l32"}, "F": {"d2560_l32"},
+                 "X": {"generic_l32"}}
 #: RMSNorm launches by variant of one forward of the forced plan, where
 #: a path pins them: path E's ln1, ln2 and final norm at d 2048 take the
-#: generic loop, its q- and k-norms the d = 128 instance
-PATH_VARIANT_COUNTS = {"E": {"generic_l32": 33, "d128_l32": 32}}
+#: generic loop, its q- and k-norms the d = 128 instance; path X's 62
+#: norms at d 768 all take the generic loop
+PATH_VARIANT_COUNTS = {"E": {"generic_l32": 33, "d128_l32": 32},
+                       "X": {"generic_l32": len(x_norm_calls(WHISPER))}}
 PATH_ROUTES = {"R": {"tma"}, "H": {"tma"}}
-#: the flash path each path's launches take (paths M and H in f32, path H
-#: at head dim 256: ``scalar``)
-PATH_FLASH = {"Q": "wgmma", "M": "scalar", "H": "scalar", "E": "scalar"}
+#: the flash path each path's launches take (paths M, H, E and X in f32,
+#: path H at head dim 256: ``scalar``)
+PATH_FLASH = {"Q": "wgmma", "M": "scalar", "H": "scalar", "E": "scalar",
+              "X": "scalar"}
 
 
 def sub_counts() -> dict:
@@ -918,17 +1063,46 @@ def check_sub_counts(label, what, counts, launches, kernels) -> None:
               f"{counts[name]}, not {sorted(want[name])}")
 
 
-def forced_chromosome(graph, coding) -> tuple:
-    """Every matched site on its ``cuda`` variant, every other site on
-    ``ref``."""
-    return tuple(2 if graph.by_name(s.region).meta.get("pattern") else 0
-                 for s in coding.sites)
+def forced_chromosome(graph, coding, site_variant=None) -> tuple:
+    """Every matched site on its ``cuda`` variant (with ``site_variant``,
+    on the variant it names for the site's module, ``cuda`` or ``ref``),
+    every other site on ``ref``."""
+    bits = []
+    for s in coding.sites:
+        region = graph.by_name(s.region)
+        if not region.meta.get("pattern"):
+            bits.append(0)
+            continue
+        variant = site_variant(region.meta["module"]) if site_variant \
+            else "cuda"
+        bits.append({"cuda": 2, "ref": 0}[variant])
+    return tuple(bits)
+
+
+def check_site_order(label, graph, coding) -> None:
+    """Path ``label``'s matched sites are the ones it expects, in program
+    order (``PATH_SITE_ORDER``)."""
+    if label not in PATH_SITE_ORDER:
+        return
+    found = [(r.meta["module"], r.meta["pattern"]) for r in
+             (graph.by_name(s.region) for s in coding.sites)
+             if r.meta.get("pattern")]
+    want = PATH_SITE_ORDER[label]
+    first = next((i for i, (f, w) in enumerate(itertools.zip_longest(
+        found, want)) if f != w), None)
+    if first is not None:
+        check(False, f"path {label}: the export found {len(found)} matched "
+                     f"sites ({dict(collections.Counter(p for _, p in found))})"
+                     f", not the {len(want)} expected in program order; site "
+                     f"{first}: found {found[first:first + 1]}, expected "
+                     f"{want[first:first + 1]}")
 
 
 def phase_path(label, dev, scratch: Path) -> tuple:
     make, (pop, gens), expected, kernels, iters = PATHS[label]
     torch.cuda.reset_peak_memory_stats()
-    target, args = make(dev)
+    target, args, *rule = make(dev)
+    site_variant = rule[0] if rule else None
     resident_gb = torch.cuda.memory_allocated() / 1e9
     with torch.no_grad():
         reference = target(*args)
@@ -957,8 +1131,9 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     offloader = Offloader(config)
     if label in SEEDED:
         ctx = offloader.prepare(target)
+        check_site_order(label, ctx.graph, ctx.coding)
         res = offloader.search(ctx, extra_seeds=[
-            forced_chromosome(ctx.graph, ctx.coding)])
+            forced_chromosome(ctx.graph, ctx.coding, site_variant)])
     else:
         res = offloader.plan(target)
     torch.cuda.synchronize()
@@ -989,7 +1164,8 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     engine = res.details["engine"]
     matched = {s.region: res.graph.by_name(s.region).meta.get("pattern")
                for s in res.coding.sites}
-    forced_bits = forced_chromosome(res.graph, res.coding)
+    check_site_order(label, res.graph, res.coding)
+    forced_bits = forced_chromosome(res.graph, res.coding, site_variant)
     t0 = time.perf_counter()
     forced = engine.substitute(res.coding.decode(forced_bits))
     substitute_s = time.perf_counter() - t0
@@ -1070,6 +1246,7 @@ def phase_path(label, dev, scratch: Path) -> tuple:
         "measurements": res.ga.evaluations,
         "s_per_chromosome": res.ga.eval_wall_s / max(res.ga.evaluations, 1),
         "plan_s": plan_s, "verify_failures": verify_fails,
+        "n_verify_failures": len(verify_fails),
         "artifact_max_abs": v.max_abs, "forced_max_abs": fv.max_abs,
         "forced_max_rel": fv.max_rel, "forced_launches": forced_launches,
         "substitute_s": substitute_s, "verify_s": verify_s,
@@ -1082,6 +1259,9 @@ def phase_path(label, dev, scratch: Path) -> tuple:
         "rmsnorm_launches_by_variant": search_counts["rmsnorm"],
         "rglru_launches_by_route": search_counts["rglru_scan"],
         "routing": routing}
+    if label in CAUSAL_FINDING:
+        summary["causal_binder"] = causal_binder_finding(
+            label, res, engine, args, reference)
     print(f"path {label}:", json.dumps(summary), flush=True)
     unsubstituted = engine.substitute({})
     for name, fn in (("baseline (all ref)", unsubstituted),
@@ -1093,6 +1273,57 @@ def phase_path(label, dev, scratch: Path) -> tuple:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return launches, {k: search_counts[k] for k in kernels
                       if k in search_counts}
+
+
+#: paths that run the finding of the causal binder
+CAUSAL_FINDING = {"X"}
+
+
+def causal_binder_finding(label, res, engine, args, reference) -> dict:
+    """Both packages' attention binders compute a causal attention
+    whatever the region's mask.  Two chromosomes of path ``label``, each
+    run once, unplanned: ``cuda`` at every matched site (every norm and
+    every attention core, the non-causal ones too), and ``fused_torch``
+    alone at the first encoder self-attention.  Each must bind, run, and
+    fail verification (not raise); its largest error by leaf group
+    (logits, the self caches k/v, the cross caches xk/xv) is printed."""
+    regions = [res.graph.by_name(s.region) for s in res.coding.sites]
+    attn = [r for r in regions if r.meta.get("pattern")
+            == "softmax_attention"]
+    first_enc = next(r for r in attn if ".enc_blocks." in r.meta["module"])
+    cases = {
+        "cuda at every matched site": (
+            tuple(2 if r.meta.get("pattern") else 0 for r in regions),
+            {"softmax_attention:cuda": len(attn)}),
+        f"fused_torch at {first_enc.meta['module']} alone": (
+            tuple(1 if r is first_enc else 0 for r in regions),
+            {"softmax_attention:fused_torch": 1})}
+    group_of = {"k": "k/v", "v": "k/v", "xk": "xk/xv", "xv": "xk/xv"}
+    out = {}
+    for what, (bits, must_bind) in cases.items():
+        sub = engine.substitute(res.coding.decode(bits))
+        bound = dict(collections.Counter(
+            f"{c.pattern}:{c.chosen}" for c in sub.report.choices
+            if c.pattern and c.chosen != "ref"))
+        check(all(bound.get(k) == n for k, n in must_bind.items()),
+              f"path {label}: {what}: bound {bound}, not {must_bind}")
+        got = sub(*args)
+        torch.cuda.synchronize()
+        v = verify(reference, got, rtol=1e-2, atol=1e-2)
+        groups = {}
+        for (path, r), c in zip(pytree.tree_flatten_with_path(reference)[0],
+                                pytree.tree_leaves(got), strict=True):
+            key = getattr(path[-1], "key", None)
+            group = group_of.get(key, "logits" if len(path) == 1 else key)
+            err = (c.float() - r.float()).abs().max().item()
+            groups[group] = max(groups.get(group, 0.0), err)
+        out[what] = {"bound": bound, "verified": v.ok, "max_abs": v.max_abs,
+                     "max_rel": v.max_rel, "max_abs_by_leaf_group": groups}
+        check(not v.ok, f"path {label}: {what} verified, though the binders "
+                        f"compute the non-causal sites causal: {out[what]}")
+    print(f"path {label} finding of the causal binder:", json.dumps(out),
+          flush=True)
+    return out
 
 
 def routing_flips(model, params, tokens) -> dict:
@@ -1202,26 +1433,32 @@ def rwkv_forms(dev) -> dict:
     return out
 
 
-def bf16_diagnostic(dev, label: str, make_model, n_sites: int) -> dict:
-    """Path ``label``'s forced all-kernel prefill in bf16 against the bf16
-    reference: each output leaf's largest errors (logits, then the decode
-    state's leaves).  Nothing is asserted on them."""
-    model, params, tokens = make_model(dev, torch.bfloat16)
+def bf16_diagnostic(dev, label: str, make_model, n_sites: int,
+                    site_rule=None) -> dict:
+    """Path ``label``'s forced prefill in bf16 against the bf16 reference:
+    each output leaf's largest errors (logits, then the decode state's
+    leaves).  ``make_model`` gives the model, its weights and its inputs
+    (the tokens, or a dict of inputs); the forced plan puts every matched
+    site on ``cuda``, or where ``site_rule(params)`` says.  Nothing is
+    asserted on the errors."""
+    model, params, inputs = make_model(dev, torch.bfloat16)
+    if not isinstance(inputs, dict):
+        inputs = {"tokens": inputs}
+    keys, args = list(inputs), tuple(inputs.values())
     plan = REFERENCE_PLAN
     offloader = Offloader(OffloadConfig(
-        device=str(dev), options={"example_args": (tokens,)}))
+        device=str(dev), options={"example_args": args}))
     ctx = offloader.prepare(
-        lambda tok: model.prefill(params, {"tokens": tok}, plan))
+        lambda *xs: model.prefill(params, dict(zip(keys, xs)), plan))
     engine = ctx.bundle.context["engine"]
-    forced_bits = tuple(
-        2 if ctx.graph.by_name(site.region).meta.get("pattern") else 0
-        for site in ctx.coding.sites)
+    forced_bits = forced_chromosome(ctx.graph, ctx.coding,
+                                    site_rule and site_rule(params))
     forced = engine.substitute(ctx.coding.decode(forced_bits))
     bound = sum(c.chosen == "cuda" for c in forced.report.choices)
     check(bound == n_sites,
           f"bf16 diagnostic {label}: {bound} sites bound to the kernels, not "
           f"{n_sites}")
-    got = forced(tokens)
+    got = forced(*args)
     torch.cuda.synchronize()
     want = engine.reference()
     per_leaf = {}
@@ -1243,12 +1480,13 @@ def bf16_diagnostic(dev, label: str, make_model, n_sites: int) -> dict:
 
 
 def serve_phase(dev, label: str, make_model, new_tokens: int,
-                swap: bool) -> dict:
+                swap: bool, prompt_len: int = SERVE_PROMPT) -> dict:
     """``Server.generate`` on path ``label``'s model in bf16 under
     ``OFFLOAD_PLAN`` (``make_model`` gives its weights in bf16, or in f32
     for the ``Server`` to cast once, keeping the leaves the reference reads
-    in f32): 4 requests of 512 prompt tokens, ``new_tokens``
-    greedy new tokens.  Two calls give identical tokens; with ``swap``,
+    in f32): 4 requests of ``prompt_len`` prompt tokens (and the model's
+    other inputs, an enc-dec model's frames, drawn as ``Model.demo_batch``
+    draws them), ``new_tokens`` greedy new tokens.  Two calls give identical tokens; with ``swap``,
     after ``swap_plan(REFERENCE_PLAN)`` the next call gives the tokens of a
     server built on that plan.  Times: a prefill (``max_new = 1``: prefill
     and one sample), the whole call, and the decode time per token between
@@ -1257,7 +1495,10 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
     cfg = model.cfg
     gen = torch.Generator().manual_seed(SEED + 1)
     prompts = {"tokens": torch.randint(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), generator=gen).to(dev)}
+        0, cfg.vocab, (SERVE_BATCH, prompt_len), generator=gen).to(dev)}
+    prompts.update((k, v) for k, v in model.demo_batch(
+        gen, SERVE_BATCH, prompt_len, device=dev).items()
+        if k not in ("tokens", "labels"))
     server = Server(model, params, OFFLOAD_PLAN)
     server.generate(prompts, 2)                 # warm-up
 
@@ -1275,7 +1516,7 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
     check(bool(((first >= 0) & (first < cfg.vocab)).all()),
           f"serve {label}: a token outside the vocab")
     check((first == second).all(), f"serve {label}: two greedy calls differ")
-    out = {"requests": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT,
+    out = {"requests": SERVE_BATCH, "prompt_tokens": prompt_len,
            "new_tokens": new_tokens, "dtype": "bfloat16",
            "prefill_ms": prefill_s * 1e3, "generate_ms": total_s * 1e3,
            "decode_ms_per_token": (total_s - prefill_s) / (new_tokens - 1)
@@ -1298,7 +1539,7 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
     # state is read, not written), where its time goes
     bound = server._bound
     with torch.no_grad():
-        _, state = bound.prefill(prompts, SERVE_PROMPT + new_tokens)
+        _, state = bound.prefill(prompts, prompt_len + new_tokens)
         last = prompts["tokens"][:, -1:]
         step = where_time_goes(lambda: bound.decode(last, state), (), 5)
     out[f"decode_step_{'reference' if swap else 'offload'}_plan"] = step
@@ -1465,6 +1706,16 @@ def main() -> int:
     serve_phase(dev, "F", lambda d, _: _model_f32(d, "rwkv6_3b"),
                 SERVE_NEW_H, False)
     done("serve F")
+    # the whole Whisper-small: its prefill planned, its bf16 diagnostic,
+    # and serving (path SW), the Server casting the f32 draw once
+    free_models()
+    run_path("X")
+    bf16_diagnostic(dev, "X", whisper_model,
+                    sum(v == "cuda" for _, v in PATH_X_SITES), causal_sites)
+    done("bf16 diagnostic X")
+    serve_phase(dev, "X", lambda d, _: whisper_model(d, torch.float32),
+                SERVE_NEW, True, prompt_len=SERVE_PROMPT_X)
+    done("serve X")
     free_models()
     for name, entry in kernels.items():
         per_path = {label: counts[name] for label, counts in by_path.items()

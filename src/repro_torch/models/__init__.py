@@ -1,5 +1,6 @@
 """Port of ``repro/models``: the decoder-only LM of the dense, VLM, MoE,
-hybrid and SSM families (``transformer``, ``api``), its plan knobs
+hybrid and SSM families (``transformer``), the enc-dec family
+(``whisper``), the facade over all of them (``api``), its plan knobs
 (``plan``), layers and attention, the MoE block (``moe``), the RG-LRU
 block of the hybrid family (``rglru``, ``transformer.RecurrentSublayer``),
 the RWKV-6 block of the SSM family (``rwkv``, ``transformer.RWKVBlock``)

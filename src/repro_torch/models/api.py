@@ -1,17 +1,20 @@
 """Port of ``repro/models/api.py``: the :class:`Model` facade, one uniform
-interface over the ported architectures (the dense, VLM, MoE, hybrid
-and SSM families).
+interface over every architecture of the reference (the dense, VLM,
+MoE, hybrid, SSM and enc-dec families).
 
 ``build_model(cfg)`` returns a :class:`Model` with
 ``init(generator, dtype, device)`` / ``param_shapes`` / ``loss`` /
 ``prefill`` / ``decode`` / ``input_specs(shape)`` / ``state_specs(shape)``
 / ``demo_batch``.  Parameters are an :class:`~repro_torch.models.
-transformer.LMParams` module; inputs are dicts of tensors, as in the
-reference.  ``input_specs`` and ``state_specs`` return tensors on the
-``meta`` device — shapes and dtypes without storage, the counterpart of
-``ShapeDtypeStruct`` — and ``state_specs`` runs ``prefill`` on meta
-tensors, as the reference runs ``eval_shape``.  A family the port does not
-run yet raises ``NotImplementedError`` at ``build_model``.
+transformer.LMParams` module (an enc-dec model's a :class:`~repro_torch.
+models.whisper.WhisperParams`); inputs are dicts of tensors, as in the
+reference (an enc-dec model also takes ``frames``, (B, encoder_seq,
+d_model) stub frame embeddings, bf16 in the specs).  ``input_specs`` and
+``state_specs`` return tensors on the ``meta`` device — shapes and dtypes
+without storage, the counterpart of ``ShapeDtypeStruct`` — and
+``state_specs`` runs ``prefill`` on meta tensors, as the reference runs
+``eval_shape``.  An unknown family raises
+``ValueError`` at ``build_model``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as WH
 from repro_torch.models.plan import ExecPlan
 
 __all__ = ["Model", "build_model"]
@@ -36,29 +40,41 @@ class Model:
     cfg: ArchConfig
 
     # ------------------------------------------------------------------ init
+    @property
+    def _encdec(self) -> bool:
+        return self.cfg.family == "encdec"
+
     def init(self, generator: Optional[torch.Generator] = None,
-             dtype: torch.dtype = torch.float32, device=None) -> T.LMParams:
+             dtype: torch.dtype = torch.float32, device=None):
         """Parameters drawn from ``generator`` (a CPU generator; seed 0 when
         None) in the reference's distributions, on ``device`` (``cuda``
         unless ``"cpu"`` is asked for)."""
-        return T.init_params(self.cfg, generator, dtype, device)
+        init = WH.init_params if self._encdec else T.init_params
+        return init(self.cfg, generator, dtype, device)
 
-    def param_shapes(self, dtype: torch.dtype = torch.float32) -> T.LMParams:
+    def param_shapes(self, dtype: torch.dtype = torch.float32):
         """The parameters on the ``meta`` device: shapes, no storage."""
         with torch.device("meta"):
-            return T.init_params(self.cfg, dtype=dtype, device="meta")
+            return self.init(dtype=dtype, device="meta")
 
     # ------------------------------------------------------------------ steps
-    def loss(self, params: T.LMParams, batch: dict, plan: ExecPlan):
+    def loss(self, params, batch: dict, plan: ExecPlan):
+        if self._encdec:
+            return WH.lm_loss(params, batch, self.cfg, plan)
         return T.lm_loss(params, batch, self.cfg, plan)
 
-    def prefill(self, params: T.LMParams, inputs: dict, plan: ExecPlan,
+    def prefill(self, params, inputs: dict, plan: ExecPlan,
                 cache_capacity: int = 0):
+        if self._encdec:
+            return WH.prefill(params, self.cfg, plan, inputs["tokens"],
+                              inputs["frames"], cache_capacity)
         return T.prefill(params, self.cfg, plan, inputs["tokens"],
                          inputs.get("patch_feats"), cache_capacity)
 
-    def decode(self, params: T.LMParams, token: torch.Tensor, state: dict,
+    def decode(self, params, token: torch.Tensor, state: dict,
                plan: ExecPlan):
+        if self._encdec:
+            return WH.decode_step(params, self.cfg, plan, token, state)
         return T.decode_step(params, self.cfg, plan, token, state)
 
     # ------------------------------------------------------------- input specs
@@ -70,12 +86,18 @@ class Model:
                              f"{self.cfg.vision_patches}-patch vision prefix")
         return s
 
-    def _patch_spec(self, b: int) -> dict:
+    def _extra_specs(self, b: int) -> dict:
+        """The inputs beside the tokens: an enc-dec model's ``frames``, a
+        VLM's ``patch_feats``, bf16 as in the reference."""
         cfg = self.cfg
-        if not cfg.vision_patches:
-            return {}
-        return {"patch_feats": _meta(b, cfg.vision_patches, cfg.vision_dim,
-                                     dtype=torch.bfloat16)}
+        out = {}
+        if self._encdec:
+            out["frames"] = _meta(b, cfg.encoder_seq, cfg.d_model,
+                                  dtype=torch.bfloat16)
+        if cfg.vision_patches:
+            out["patch_feats"] = _meta(b, cfg.vision_patches, cfg.vision_dim,
+                                       dtype=torch.bfloat16)
+        return out
 
     def input_specs(self, shape: ShapeSpec) -> dict:
         """Meta-device stand-ins for every input of one benchmark cell."""
@@ -83,10 +105,10 @@ class Model:
         if shape.kind == "train":
             return {"tokens": _meta(b, s, dtype=torch.int32),
                     "labels": _meta(b, s, dtype=torch.int32),
-                    **self._patch_spec(b)}
+                    **self._extra_specs(b)}
         if shape.kind == "prefill":
             return {"tokens": _meta(b, s, dtype=torch.int32),
-                    **self._patch_spec(b)}
+                    **self._extra_specs(b)}
         # decode: one token + a state whose cache capacity is shape.seq_len
         return {"token": _meta(b, 1, dtype=torch.int32),
                 "state": self.state_specs(shape)}
@@ -98,7 +120,7 @@ class Model:
         plan)."""
         b = shape.global_batch
         inputs = {"tokens": _meta(b, self._token_len(shape) - 1,
-                                  dtype=torch.int32), **self._patch_spec(b)}
+                                  dtype=torch.int32), **self._extra_specs(b)}
         with torch.device("meta"):
             _, state = self.prefill(self.param_shapes(), inputs, ExecPlan(),
                                     cache_capacity=shape.seq_len)
@@ -107,9 +129,10 @@ class Model:
     # ------------------------------------------------------------ demo batch
     def demo_batch(self, generator: torch.Generator, batch: int, seq: int,
                    device=None) -> dict:
-        """Random tokens and labels (and bf16 patch features for a VLM)
-        from ``generator`` (a CPU generator), on ``device`` (``cuda``
-        unless ``"cpu"`` is asked for)."""
+        """Random tokens and labels (and bf16 frames for an enc-dec model,
+        bf16 patch features for a VLM) from ``generator`` (a CPU
+        generator), on ``device`` (``cuda`` unless ``"cpu"`` is asked
+        for)."""
         from repro_torch.core.frontends.export_frontend import resolve_device
 
         cfg, dev = self.cfg, resolve_device(device)
@@ -118,6 +141,10 @@ class Model:
                                        generator=generator, dtype=torch.int32),
                "labels": torch.randint(0, cfg.vocab, (batch, s),
                                        generator=generator, dtype=torch.int32)}
+        if self._encdec:
+            out["frames"] = torch.randn(
+                batch, cfg.encoder_seq, cfg.d_model,
+                generator=generator).to(torch.bfloat16)
         if cfg.vision_patches:
             out["patch_feats"] = torch.randn(
                 batch, cfg.vision_patches, cfg.vision_dim,

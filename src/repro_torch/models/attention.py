@@ -18,7 +18,7 @@ attention site.  It takes exactly (q, k, v) after RoPE and qk-norm, with K
 and V at their own head count (B, S, Hkv, D): positions, the mask and the
 GQA head repeat are built inside it, so a kernel can do GQA by index.  The
 causal mask is top-left aligned (key col <= query row), as in the
-reference.
+reference; ``causal=False`` drops it (the enc-dec family).
 """
 from __future__ import annotations
 
@@ -319,19 +319,23 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class Attention(nn.Module):
-    """Causal GQA attention core over a full sequence: (q, k, v) ->
-    (B, Sq, Hq, D), the plan's :func:`attend` at positions ``arange``
-    (the reference form in q's dtype when no plan is given)."""
+    """GQA attention core over a full sequence: (q, k, v) -> (B, Sq, Hq,
+    D), the plan's :func:`attend` at positions ``arange`` (the reference
+    form in q's dtype when no plan is given).  ``causal`` (default) masks
+    keys after each query, top-left aligned; an enc-dec model's encoder
+    self-attention and cross-attention set it False."""
 
-    def __init__(self, attn_kind: str = "full", window: int = 0):
+    def __init__(self, attn_kind: str = "full", window: int = 0,
+                 causal: bool = True):
         super().__init__()
         self.attn_kind = attn_kind
         self.window = window
+        self.causal = causal
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 plan: Optional[ExecPlan] = None) -> torch.Tensor:
         pos_q = torch.arange(q.shape[1], device=q.device)
         pos_k = torch.arange(k.shape[1], device=k.device)
-        return attend(q, k, v, pos_q, pos_k, causal=True,
+        return attend(q, k, v, pos_q, pos_k, causal=self.causal,
                       attn_kind=self.attn_kind, window=self.window,
                       plan=L.plan_for(q, plan))

@@ -7,7 +7,12 @@ on axis 0 over the layers; for a hybrid model over the macro blocks, each
 ``{"sub0": ..., "sub1": ...}``), a hybrid model's ``pre_blocks`` (a list
 of RG-LRU sublayers), an SSM model's ``embed_norm_s`` and ``embed_norm_b``
 and, for a VLM, ``projector`` — and returns an
-:class:`~repro_torch.models.transformer.LMParams` holding them.  A block
+:class:`~repro_torch.models.transformer.LMParams` holding them.  For the
+enc-dec family it takes the tree of ``repro/models/whisper.py`` —
+``embed``, ``final_norm``, ``enc_final_norm``, ``enc_blocks`` and
+``blocks`` (both stacked), a decoder block also holding ``ln_x`` and
+``xattn`` {wq, wk, wv, wo} — and returns a
+:class:`~repro_torch.models.whisper.WhisperParams`.  A block
 is the reference's ``_dense_block_init`` — ``ln1``, ``ln2``, ``attn`` {wq,
 wk, wv, wo, bq, bk, bv, q_norm, k_norm}, and ``mlp`` {w_gate, w_up,
 w_down} or, for a MoE model, ``moe`` {w_router, w_gate, w_up, w_down,
@@ -31,11 +36,13 @@ from torch import nn
 
 from repro_torch.models.transformer import (DenseBlock, LMParams,
                                             RecurrentSublayer)
+from repro_torch.models.whisper import WhisperParams
 
 __all__ = ["dense_block_from_jax", "model_from_jax",
            "recurrent_sublayer_from_jax"]
 
-_NORMS = ("ln1", "ln2", "q_norm", "k_norm", "final_norm")
+_NORMS = ("ln1", "ln2", "ln_x", "q_norm", "k_norm", "final_norm",
+          "enc_final_norm")
 #: the reference's LayerNorm leaves and MoE router -> the port's names
 _RENAMED = {"ln1_s": "ln1.weight", "ln1_b": "ln1.bias",
             "ln2_s": "ln2.weight", "ln2_b": "ln2.bias",
@@ -50,11 +57,12 @@ def _name(key: str) -> str:
 
 
 def _block_params(blk: Mapping) -> dict:
-    """One reference block (dense, MoE, RG-LRU sublayer or RWKV),
-    flattened to the port block's parameter names: ``attn`` and ``mlp``
-    leaves sit on the block, ``moe``, ``rglru`` and ``tm_cm`` leaves under
-    their submodule.  A block that is not RWKV's must hold ``ln1``, ``ln2``
-    and its feed-forward (``mlp`` or ``moe``; KeyError); unknown keys pass
+    """One reference block (dense, MoE, RG-LRU sublayer, RWKV, or an
+    enc-dec encoder or decoder block), flattened to the port block's
+    parameter names: ``attn`` and ``mlp`` leaves sit on the block,
+    ``moe``, ``rglru``, ``tm_cm`` and ``xattn`` leaves under their
+    submodule.  A block that is not RWKV's must hold ``ln1``, ``ln2`` and
+    its feed-forward (``mlp`` or ``moe``; KeyError); unknown keys pass
     through unchanged, so :func:`_load` rejects them (as it rejects any
     other missing one)."""
     if "tm_cm" not in blk:
@@ -72,7 +80,7 @@ def _block_params(blk: Mapping) -> dict:
                     out.update({f"moe.shared.{n}": x for n, x in w.items()})
                 else:
                     out[f"moe.{_name(k)}"] = w
-        elif key in ("rglru", "tm_cm"):
+        elif key in ("rglru", "tm_cm", "xattn"):
             out.update({f"{key}.{k}": w for k, w in value.items()})
         else:
             out[_name(key)] = value
@@ -80,27 +88,32 @@ def _block_params(blk: Mapping) -> dict:
 
 
 def model_from_jax(params: Mapping, cfg, *, dtype: torch.dtype = torch.float32,
-                   device=None) -> LMParams:
+                   device=None) -> LMParams | WhisperParams:
     from repro_torch.core.frontends.export_frontend import resolve_device
 
     dev = resolve_device(device)
+    encdec = cfg.family == "encdec"
     with torch.device("meta"):
-        model = LMParams(cfg, dtype=dtype, device="meta")
+        model = (WhisperParams if encdec else LMParams)(
+            cfg, dtype=dtype, device="meta")
     hybrid = cfg.family == "hybrid"
-    n_stacked = cfg.n_layers // len(cfg.block_pattern) if hybrid \
-        else cfg.n_layers
+    n_stacked = {"blocks": cfg.n_layers // len(cfg.block_pattern) if hybrid
+                 else cfg.n_layers}
+    if encdec:
+        n_stacked["enc_blocks"] = cfg.n_encoder_layers
     flat = {}
     for key, value in params.items():
-        if key == "blocks":
+        if key in n_stacked:
+            n = n_stacked[key]
             layers = {np.shape(v)[0] for v in _leaves(value)}
-            if layers != {n_stacked}:
-                raise ValueError(f"blocks: stacked over {sorted(layers)} "
-                                 f"layers, config has {n_stacked}")
-            for i in range(n_stacked):
+            if layers != {n}:
+                raise ValueError(f"{key}: stacked over {sorted(layers)} "
+                                 f"layers, config has {n}")
+            for i in range(n):
                 layer = _map(value, lambda a: np.asarray(a)[i])
                 subs = layer.items() if hybrid else [("", layer)]
                 for sub, blk in subs:
-                    prefix = f"blocks.{i}.{sub}." if sub else f"blocks.{i}."
+                    prefix = f"{key}.{i}.{sub}." if sub else f"{key}.{i}."
                     flat.update({prefix + k: w
                                  for k, w in _block_params(blk).items()})
         elif key == "pre_blocks":

@@ -30,10 +30,10 @@ layers::
 "conv"}`` stacked on axis 0, ``macro_kv`` as ``{"k", "v"}`` stacked,
 ``rwkv`` as ``{"wkv", "shift_tm", "shift_cm"}`` stacked).  A decode step
 writes each KV cache in place (the reference's donated state), returns new
-RG-LRU and RWKV states, and ``cache_len + 1``.  The enc-dec family raises
-``NotImplementedError`` (``ROADMAP.md`` queue 1 item 4).  The plan's
-``remat``, ``gather_mode`` and ``gather_dtype`` knobs shape the reference's
-training step and sharding; a forward here reads none of them.
+RG-LRU and RWKV states, and ``cache_len + 1``.  The enc-dec family lives
+in ``whisper.py``.  The plan's ``remat``, ``gather_mode`` and
+``gather_dtype`` knobs shape the reference's training step and sharding; a
+forward here reads none of them.
 
 ``RMSNorm``, ``LayerNorm``, ``Attention``, the MoE's ``Router``, the
 RG-LRU's ``LinearRecurrence`` and RWKV's ``WKVRecurrence`` are
@@ -69,24 +69,13 @@ __all__ = ["DenseBlock", "INIT_STD", "LMParams", "RWKVBlock",
 #: ``initializer_range``
 INIT_STD = 0.02
 
-#: families not ported yet -> the item of ``ROADMAP.md`` queue 1 that
-#: brings them
-_UNPORTED = {
-    "encdec": (4, "whisper.py and the enc-dec family"),
-}
-
 
 def check_family(cfg) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense, VLM, MoE,
-    hybrid or SSM decoder this port runs (never treat another family as
+    """Raise ``ValueError`` unless ``cfg`` is a dense, VLM, MoE, hybrid,
+    SSM or enc-dec model this port runs (never treat another family as
     dense)."""
     family = "moe" if cfg.moe is not None else cfg.family
-    if family in _UNPORTED:
-        item, what = _UNPORTED[family]
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {family} family is not ported yet "
-            f"(ROADMAP.md queue 1 item {item}: {what})")
-    if family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
+    if family not in ("dense", "vlm", "moe", "hybrid", "ssm", "encdec"):
         raise ValueError(f"{cfg.arch_id}: unknown family {family!r}")
 
 
@@ -259,6 +248,9 @@ class LMParams(nn.Module):
 
         super().__init__()
         check_family(cfg)
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.arch_id}: an enc-dec model's parameters "
+                             f"are whisper.WhisperParams, not LMParams")
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)

@@ -1,7 +1,8 @@
 """Port of ``repro/runtime/serve.py``: the serving loop — batched prefill,
 then autoregressive decode against the decode state (KV caches; for a
 hybrid model also the RG-LRU states and local-attention rings; for an SSM
-model the RWKV states).
+model the RWKV states; for an enc-dec model the self caches and the
+cross caches its prefill computed over the encoded ``frames``).
 
 ``Server`` owns the parameters and a plan; ``generate`` prefills a request
 batch, then decodes greedily (``argmax``) or with temperature sampling from
@@ -123,9 +124,9 @@ class Server:
     @torch.no_grad()
     def generate(self, inputs: dict,
                  max_new: Optional[int] = None) -> np.ndarray:
-        """inputs: dict with 'tokens' (B,S) (+ 'patch_feats'), tensors on
-        the parameters' device.  Returns the generated tokens (B, max_new)
-        as int32."""
+        """inputs: dict with 'tokens' (B,S) (+ 'frames' for an enc-dec
+        model, 'patch_feats' for a VLM), tensors on the parameters'
+        device.  Returns the generated tokens (B, max_new) as int32."""
         bound = self._bound          # one snapshot: the whole call runs one
         max_new = max_new or self.cfg.max_new_tokens   # complete plan
         tokens = inputs["tokens"]

@@ -676,3 +676,92 @@ def test_rwkv_chunked_prefill_and_decode_on_card_match_the_cpu(cuda):
         for f in ("wkv", "shift_tm", "shift_cm"):
             torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f),
                                        atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec family (path X)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [1500, 448])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_at_whisper_non_causal_shapes_on_card(cuda, sq, dtype):
+    """Whisper-small's encoder self-attention (1500 frames) and
+    cross-attention (448 tokens against 1500 frames), 12 heads of 64,
+    non-causal: Sk = 1500 is not a multiple of the KV tile, and in bf16
+    these take the ``wgmma`` path."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    dt = _DTYPES[dtype]
+    q = torch.randn(2, sq, 12, 64, generator=g).to(cuda, dt)
+    k = torch.randn(2, 1500, 12, 64, generator=g).to(cuda, dt)
+    v = torch.randn(2, 1500, 12, 64, generator=g).to(cuda, dt)
+    assert tfa.select_path(q, k, v) == \
+        ("wgmma" if dtype == "bfloat16" else "scalar")
+    got = tops.flash_attention(q, k, v, causal=False)
+    want = tfa.flash_attention_plain(q, k, v, causal=False,
+                                     scale=1 / np.sqrt(64))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert tfa.block_rel_err(got, want) <= (1e-2 if dtype == "bfloat16"
+                                            else 1e-4)
+
+
+def _reduced_whisper(device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("whisper_small").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), generator=gen)
+    frames = torch.randn(2, cfg.encoder_seq, cfg.d_model, generator=gen)
+    return cfg, model, params, tokens.to(device), frames.to(device)
+
+
+@pytest.mark.gpu
+def test_whisper_forced_plan_on_card_matches_the_cpu(cuda):
+    """The forced plan of a reduced Whisper prefill (f32): ``cuda`` at every
+    norm and every decoder self-attention, ``ref`` at the encoder's and
+    the cross-attention's non-causal sites.  It launches flash once a
+    decoder layer and RMSNorm at every norm, and matches the unsubstituted
+    prefill on the CPU at 1e-4."""
+    from repro_torch.core.offload import OffloadConfig, Offloader
+    from repro_torch.models import REFERENCE_PLAN
+
+    plan = REFERENCE_PLAN.replace(compute_dtype="float32")
+    cfg, model, params, tokens, frames = _reduced_whisper(cuda)
+    ctx = Offloader(OffloadConfig(options={
+        "example_args": (tokens, frames)})).prepare(
+            lambda tok, fr: model.prefill(params, {"tokens": tok,
+                                                   "frames": fr}, plan))
+    engine = ctx.bundle.context["engine"]
+
+    def bit(region):
+        if not region.meta.get("pattern"):
+            return 0
+        module = params.get_submodule(
+            region.meta["module"].removeprefix("params."))
+        return 2 if getattr(module, "causal", True) else 0
+
+    sub = engine.substitute(ctx.coding.decode(tuple(
+        bit(ctx.graph.by_name(s.region)) for s in ctx.coding.sites)))
+    n_norms = 2 * cfg.n_encoder_layers + 1 + 3 * cfg.n_layers + 1
+    assert sorted(c.chosen for c in sub.report.choices if c.pattern) == \
+        sorted(["cuda"] * (n_norms + cfg.n_layers)
+               + ["ref"] * (cfg.n_encoder_layers + cfg.n_layers))
+    tops.reset_launch_counts()
+    logits, state = sub(tokens, frames)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert tops.launch_counts()["rmsnorm"] == n_norms
+    _, _, cpu_params, cpu_tokens, cpu_frames = _reduced_whisper("cpu")
+    with torch.no_grad():
+        want_logits, want_state = model.prefill(
+            cpu_params, {"tokens": cpu_tokens, "frames": cpu_frames}, plan)
+    torch.testing.assert_close(logits.cpu(), want_logits, atol=1e-4, rtol=0)
+    for kv, want in zip(state["dec"], want_state["dec"], strict=True):
+        for f in ("k", "v", "xk", "xv"):
+            torch.testing.assert_close(kv[f].cpu(), want[f], atol=1e-4,
+                                       rtol=0)

@@ -1,6 +1,7 @@
 """The port's model zoo against the JAX reference on the CPU: configs, the
 ExecPlan ABI, each layer and attention function, and the dense, VLM, MoE,
-hybrid and SSM decoders (loss, prefill, decode) at reduced widths in f32
+hybrid and SSM decoders and the enc-dec model (loss, prefill, decode) at
+reduced widths in f32
 (and under the bf16 ``REFERENCE_PLAN``), weights carried across from the
 reference's ``init_params`` by ``model_from_jax``."""
 import pytest
@@ -42,7 +43,7 @@ PLANS = {"reference": (F32, JF32),
 PORTED = ["qwen3_0_6b", "tinyllama_1_1b", "qwen1_5_4b", "gemma_7b",
           "llava_next_mistral_7b", "recurrentgemma_2b",
           "recurrentgemma_2b@5", "olmoe_1b_7b", "llama4_scout_17b_a16e",
-          "rwkv6_3b"]
+          "rwkv6_3b", "whisper_small"]
 ATOL = 1e-5
 #: the reference's bf16 tolerance (``tests/test_kernels.py``)
 BF16_TOL = 2e-2
@@ -320,8 +321,13 @@ def zoo(request):
 def _state_pairs(state, jstate):
     """(name, port leaf, reference leaf stacked over layers, layer) for
     every leaf of a decode state: dense ``kv``, the hybrid ``pre_rglru``,
-    ``macro_rglru`` and ``macro_kv``, or the SSM ``rwkv``."""
+    ``macro_rglru`` and ``macro_kv``, the SSM ``rwkv``, or the enc-dec
+    ``dec``."""
     assert sorted(state) == sorted(jstate)
+    for i, kv in enumerate(state.get("dec", ())):
+        assert sorted(kv) == sorted(jstate["dec"])
+        for f in ("k", "v", "xk", "xv"):
+            yield f"dec.{f}{i}", kv[f], jstate["dec"][f], i
     for i, st in enumerate(state.get("rwkv", ())):
         for f in ("wkv", "shift_tm", "shift_cm"):
             yield f"rwkv.{f}{i}", getattr(st, f), jstate["rwkv"][f], i
@@ -345,13 +351,15 @@ def _state_pairs(state, jstate):
 
 
 def _leaves_per_layer(cfg) -> int:
-    """(k, v), (h, conv), or an SSM layer's (wkv, shift_tm, shift_cm)."""
-    return 3 if cfg.family == "ssm" else 2
+    """(k, v), (h, conv), an SSM layer's (wkv, shift_tm, shift_cm), or an
+    enc-dec layer's (k, v, xk, xv)."""
+    return {"ssm": 3, "encdec": 4}.get(cfg.family, 2)
 
 
 def _in_place_caches(state) -> list:
-    """The KV caches a decode step writes in place (none for SSM)."""
-    return list(state.get("kv") or state.get("macro_kv") or ())
+    """The key caches a decode step writes in place (none for SSM)."""
+    return [kv.k for kv in state.get("kv") or state.get("macro_kv") or ()] \
+        + [kv["k"] for kv in state.get("dec", ())]
 
 
 def _tb(batch, drop=()):
@@ -399,7 +407,7 @@ def test_prefill_and_decode_match_reference(zoo, which):
     assert len(pairs) == _leaves_per_layer(cfg) * cfg.n_layers
     for _, got, want, i in pairs:
         _close(got, want[i], 1e-4)
-    caches = [kv.k for kv in _in_place_caches(state)]
+    caches = _in_place_caches(state)
     for step in range(3):
         tok = batch["tokens"][:, step:step + 1]
         jlogits, jstate = jm.decode(jparams, jnp.asarray(tok), jstate, jp)
@@ -410,8 +418,8 @@ def test_prefill_and_decode_match_reference(zoo, which):
         for _, got, want, i in _state_pairs(state, jstate):
             _close(got, want[i], 1e-4)
     # the KV caches are updated in place
-    assert all(kv.k is k for kv, k in zip(
-        _in_place_caches(state), caches, strict=True))
+    assert all(a is b for a, b in zip(_in_place_caches(state), caches,
+                                      strict=True))
 
 
 @pytest.mark.parametrize("which", ["loss", "prefill"])
@@ -494,17 +502,6 @@ def test_init_draws_the_reference_distributions():
     n = sum(p.numel() for p in params.parameters())
     assert n == cfg.param_count() + 2 * cfg.d_model * cfg.n_layers + \
         cfg.d_model                          # + norm scales, uncounted there
-
-
-@pytest.mark.parametrize("arch", ["whisper_small"])
-def test_unported_family_raises(arch):
-    cfg = tbase.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 4"):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        from repro_torch.models.transformer import init_params
-        init_params(cfg, device="cpu")
 
 
 def test_model_from_jax_rejects_bad_trees():

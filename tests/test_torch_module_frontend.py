@@ -3,7 +3,7 @@ graphs for all ten architectures, chromosome decoding, and the static-cost
 search (same GA history and best chromosome from the same seed); plus the
 export frontend over a whole reduced model's prefill, however the target
 holds its modules (a lambda, a ``functools.partial``, a bound method), and
-over the MoE (OLMoE) and SSM (RWKV-6) prefills."""
+over the MoE (OLMoE), SSM (RWKV-6) and enc-dec (Whisper) prefills."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -358,3 +358,112 @@ def test_forced_family_prefill_binds_what_the_kernels_take(family_prefill):
         assert chosen == sorted([("rmsnorm", "cuda")] * (4 * n + 1)
                                 + [("softmax_attention", "cuda")] * n)
     assert engine.verify(sub).ok
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec family's prefill: non-causal attention sites
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def whisper_prefill():
+    """The reduced Whisper prefill (2 + 2 layers, 16 frames, 12 tokens)
+    in f32, prepared for planning, and the modules of its sites."""
+    cfg = get_config("whisper_small").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
+    frames = torch.randn(2, cfg.encoder_seq, cfg.d_model, generator=gen)
+    ctx = Offloader(OffloadConfig(device="cpu", options={
+        "example_args": (tokens, frames)})).prepare(
+            lambda tok, fr: model.prefill(params, {"tokens": tok,
+                                                   "frames": fr}, F32))
+    sites = [ctx.graph.by_name(s.region) for s in ctx.coding.sites]
+    modules = {r.name: params.get_submodule(
+        r.meta["module"].removeprefix("params."))
+        for r in sites if r.meta.get("pattern")}
+    return cfg, ctx, sites, modules
+
+
+def test_whisper_prefill_finds_its_norms_and_attention_cores_in_order(
+        whisper_prefill):
+    """2 * L_enc + 1 + 3 * L_dec + 1 ``rmsnorm`` sites and L_enc + 2 *
+    L_dec ``softmax_attention`` sites, in program order: each encoder
+    layer's ln1, attention, ln2; the encoder's final norm; each decoder
+    layer's ln1, self-attention, ln_x, cross-attention, ln2; the final
+    norm.  No norm region holds a position, mask or embedding node."""
+    cfg, _, sites, modules = whisper_prefill
+    matched = [(r.meta["module"], r.meta["pattern"]) for r in sites
+               if r.meta.get("pattern")]
+    want = []
+    for i in range(cfg.n_encoder_layers):
+        want += [(f"params.enc_blocks.{i}.ln1", "rmsnorm"),
+                 (f"params.enc_blocks.{i}.attn", "softmax_attention"),
+                 (f"params.enc_blocks.{i}.ln2", "rmsnorm")]
+    want.append(("params.enc_final_norm", "rmsnorm"))
+    for i in range(cfg.n_layers):
+        want += [(f"params.blocks.{i}.ln1", "rmsnorm"),
+                 (f"params.blocks.{i}.attn", "softmax_attention"),
+                 (f"params.blocks.{i}.ln_x", "rmsnorm"),
+                 (f"params.blocks.{i}.cross", "softmax_attention"),
+                 (f"params.blocks.{i}.ln2", "rmsnorm")]
+    want.append(("params.final_norm", "rmsnorm"))
+    assert matched == want
+    n_norm = sum(p == "rmsnorm" for _, p in matched)
+    assert n_norm == 2 * cfg.n_encoder_layers + 1 + 3 * cfg.n_layers + 1
+    assert len(matched) - n_norm == cfg.n_encoder_layers + 2 * cfg.n_layers
+    causal = [r.meta["module"] for r in sites
+              if r.meta.get("pattern") == "softmax_attention"
+              and modules[r.name].causal]
+    assert causal == [f"params.blocks.{i}.attn" for i in range(cfg.n_layers)]
+    for r in sites:
+        if r.meta.get("pattern") == "rmsnorm":
+            assert not any(n.startswith(("embedding", "arange", "full"))
+                           for n in r.meta["nodes"])
+
+
+def _whisper_bits(sites, pick) -> tuple:
+    return tuple(pick(r) if r.meta.get("pattern") else 0 for r in sites)
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+def test_whisper_plan_on_the_causal_sites_verifies(whisper_prefill, variant):
+    """``fused_torch`` (1) or ``cuda`` (2) at every norm and every causal
+    (decoder self-) attention, ``ref`` at the non-causal ones: every chosen
+    site binds and the program verifies (on the CPU the kernel wrappers
+    take their plain versions)."""
+    cfg, ctx, sites, modules = whisper_prefill
+    engine = ctx.bundle.context["engine"]
+
+    def pick(r):
+        m = modules[r.name]
+        return variant if getattr(m, "causal", True) else 0
+
+    sub = engine.substitute(ctx.coding.decode(_whisper_bits(sites, pick)))
+    chosen = sorted(c.chosen for c in sub.report.choices if c.pattern)
+    name = ("fused_torch", "cuda")[variant - 1]
+    n_ref = cfg.n_encoder_layers + cfg.n_layers
+    assert chosen == sorted([name] * (len(modules) - n_ref)
+                            + ["ref"] * n_ref)
+    assert engine.verify(sub).ok
+
+
+@pytest.mark.parametrize("site", ["params.enc_blocks.0.attn",
+                                  "params.blocks.1.cross"])
+def test_whisper_fused_attention_at_a_non_causal_site_fails_verification(
+        whisper_prefill, site):
+    """Both packages' attention binders compute a causal attention
+    whatever the region's mask: ``fused_torch`` alone at an encoder or a
+    cross-attention site binds, runs, and fails verification (it does not
+    raise)."""
+    _, ctx, sites, _ = whisper_prefill
+    engine = ctx.bundle.context["engine"]
+    bits = _whisper_bits(sites,
+                         lambda r: 1 if r.meta["module"] == site else 0)
+    assert sum(bits) == 1
+    sub = engine.substitute(ctx.coding.decode(bits))
+    assert [c.chosen for c in sub.report.choices
+            if c.chosen != "ref"] == ["fused_torch"]
+    v = engine.verify(sub)
+    assert not v.ok and v.max_abs > 1e-2

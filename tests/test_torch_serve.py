@@ -1,5 +1,6 @@
 """The port's serving loop against the reference ``Server`` on the CPU:
-greedy tokens on a reduced Qwen3, RecurrentGemma, OLMoE and RWKV-6 in f32
+greedy tokens on a reduced Qwen3, RecurrentGemma, OLMoE, RWKV-6 and
+Whisper in f32
 (weights from the reference's ``init_params`` through ``model_from_jax``),
 plan hot-swap, the traffic rate, seeded temperature sampling, and the
 parameters cast once per plan (keeping the leaves the reference reads in
@@ -236,3 +237,38 @@ def test_family_cast_keeps_the_leaves_read_in_f32(served_family):
     out = Server(model, params, REFERENCE_PLAN).generate(
         {"tokens": batch["tokens"]}, 3)
     assert out.shape == (2, 3)
+
+
+@pytest.fixture(scope="module")
+def served_whisper():
+    """A reduced Whisper (2 + 2 layers, 16 frames), 3 requests of 4 prompt
+    tokens (a start-of-transcript prefix's length) over random frames."""
+    jcfg = jget_config("whisper_small").reduced()
+    cfg = get_config("whisper_small").reduced()
+    jm, model = jbuild_model(jcfg), build_model(cfg)
+    jparams = jm.init(jax.random.key(0))
+    params = model_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg,
+                            device="cpu")
+    rng = np.random.default_rng(4)
+    inputs = {"tokens": rng.integers(0, cfg.vocab, size=(3, 4))
+              .astype(np.int32),
+              "frames": rng.normal(size=(3, cfg.encoder_seq, cfg.d_model))
+              .astype(np.float32)}
+    return model, params, jm, jparams, inputs
+
+
+@pytest.mark.parametrize("which", ["reference", "offload"])
+def test_whisper_greedy_tokens_equal_the_reference_server(served_whisper,
+                                                          which):
+    """8 greedy tokens: the frames encoded once in prefill, the cross
+    caches read by every decode step, under ``REFERENCE_PLAN`` and
+    ``OFFLOAD_PLAN`` in f32."""
+    model, params, jm, jparams, inputs = served_whisper
+    plan, jplan = {"reference": (F32, JF32),
+                   "offload": (OFFLOAD_PLAN.replace(compute_dtype="float32"),
+                               JOFF.replace(compute_dtype="float32"))}[which]
+    want = JServer(jm, jparams, jplan).generate(
+        {k: jnp.asarray(v) for k, v in inputs.items()}, 8)
+    got = Server(model, params, plan).generate(
+        {k: torch.from_numpy(v) for k, v in inputs.items()}, 8)
+    np.testing.assert_array_equal(got, np.asarray(want))
