@@ -141,7 +141,29 @@ Phases, in order; any failure exits non-zero before the last line:
    the parent commit ran it (the reference as f64 host arrays, the
    candidate copied over; ``verify_host_s``), and the path's peak device
    memory is printed;
-4. a ``{"kernels": [...]}`` line (each RMSNorm and RG-LRU entry carries its
+4. phase T, training (no hand kernel lies on it: the reference trains
+   through the jnp twin of the flash kernel, ``_flash``'s custom VJP):
+
+   - T1: the chunked attention's custom backward (the ``_Flash`` autograd
+     Function) against autograd through the materialized ``attend_naive``
+     at path M's attention shape, (2, 2048, 16 / 8 heads, 128) f32 causal,
+     chunks of 128: dq, dk, dv within 1e-4, each one's forward+backward
+     time (CUDA events) and peak device memory; the Function's must be
+     the lower;
+   - T2: one train step of Qwen3-0.6B at full width and 2 layers under the
+     launcher's plan, batch 2 x 256, on the card and on the CPU, TF32 off:
+     loss, gradient norm, first moments and updates must agree;
+   - T3: the launcher's ``_run`` on the whole Qwen3-0.6B (28 layers, f32,
+     random weights from seed 0): 6 steps of 4 x 2048 tokens in 2
+     microbatches, checkpoints every 4 steps under ``build/``; six finite
+     losses, the last below the first; s/step (median of steps 2-6),
+     tokens/s, peak device memory, each checkpoint's bytes and seconds,
+     and one step's device time and idle share (``torch.profiler``);
+   - T4: ``_run`` again with ``--resume --steps 8``: it restores step 4
+     and its replayed steps 4 and 5 must match T3's losses within 1e-4
+     relative; the checkpoints are deleted after;
+
+5. a ``{"kernels": [...]}`` line (each RMSNorm and RG-LRU entry carries its
    per-shape rows beside the path sums), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -950,10 +972,9 @@ def whisper_sites(cfg) -> list:
 
 def free_models() -> None:
     """Drop the full-depth model kept on the card, so the next path's peak
-    memory is its own.  Dynamo's caches are reset too: the export of a
-    program with a ``scan`` (paths R, W, H, F) leaves them holding the
-    program, its modules and their weights, until ``torch._dynamo.reset``
-    (``ROADMAP.md`` §3)."""
+    memory is its own.  Dynamo's caches are reset too: the export frontend
+    releases what its exports compiled (``ROADMAP.md`` §3 item 6), and the
+    reset drops what the scans run eagerly (serving) compiled."""
     _model_f32.cache_clear()
     torch._dynamo.reset()
     gc.collect()
@@ -1547,6 +1568,214 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase T: training
+# ---------------------------------------------------------------------------
+
+#: T1: path M's attention, (batch, seq, q heads, kv heads, head dim), at
+#: the launcher's 128-key chunks
+T1_SHAPE = (BATCH, SEQ, 16, 8, 128)
+T_CHUNK = 128
+#: T2: the train step at full width, 2 layers, batch 2 x 256
+T2_LAYERS, T2_BATCH, T2_SEQ = 2, 2, 256
+T_LR = 1e-3
+#: T3/T4: the launcher on the whole Qwen3-0.6B, 4 x 2048 tokens a step
+T3_BATCH, T3_SEQ = 4, SEQ
+T3_ARGS = ["--arch", "qwen3_0_6b", "--no-reduced", "--seq-len", str(T3_SEQ),
+           "--global-batch", str(T3_BATCH), "--microbatch", "2",
+           "--ckpt-every", "4"]
+T3_STEPS, T4_STEPS = 6, 8
+
+
+def train_flash_backward(dev) -> dict:
+    """T1: the chunked attention's custom backward (``_Flash``) against
+    autograd through the materialized ``attend_naive`` at path M's
+    attention shape, f32, causal: dq, dk and dv within 1e-4, each path's
+    forward+backward time (CUDA events, median of 5) and its peak device
+    memory above what was allocated before it."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.plan import ExecPlan
+
+    b, s, hq, hkv, d = T1_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+    q = torch.randn(b, s, hq, d, generator=gen).to(dev)
+    k, v = (torch.randn(b, s, hkv, d, generator=gen).to(dev)
+            for _ in range(2))
+    do = torch.randn(b, s, hq, d, generator=gen).to(dev)
+    plan = ExecPlan(compute_dtype="float32", attn_kv_chunk=T_CHUNK)
+    pos = torch.arange(s, device=dev)
+
+    def fwd_bwd(fn):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*xs, pos, pos, True, 0, plan)
+        return torch.autograd.grad(out, xs, do)
+
+    res, grads = {}, {}
+    for name, fn in (("flash", A.attend_chunked), ("naive", A.attend_naive)):
+        fwd_bwd(fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads[name] = fwd_bwd(fn)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        spans = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fwd_bwd(fn)
+            end.record()
+            end.synchronize()
+            spans.append(start.elapsed_time(end))
+        res[name] = {"fwd_bwd_ms": statistics.median(spans),
+                     "peak_bytes": peak}
+    res["max_abs_err"] = {
+        f"d{n}": compare(f"T1 d{n}", g, w, 1e-4)
+        for n, g, w in zip("qkv", grads["flash"], grads["naive"])}
+    check(res["flash"]["peak_bytes"] < res["naive"]["peak_bytes"],
+          "T1: the custom backward's peak memory is not below the "
+          "materialized path's")
+    res["shape"] = {"batch_seq_hq_hkv_d": list(T1_SHAPE), "chunk": T_CHUNK,
+                    "dtype": "float32", "causal": True}
+    return res
+
+
+def train_step_card_vs_cpu(dev) -> dict:
+    """T2: one train step of Qwen3-0.6B at full width and 2 layers under
+    the launcher's plan, batch 2 x 256 of the launcher's synthetic data,
+    on the card and on the CPU from the same weights, at a constant lr of
+    1e-3 (the launcher's schedule gives 0 at step 0), TF32 off: loss and
+    gradient norm within 1e-5 relative, every first moment within 1e-4 of
+    its norm, every parameter's update within 1e-2 of the CPU update's
+    norm (the first AdamW step moves an element by lr * g / (|g| + eps):
+    where |g| is within rounding of eps the devices' moves differ by a
+    good part of lr, in a few elements)."""
+    import dataclasses
+
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.train import launcher_plan
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "T2: TF32 is on")
+    cfg = dataclasses.replace(get_config("qwen3_0_6b"), n_layers=T2_LAYERS)
+    model = build_model(cfg)
+    plan, _ = launcher_plan(cfg)
+    batch = SyntheticLMDataset(DataConfig(
+        seq_len=T2_SEQ, global_batch=T2_BATCH, vocab=cfg.vocab,
+        seed=0)).batch(0)
+    out = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        state = init_train_state(model, torch.Generator().manual_seed(SEED),
+                                 device=dev if where == "cuda" else "cpu")
+        if where == "cpu":
+            before = [p.detach().clone() for p in state.params.parameters()]
+        step = make_train_step(model, plan, OptimizerConfig(),
+                               lambda s: torch.full((), T_LR))
+        tb = {k: torch.from_numpy(x).to(state.opt.step.device)
+              for k, x in batch.items()}
+        state, metrics = step(state, tb)
+        float(metrics["loss"])
+        out[where] = (state, metrics, time.perf_counter() - t0)
+    (gs, gm, gt), (cs, cm, ct) = out["cuda"], out["cpu"]
+    res = {"layers": T2_LAYERS, "batch": [T2_BATCH, T2_SEQ],
+           "seconds": {"cuda": gt, "cpu": ct}}
+    for key in ("loss", "grad_norm"):
+        got, want = float(gm[key]), float(cm[key])
+        check(abs(got - want) <= 1e-5 * abs(want),
+              f"T2: {key} {got} on the card, {want} on the CPU")
+        res[key] = {"cuda": got, "cpu": want}
+    worst_p, worst_mu = 0.0, 0.0
+    for (name, p), w, w0 in zip(gs.params.named_parameters(),
+                                cs.params.parameters(), before):
+        err = ((p.detach().cpu() - w.detach()).norm()
+               / (w.detach() - w0).norm()).item()
+        check(err <= 1e-2, f"T2: the update of {name} is off by {err} of "
+                           f"its norm")
+        mu, wmu = gs.opt.mu[name].cpu(), cs.opt.mu[name]
+        rel = ((mu - wmu).norm() / wmu.norm().clamp(min=1e-30)).item()
+        check(rel <= 1e-4, f"T2: first moment of {name} off by {rel}")
+        worst_p, worst_mu = max(worst_p, err), max(worst_mu, rel)
+    res.update(max_update_rel_err=worst_p, max_mu_rel_err=worst_mu)
+    return res
+
+
+def train_launcher(dev, ckpt_dir: Path) -> dict:
+    """T3 and T4: the launcher's ``_run`` on the whole Qwen3-0.6B (28
+    layers, f32) for 6 steps of 4 x 2048 tokens in 2 microbatches,
+    checkpoints every 4 steps under ``ckpt_dir``, then ``--resume --steps
+    8``, which restores step 4 and replays steps 4 and 5."""
+    from repro_torch.launch import train as launch
+
+    res = {"free_disk_bytes_before": shutil.disk_usage(ckpt_dir).free}
+    print("T: free disk before T3:", res["free_disk_bytes_before"],
+          flush=True)
+    argv = T3_ARGS + ["--ckpt-dir", str(ckpt_dir)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = launch._run(launch.parse_args(argv + ["--steps", str(T3_STEPS)]))
+    torch.cuda.synchronize()
+    losses, secs = run.report.losses, run.report.step_seconds
+    check(len(losses) == T3_STEPS and all(map(math.isfinite, losses)),
+          f"T3: losses {losses}")
+    check(losses[-1] < losses[0], f"T3: loss did not fall: {losses}")
+    s_step = statistics.median(secs[1:])
+    t3 = {"seconds": time.perf_counter() - t0,
+          "plan_updates": run.plan_updates,
+          "remat": run.plan.remat, "microbatch": run.plan.microbatch,
+          "n_params": sum(p.numel() for p in run.state.params.parameters()),
+          "losses": losses, "step_seconds": secs,
+          "s_per_step_median_2_6": s_step, "tokens_per_s": T3_BATCH * T3_SEQ / s_step,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "checkpoint_saves": run.ckpt.saves}
+    print("T3:", json.dumps(t3), flush=True)
+    batch = run.batch_fn(T3_STEPS)
+    t3["one_step"] = where_time_goes(
+        lambda: run.step_fn(run.state, batch), (), 1)
+    print("T3 one step:", json.dumps(t3["one_step"]), flush=True)
+    del run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    again = launch._run(launch.parse_args(
+        argv + ["--steps", str(T4_STEPS), "--resume"]))
+    check(again.start_step == 4, f"T4: resumed from {again.start_step}")
+    replay = again.report.losses[:2]
+    for got, want in zip(replay, losses[4:6], strict=True):
+        check(abs(got - want) <= 1e-4 * abs(want),
+              f"T4: replayed loss {got}, T3's {want}")
+    t4 = {"seconds": time.perf_counter() - t0,
+          "restore_s": again.restore_s, "losses": again.report.losses,
+          "replayed": replay, "t3_steps_4_5": losses[4:6],
+          "checkpoint_saves": again.ckpt.saves}
+    print("T4:", json.dumps(t4), flush=True)
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"T3": t3, "T4": t4}
+
+
+def phase_train(dev) -> dict:
+    """Phase T; the checkpoints live under ``build/`` and are deleted
+    after, whatever happens."""
+    t0 = time.perf_counter()
+    out = {"T1": train_flash_backward(dev)}
+    print("T1:", json.dumps(out["T1"]), flush=True)
+    out["T2"] = train_step_card_vs_cpu(dev)
+    print("T2:", json.dumps(out["T2"]), flush=True)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="train-", dir=build.BUILD_DIR))
+    try:
+        out.update(train_launcher(dev, ckpt_dir))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase T: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def where_time_goes(fn, args, iters: int) -> dict:
     """One forward of ``fn``: host wall time (synchronized, no profiler)
     beside the time ``torch.profiler`` records for the device's own
@@ -1717,6 +1946,8 @@ def main() -> int:
                 SERVE_NEW, True, prompt_len=SERVE_PROMPT_X)
     done("serve X")
     free_models()
+    phase_train(dev)
+    done("phase T")
     for name, entry in kernels.items():
         per_path = {label: counts[name] for label, counts in by_path.items()
                     if name in PATHS[label][3]}

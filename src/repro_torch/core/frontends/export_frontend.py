@@ -204,6 +204,41 @@ def _target_name(fn: Any) -> str:
     return getattr(fn, "__name__", type(fn).__name__)
 
 
+class _DynamoEntries:
+    """What dynamo caches from here on, released on request.
+
+    Exporting a ``scan`` compiles its body with ``torch.compile`` (torch's
+    eager path for the operator), and dynamo keeps the compiled code in a
+    cache entry of the code object it traced, and the backend in
+    ``cached_backends``; the backend closes over the export's tracer, and
+    through it the program, its modules and their weights.  ``release``
+    resets the code objects whose cache entries changed since construction
+    (``torch._dynamo.reset_code``: the code this export traced, whether or
+    not dynamo had seen it before) and drops the backends added since;
+    every other compiled code of the caller stays."""
+
+    def __init__(self):
+        from torch._dynamo import convert_frame, eval_frame
+
+        self._seen = convert_frame.input_codes.seen
+        self._entries = eval_frame._debug_get_cache_entry_list
+        self._before = {code: len(self._entries(code))
+                        for code in self._codes()}
+        self._backends = eval_frame.cached_backends
+        self._backend_ids = set(self._backends)
+
+    def _codes(self) -> list:
+        return [code for code in (ref() for ref in self._seen)
+                if code is not None]
+
+    def release(self) -> None:
+        for code in self._codes():
+            if len(self._entries(code)) != self._before.get(code, 0):
+                torch._dynamo.reset_code(code)
+        for key in set(self._backends) - self._backend_ids:
+            del self._backends[key]
+
+
 def _export(root: torch.nn.Module, example_args: tuple, label: str):
     """``torch.export`` of ``root``, refusing a program that calls modules
     when none of its nodes records a module scope: its modules were not
@@ -213,15 +248,19 @@ def _export(root: torch.nn.Module, example_args: tuple, label: str):
     (the fitness runs them under ``no_grad``), the graph is the same, and a
     ``scan`` whose inputs require grad (RWKV-6's bonus ``u`` is a
     parameter) is not traced into a joint forward and backward graph and
-    partitioned, which costs seconds a layer."""
+    partitioned, which costs seconds a layer.  What dynamo cached while
+    exporting is released after (:class:`_DynamoEntries`), so the program
+    does not outlive its caller's references."""
     called: list = []
     handle = torch.nn.modules.module.register_module_forward_pre_hook(
         lambda m, _args: called.append(m) if m is not root else None)
+    traced = _DynamoEntries()
     try:
         with torch.no_grad():
             ep = torch.export.export(root, tuple(example_args))
     finally:
         handle.remove()
+        traced.release()
     # export's own wrappers hold the root, and its graph modules (a scan's
     # body) come from torch; every other call is the program's
     read = sorted({type(m).__name__ for m in called

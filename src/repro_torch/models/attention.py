@@ -8,10 +8,13 @@ for local attention longer than its window), one-token decode against a
 :class:`KVCache` (``attend_decode``, ``cache_update``, ring or linear) and
 the ``attend`` dispatcher.
 
-``attend_chunked`` is forward only here: its custom backward (the
-reference's ``custom_vjp``) becomes a ``torch.autograd.Function`` with
-training.  The reference's sharding constraints and its ``shard_map`` over
-flattened heads have no single-device counterpart and are left out.
+``attend_chunked`` trains through :class:`_Flash`, the reference's
+``_flash`` ``custom_vjp`` as a ``torch.autograd.Function``: its forward
+saves (q, k, v, out, logsumexp) and its backward recomputes the
+probabilities chunk by chunk, so no (Sq, chunk) score tensor is kept for
+the backward.  The reference's sharding constraints, its ``shard_map`` over
+flattened heads and its padding of B*H to the mesh wait for the mesh
+(``ROADMAP.md`` queue 1 item 10).
 
 :class:`Attention` is the submodule the export frontend isolates as the
 attention site.  It takes exactly (q, k, v) after RoPE and qk-norm, with K
@@ -174,8 +177,98 @@ def attend_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# chunked (flash-style) attention, forward
+# chunked (flash-style) attention with a custom backward
+#
+# Plain autograd through the online-softmax loop would keep every chunk's
+# (Sq, ck) scores for the backward.  ``_Flash`` saves (q, k, v, out,
+# logsumexp) and its backward recomputes the probabilities chunk by chunk
+# (the reference's ``_flash_fwd`` / ``_flash_bwd``, attention.py:216-293).
 # ---------------------------------------------------------------------------
+
+
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, window: int, ck: int, out_dtype: torch.dtype,
+               sk_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """q: (BH, Sq, D); k/v: (BH, Sk, D), Sk a multiple of ``ck`` (keys past
+    ``sk_valid`` are padding).  Returns (out in ``out_dtype``, logsumexp
+    (BH, Sq) f32)."""
+    bh, sq, hd = q.shape
+    pq = torch.arange(sq, device=q.device)
+    scale = 1.0 / math.sqrt(hd)
+    m = torch.full((bh, sq), NEG_INF, device=q.device)
+    l = torch.zeros((bh, sq), device=q.device)
+    acc = torch.zeros((bh, sq, hd), device=q.device)
+    for c0 in range(0, k.shape[1], ck):
+        k_j, v_j = k[:, c0:c0 + ck], v[:, c0:c0 + ck]
+        pk = torch.arange(c0, c0 + ck, device=q.device)
+        s = torch.matmul(L.cast(q, torch.float32),
+                         L.cast(k_j, torch.float32).transpose(1, 2)) * scale
+        keep = _mask(pq, pk, causal, window) & (pk < sk_valid)[None, :]
+        s = torch.where(keep[None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.matmul(L.cast(p, k_j.dtype), v_j)
+        acc = acc * corr[..., None] + L.cast(pv, torch.float32)
+        m = m_new
+    l = torch.clamp(l, min=1e-37)
+    return L.cast(acc / l[..., None], out_dtype), m + torch.log(l)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal: bool, window: int, ck: int,
+               sk_valid: int) -> tuple:
+    """(dq, dk, dv) in the inputs' dtypes, from the saved forward and the
+    output cotangent, one KV chunk at a time in f32."""
+    sq, hd = q.shape[1], q.shape[2]
+    pq = torch.arange(sq, device=q.device)
+    scale = 1.0 / math.sqrt(hd)
+    q32, do = L.cast(q, torch.float32), L.cast(dout, torch.float32)
+    delta = torch.sum(do * L.cast(out, torch.float32), dim=-1)   # (BH,Sq)
+    dq = torch.zeros_like(q32)
+    dks, dvs = [], []
+    for c0 in range(0, k.shape[1], ck):
+        k_j = L.cast(k[:, c0:c0 + ck], torch.float32)
+        v_j = L.cast(v[:, c0:c0 + ck], torch.float32)
+        pk = torch.arange(c0, c0 + ck, device=q.device)
+        s = torch.matmul(q32, k_j.transpose(1, 2)) * scale
+        keep = _mask(pq, pk, causal, window) & (pk < sk_valid)[None, :]
+        s = torch.where(keep[None], s, NEG_INF)
+        p = torch.exp(s - lse[..., None])                        # (BH,Sq,ck)
+        dvs.append(torch.matmul(p.transpose(1, 2), do))
+        dp = torch.matmul(do, v_j.transpose(1, 2))
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.matmul(ds, k_j)
+        dks.append(torch.matmul(ds.transpose(1, 2), q32))
+    return (L.cast(dq, q.dtype), L.cast(torch.cat(dks, dim=1), k.dtype),
+            L.cast(torch.cat(dvs, dim=1), v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Flattened-head flash attention with the recomputing backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, ck, out_dtype, sk_valid):
+        out, lse = _flash_fwd(q, k, v, causal, window, ck, out_dtype,
+                              sk_valid)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, ck, sk_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _flash_bwd(*ctx.saved_tensors, dout, *ctx.args) \
+            + (None,) * 5
+
+
+def _flash(q, k, v, causal: bool, window: int, ck: int,
+           out_dtype: torch.dtype, sk_valid: int) -> torch.Tensor:
+    """:class:`_Flash` when a gradient is wanted, else its forward alone
+    (what a planned, ``no_grad`` program exports)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, window, ck, out_dtype, sk_valid)
+    return _flash_fwd(q, k, v, causal, window, ck, out_dtype, sk_valid)[0]
 
 
 def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -184,7 +277,9 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Online softmax over KV chunks of ``plan.attn_kv_chunk`` keys, heads
     flattened to (B*H, S, D).  Positions must be aranges (true for every
     full-sequence caller); a ragged last chunk is padded and its padded
-    keys masked, as in the reference."""
+    keys masked, as in the reference.  K and V are repeated to the query
+    heads before the flattening, so autograd of the repeat sums each
+    group's dk/dv."""
     b, sq, hq, hd = q.shape
     sk = k.shape[1]
     group = hq // k.shape[2]
@@ -197,26 +292,7 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.transpose(1, 2).reshape(b * hq, sq, hd)
     kf = kh.transpose(1, 2).reshape(b * hq, -1, hd)
     vf = vh.transpose(1, 2).reshape(b * hq, -1, hd)
-    pq = torch.arange(sq, device=q.device)
-    scale = 1.0 / math.sqrt(hd)
-    m = torch.full((b * hq, sq), NEG_INF, device=q.device)
-    l = torch.zeros((b * hq, sq), device=q.device)
-    acc = torch.zeros((b * hq, sq, hd), device=q.device)
-    for c0 in range(0, sk + pad, ck):
-        k_j, v_j = kf[:, c0:c0 + ck], vf[:, c0:c0 + ck]
-        pk = torch.arange(c0, c0 + ck, device=q.device)
-        s = torch.matmul(L.cast(qf, torch.float32),
-                         L.cast(k_j, torch.float32).transpose(1, 2)) * scale
-        keep = _mask(pq, pk, causal, window) & (pk < sk)[None, :]
-        s = torch.where(keep[None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        pv = torch.matmul(L.cast(p, k_j.dtype), v_j)
-        acc = acc * corr[..., None] + L.cast(pv, torch.float32)
-        m = m_new
-    out = L.cast(acc / torch.clamp(l, min=1e-37)[..., None], L.cdtype(plan))
+    out = _flash(qf, kf, vf, causal, window, ck, L.cdtype(plan), sk)
     return out.reshape(b, hq, sq, hd).transpose(1, 2)
 
 

@@ -19,12 +19,14 @@ region.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._higher_order_ops.scan import scan
 
 from repro_torch.models.plan import REFERENCE_PLAN, ExecPlan
 
@@ -275,3 +277,23 @@ def cross_entropy_chunked(h: torch.Tensor, table: torch.Tensor,
         picked = torch.gather(lg, -1, rel.clamp(0, lg.shape[-1] - 1)[..., None])
         lbl_logit = torch.where(in_chunk, picked[..., 0], lbl_logit)
     return m + torch.log(ssum) - lbl_logit
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def remat_safe_scan(combine_fn, init, xs) -> tuple:
+    """``torch._higher_order_ops.scan`` that also runs inside an activation
+    checkpoint.  Under autograd a scan traces its joint forward and
+    backward; the saved-tensor hooks of an enclosing checkpoint
+    (``transformer._maybe_remat``) would reach into that trace and recompute
+    the layer on its fake tensors, which fails.  So while autograd records,
+    the scan saves its tensors as they are (identity hooks above the
+    checkpoint's): its residuals are kept, and the rest of the layer is
+    recomputed as the policy says.  Without grad (a forward, an export) it
+    is the plain ``scan``."""
+    hooks = torch.autograd.graph.saved_tensors_hooks(_same, _same) \
+        if torch.is_grad_enabled() else contextlib.nullcontext()
+    with hooks:
+        return scan(combine_fn, init, xs)

@@ -33,9 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch._higher_order_ops.associative_scan import associative_scan
-from torch._higher_order_ops.scan import scan
 
-from repro_torch.models.layers import cast, cdtype, dense_init
+from repro_torch.models.layers import (cast, cdtype, dense_init,
+                                      remat_safe_scan)
 from repro_torch.models.plan import ExecPlan
 
 __all__ = ["LinearRecurrence", "RGLRUState", "conv1d_causal", "rglru_block",
@@ -119,7 +119,7 @@ class LinearRecurrence(nn.Module):
         if h0 is None:
             h0 = torch.zeros(log_a.shape[1:], dtype=log_a.dtype,
                              device=log_a.device)
-        h_last, hs = scan(step, h0, (log_a, b))
+        h_last, hs = remat_safe_scan(step, h0, (log_a, b))
         return hs, h_last
 
 

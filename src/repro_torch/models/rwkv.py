@@ -31,7 +31,6 @@ from typing import Mapping, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch._higher_order_ops.scan import scan
 
 from repro_torch.models import layers as L
 from repro_torch.models.plan import ExecPlan
@@ -164,7 +163,8 @@ class WKVRecurrence(nn.Module):
 
     def forward(self, xs: tuple, u: torch.Tensor, s0: torch.Tensor,
                 chunked: bool = False) -> tuple:
-        return scan((_wkv_chunk if chunked else _wkv_step)(u), s0, xs)
+        return L.remat_safe_scan((_wkv_chunk if chunked else _wkv_step)(u),
+                                 s0, xs)
 
 
 def wkv_step_scan(r, k, v, log_w, u, s0, recurrence: WKVRecurrence) -> tuple:

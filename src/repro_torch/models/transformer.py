@@ -31,9 +31,10 @@ layers::
 ``rwkv`` as ``{"wkv", "shift_tm", "shift_cm"}`` stacked).  A decode step
 writes each KV cache in place (the reference's donated state), returns new
 RG-LRU and RWKV states, and ``cache_len + 1``.  The enc-dec family lives
-in ``whisper.py``.  The plan's ``remat``, ``gather_mode`` and
-``gather_dtype`` knobs shape the reference's training step and sharding; a
-forward here reads none of them.
+in ``whisper.py``.  The plan's ``remat`` checkpoints each layer body
+where the reference's ``_maybe_remat`` does, whenever autograd records
+(:func:`_maybe_remat`); ``gather_mode`` and ``gather_dtype`` shape the
+reference's sharding and wait for the mesh.
 
 ``RMSNorm``, ``LayerNorm``, ``Attention``, the MoE's ``Router``, the
 RG-LRU's ``LinearRecurrence`` and RWKV's ``WKVRecurrence`` are
@@ -43,11 +44,14 @@ layout.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (Attention, KVCache, attend_decode,
@@ -68,6 +72,43 @@ __all__ = ["DenseBlock", "INIT_STD", "LMParams", "RWKVBlock",
 #: weight init std of the ``scaled`` block init: Qwen3's published
 #: ``initializer_range``
 INIT_STD = 0.02
+
+
+#: the ops whose outputs the ``dots`` policy saves: the 2-D matmuls (a
+#: projection of (B, S, d) activations lowers to one), the reference's
+#: ``dots_with_no_batch_dims_saveable``; batched ``bmm`` is recomputed
+_SAVED_BY_DOTS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    """The selective-checkpoint contexts of the ``dots`` policy.  They are
+    told they may see higher-order operators: a ``scan`` (the RG-LRU
+    ``step`` and RWKV scans) then reaches the policy as one op and is
+    recomputed whole, where the stock contexts raise."""
+    contexts = create_selective_checkpoint_contexts(_save_dots)
+    for mode in contexts:
+        mode.supports_higher_order_operators = True
+    return contexts
+
+
+def _maybe_remat(fn, plan: ExecPlan):
+    """``fn`` checkpointed under ``plan.remat`` while autograd records (the
+    reference's ``_maybe_remat``): ``"none"`` keeps every activation,
+    ``"dots"`` keeps the matmul outputs and recomputes the rest, ``"full"``
+    keeps only the inputs.  Without grad (a forward, an export) ``fn`` runs
+    as it is."""
+    if plan.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if plan.remat == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=_dots_contexts)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def check_family(cfg) -> None:
@@ -327,14 +368,15 @@ def forward_full(params: LMParams, x: torch.Tensor, cfg, plan: ExecPlan,
     if cfg.family == "ssm":
         states = []
         for blk in params.blocks:
-            x, st = blk(x, plan)
+            x, st = _maybe_remat(blk, plan)(x, plan)
             states.append(st)
         return x, aux, ({"rwkv": states} if want_cache else {})
     moe = cfg.moe is not None
     caches = []
     for blk in params.blocks:
-        out = blk(x, plan, positions=positions, with_aux=moe,
-                  cache_capacity=cache_capacity if want_cache else None)
+        out = _maybe_remat(blk, plan)(
+            x, plan, positions=positions, with_aux=moe,
+            cache_capacity=cache_capacity if want_cache else None)
         out = out if isinstance(out, tuple) else (out,)
         x = out[0]
         if want_cache:
@@ -354,16 +396,8 @@ def _hybrid_full(params: LMParams, x: torch.Tensor, cfg, plan: ExecPlan,
         pre.append(st)
     macro_rglru, macro_kv = [], []
     for blk in params.blocks:
-        states, kv = {}, None
-        for j, kind in enumerate(cfg.block_pattern):
-            sub = blk[f"sub{j}"]
-            if kind == "rglru":
-                x, states[f"rglru{j}"] = sub(x, plan, with_state=True)
-            elif want_cache:
-                x, kv = sub(x, plan, positions=positions,
-                            cache_capacity=cfg.local_window)
-            else:
-                x = sub(x, plan, positions=positions)
+        x, states, kv = _maybe_remat(_hybrid_macro, plan)(
+            blk, x, cfg, plan, positions, want_cache)
         macro_rglru.append(states)
         macro_kv.append(kv)
     if not want_cache:
@@ -372,6 +406,24 @@ def _hybrid_full(params: LMParams, x: torch.Tensor, cfg, plan: ExecPlan,
     if pre:
         caches["pre_rglru"] = pre
     return x, caches
+
+
+def _hybrid_macro(blk: nn.ModuleDict, x: torch.Tensor, cfg, plan: ExecPlan,
+                  positions: torch.Tensor, want_cache: bool) -> tuple:
+    """One macro block's sublayers in ``block_pattern`` order (the
+    reference's ``_hybrid_macro_full``): (x, {"rglru{j}": RGLRUState},
+    the local attention's ring cache or None)."""
+    states, kv = {}, None
+    for j, kind in enumerate(cfg.block_pattern):
+        sub = blk[f"sub{j}"]
+        if kind == "rglru":
+            x, states[f"rglru{j}"] = sub(x, plan, with_state=True)
+        elif want_cache:
+            x, kv = sub(x, plan, positions=positions,
+                        cache_capacity=cfg.local_window)
+        else:
+            x = sub(x, plan, positions=positions)
+    return x, states, kv
 
 
 # ---------------------------------------------------------------------------

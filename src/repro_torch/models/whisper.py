@@ -42,6 +42,7 @@ from repro_torch.models.attention import (Attention, KVCache, attend_decode,
                                           attn_init, cache_update, project_kv,
                                           project_q, project_qkv)
 from repro_torch.models.plan import ExecPlan
+from repro_torch.models.transformer import _maybe_remat
 
 __all__ = ["DecoderBlock", "EncoderBlock", "WhisperParams", "decode_step",
            "decoder_forward", "encode", "init_params", "lm_loss", "prefill",
@@ -226,7 +227,7 @@ def encode(params: WhisperParams, cfg, plan: ExecPlan,
     pe = sinusoid_positions(t_enc, cfg.d_model, device=frames.device)
     x = L.cast(frames, dt) + L.cast(pe, dt)
     for blk in params.enc_blocks:
-        x = blk(x, plan, positions)
+        x = _maybe_remat(blk, plan)(x, plan, positions)
     return params.enc_final_norm(x, plan)
 
 
@@ -246,12 +247,13 @@ def decoder_forward(params: WhisperParams, cfg, plan: ExecPlan,
     x = L.embed_tokens(tokens, params.embed, plan, False) + L.cast(pe, dt)
     caches = []
     for blk in params.blocks:
+        body = _maybe_remat(blk, plan)
         if want_cache:
-            x, cache = blk(x, enc_out, plan, positions, enc_pos,
-                           cache_capacity)
+            x, cache = body(x, enc_out, plan, positions, enc_pos,
+                            cache_capacity)
             caches.append(cache)
         else:
-            x = blk(x, enc_out, plan, positions, enc_pos)
+            x = body(x, enc_out, plan, positions, enc_pos)
     return x, (caches if want_cache else None)
 
 

@@ -1,2 +1,2 @@
-"""Port of ``repro/obs``: tracing spans and the metrics registry
-(framework-free copies; the logging setup is not ported yet)."""
+"""Port of ``repro/obs``: tracing spans, the metrics registry and the
+launchers' logging setup (framework-free copies)."""

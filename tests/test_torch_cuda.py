@@ -765,3 +765,111 @@ def test_whisper_forced_plan_on_card_matches_the_cpu(cuda):
         for f in ("k", "v", "xk", "xv"):
             torch.testing.assert_close(kv[f].cpu(), want[f], atol=1e-4,
                                        rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_matches_materialized_attention_on_card(cuda, causal):
+    """The chunked attention's custom backward (``_Flash``) against autograd
+    through the materialized path (``attend_naive``), f32 with TF32 off,
+    GQA (4 query / 2 KV heads), a ragged last chunk when non-causal."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.plan import ExecPlan
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    b, sq, sk, hq, hkv, d = 2, 256, 256 if causal else 200, 4, 2, 64
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(b, sq, hq, d, generator=g)
+    k, v = (torch.randn(b, sk, hkv, d, generator=g) for _ in range(2))
+    do = torch.randn(b, sq, hq, d, generator=g)
+    plan = ExecPlan(compute_dtype="float32", attn_kv_chunk=64)
+    grads = {}
+    for name, fn in (("chunked", A.attend_chunked), ("naive", A.attend_naive)):
+        xs = [x.to(cuda).requires_grad_() for x in (q, k, v)]
+        out = fn(*xs, torch.arange(sq, device=cuda),
+                 torch.arange(sk, device=cuda), causal, 0, plan)
+        grads[name] = (out,) + torch.autograd.grad(out, xs, do.to(cuda))
+    for got, want in zip(grads["chunked"], grads["naive"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _train_step_on(device, arch, over):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import launcher_plan
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    plan = launcher_plan(cfg, microbatch=2)[0].replace(
+        attn_kv_chunk=16, rglru_chunk=8, wkv_chunk=8, **over)
+    state = init_train_state(model, torch.Generator().manual_seed(0),
+                             device=device)
+    before = {k: p.detach().cpu().clone()
+              for k, p in state.params.named_parameters()}
+    batch = model.demo_batch(torch.Generator().manual_seed(1), 4, 40,
+                             device=device)
+    step = make_train_step(model, plan, OptimizerConfig(),
+                           lambda s: torch.full((), 1e-3))
+    return (before,) + step(state, batch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,over", [
+    ("qwen3_0_6b", {}),
+    ("recurrentgemma_2b", {"rglru_impl": "chunked"}),     # associative_scan
+    ("recurrentgemma_2b", {"rglru_impl": "step"}),        # scan
+    ("rwkv6_3b", {"wkv_impl": "chunked"}),                # scan
+], ids=["dense", "hybrid_assoc", "hybrid_step", "ssm"])
+def test_train_step_on_card_matches_cpu(cuda, arch, over):
+    """One reduced train step (microbatch 2, remat ``dots``, the scans'
+    autograd under the checkpoint) on the card against the CPU: loss and
+    gradient norm within 1e-5 relative, each first moment within 1e-4 of
+    its norm, each parameter's update within 1e-2 of the CPU update's
+    norm.  (The first AdamW step moves an element by lr * g / (|g| + eps):
+    where |g| is within rounding of eps the two devices' moves differ by a
+    good part of lr, in a few elements of a leaf.)"""
+    p0, got_state, got = _train_step_on(cuda, arch, over)
+    _, want_state, want = _train_step_on("cpu", arch, over)
+    for k in ("loss", "grad_norm"):
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-5), k
+    for (k, p), w in zip(got_state.params.named_parameters(),
+                         want_state.params.parameters()):
+        moved = float((w.detach() - p0[k]).norm())
+        assert float((p.detach().cpu() - w.detach()).norm()) \
+            <= 1e-2 * moved, k
+        m, wm = got_state.opt.mu[k].cpu(), want_state.opt.mu[k]
+        assert float((m - wm).norm()) <= 1e-4 * float(wm.norm()) + 1e-9, k
+
+
+@pytest.mark.gpu
+def test_scan_export_releases_the_program_on_card(cuda):
+    """The export frontend's release of what dynamo cached, on this
+    machine's torch: a reduced hybrid model's parameters on the card die
+    once the caller drops them."""
+    import gc
+    import weakref
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.frontends.export_frontend import build_graph
+    from repro_torch.models import build_model
+    from repro_torch.models.plan import ExecPlan
+
+    cfg = get_config("recurrentgemma_2b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    plan = ExecPlan(compute_dtype="float32")
+    tokens = torch.randint(0, cfg.vocab, (1, 16)).to(cuda)
+    alive = weakref.ref(params.embed)
+    graph = build_graph(lambda t: model.prefill(params, {"tokens": t}, plan),
+                        tokens)
+    assert sum(r.kind == "loop" for r in graph.regions) == 2
+    del graph, params
+    gc.collect()
+    assert alive() is None

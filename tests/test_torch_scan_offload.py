@@ -470,3 +470,35 @@ def test_recurrence_site_folds_only_the_zeros_it_builds(sublayer, with_state):
     for got, want in ((y, want_y), (st.h, want_st.h),
                       (st.conv, want_st.conv)):
         torch.testing.assert_close(got, want, **TOL["linear_recurrence"])
+
+
+# ---------------------------------------------------------------------------
+# an exported scan program does not outlive its caller's references
+# ---------------------------------------------------------------------------
+
+
+def test_scan_export_releases_the_program():
+    """Exporting a scan compiles its body through ``torch.compile``, and
+    dynamo's caches of that compile held the export's tracer, the program,
+    its modules and their weights until a global ``torch._dynamo.reset()``.
+    The export frontend now releases what it traced: a reduced hybrid
+    model's parameter dies once the caller drops its references."""
+    import gc
+    import weakref
+
+    from repro_torch.models import build_model
+    from repro_torch.models.plan import ExecPlan
+
+    cfg = tget("recurrentgemma_2b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    plan = ExecPlan(compute_dtype="float32")            # the step scan
+    tokens = torch.randint(0, cfg.vocab, (1, 16),
+                           generator=torch.Generator().manual_seed(1))
+    alive = weakref.ref(params.embed)
+    graph = build_graph(lambda t: model.prefill(params, {"tokens": t}, plan),
+                        tokens)
+    assert sum(r.kind == "loop" for r in graph.regions) == 2
+    del graph, params
+    gc.collect()
+    assert alive() is None
