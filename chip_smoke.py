@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero before the last line:
    768) and (2, 768) f32 on the generic loop, and flash at the encoder's
    and the cross-attention's non-causal shapes, (2, 1500 / 448 queries,
    1500 keys, 12 heads of 64) in f32 and bf16, which no path binds yet;
-   and a few edge cases), with its time (CUDA events, median
+   phase P's: flash at (1, 8, 1 / 1 head, 128) causal, RMSNorm at (128,
+   1024), RG-LRU at (1, 128, 2560) from a nonzero state, all f32; and a
+   few edge cases), with its time (CUDA events, median
    of 25 launches, L2 flushed before each; the plain scan loops, median of
    5), the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one (``library_ms``, timed
@@ -37,6 +39,27 @@ Phases, in order; any failure exits non-zero before the last line:
    bytes under this timing; WKV-6 rows name the design, time each of its
    launches, and run decays at the model's clamp and past it (log_w = -20
    every step);
+P. phase P, numeric Python source through the python_ast frontend
+   (``Offloader.prepare`` + ``search``, which is ``plan``), the launch
+   counters set to 0 before it and read after: the differential suite's
+   three workloads at full width, f32 on the card from float64 inputs,
+   seed 0 -- ``ATTN_SRC`` at qwen3_0_6b's head dim 128 over 8 positions,
+   ``RMS_SRC`` at its d_model 1024 over 128 rows, ``REC_SRC`` at
+   recurrentgemma_2b's RG-LRU width 2560 over 128 steps from a nonzero
+   ``h`` (``reduced``: the positions, rows and steps, which CPython
+   interprets) -- each planned with GA 4 x 2 and repeats 1: the loops and
+   why each excluded one left, the variant menu, the feasibility-check,
+   calibration and search seconds, the winner and its speedup over the
+   interpreted program; then the forced chromosome (``gpu_kernel`` on the
+   variant site) must bind ``cuda``, launch its kernel (flash, RMSNorm,
+   RG-LRU) once a run and verify, with its device launches and idle share
+   and its transfers beside the transfer planner's prediction.  Then
+   ``BLOCK_SRC`` (the suite's size): both ``attention_stack`` block
+   variants verify and launch no hand kernel; and the demo ``app``
+   (``examples/python_offload_demo.py`` at its own sizes): the matmul and
+   DFT nests match, the library adapters run, and every top-level loop run
+   eagerly on the card (one launch a scalar op) verifies, with its launch
+   count;
 3. the main paths, each through ``Offloader.plan`` with the launch
    counters set to 0 just before it and read just after.  Each plan must
    verify; the forced all-kernel plan must bind the CUDA kernels at every
@@ -174,6 +197,7 @@ from __future__ import annotations
 import collections
 import copy
 import ctypes
+import dataclasses
 import functools
 import gc
 import itertools
@@ -190,6 +214,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch._dynamo  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -198,8 +223,10 @@ from torch.utils import _pytree as pytree  # noqa: E402
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.evaluator import MeasurementCache  # noqa: E402
+from repro_torch.core.frontends.ast_frontend import PyOffloadArtifact  # noqa: E402
 from repro_torch.core.ga import GAConfig  # noqa: E402
 from repro_torch.core.offload import OffloadConfig, Offloader  # noqa: E402
+from repro_torch.core.transfer_planner import plan_transfers  # noqa: E402
 from repro_torch.core.verifier import verify  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -216,6 +243,7 @@ from repro_torch.models.attention import Attention  # noqa: E402
 from repro_torch.models.layers import RMSNorm  # noqa: E402
 from repro_torch.models.transformer import (INIT_STD, DenseBlock,  # noqa: E402
                                             RecurrentSublayer)
+from repro_torch.obs.trace import read_trace  # noqa: E402
 from repro_torch.runtime.serve import Server  # noqa: E402
 
 #: H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them,
@@ -672,6 +700,20 @@ def phase_kernels(dev) -> dict:
                                      flush=flush, gen=gen))
         print("rglru    ", json.dumps(rglru_rows[-1]), flush=True)
 
+    # phase P's shapes, f32: the differential suite's python_ast workloads
+    # at full width -- flash over one head of 128 at P's positions, causal;
+    # RMSNorm over P's rows of 1024; RG-LRU over P's steps of 2560 from a
+    # nonzero state (the wrapper's fold), as (1, S, D)
+    p_flash = flash_case(dev, 1, P_SCALE["attention"], P_SCALE["attention"],
+                         1, 1, hd, True, f32, 2e-5, 1e-4, flush, gen)
+    print("flash    ", json.dumps(p_flash), flush=True)
+    p_norm = rmsnorm_case(dev, P_SCALE["rmsnorm"], cfg.d_model, f32, 1e-5,
+                          flush, gen)
+    print("rmsnorm  ", json.dumps(p_norm), flush=True)
+    p_rglru = rglru_case(dev, 1, P_SCALE["recurrence"], rg.d_rnn_resolved,
+                         h0=True, time_major=False, flush=flush, gen=gen)
+    print("rglru    ", json.dumps(p_rglru), flush=True)
+
     path_wkv = wkv6_case(dev, 1, WKV_SEQ, 1, WKV_DIM, log_w=None,
                          flush=flush, gen=gen)
     print("wkv6     ", json.dumps(path_wkv), flush=True)
@@ -722,6 +764,7 @@ def phase_kernels(dev) -> dict:
                 **norm_sums(path_x_norms, norms_x),
                 "shapes": [{k: norms_x[nd][k] for k in row_keys}
                            for nd in sorted(norms_x)]},
+        path_p={"calls_per_run": 1, **{k: p_norm[k] for k in row_keys}},
         shapes=[{k: norms[nd][k] for k in row_keys}
                 for nd in sorted(norms)])
     flash_entry = _entry("flash_attention", path_flash,
@@ -741,7 +784,8 @@ def phase_kernels(dev) -> dict:
                                  **flash_keys(path_x_flash),
                                  "non_causal": [
                                      {**flash_keys(r), "causal": False}
-                                     for r in x_non_causal]})
+                                     for r in x_non_causal]},
+                         path_p={"calls_per_run": 1, **flash_keys(p_flash)})
     rglru_entry = _entry("rglru_scan", path_rglru,
                          replaces="src/repro/kernels/rglru_scan.py:55",
                          path_h={"calls_per_prefill": 2 * (rg.n_layers // 3)
@@ -751,6 +795,10 @@ def phase_kernels(dev) -> dict:
                                  "h0_row": {k: path_h_rglru_h0[k] for k in (
                                      "shape", "route", "max_abs_err", "ms",
                                      "plain_ms", "bound_ms", "bound_by")}},
+                         path_p={"calls_per_run": 1, **{k: p_rglru[k] for k in (
+                             "shape", "h0", "route", "max_abs_err", "ms",
+                             "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}},
                          shape=path_rglru["shape"], design=RGLRU_DESIGN,
                          load_route=path_rglru["route"],
                          forced_routes=path_rglru["forced_routes"],
@@ -1027,6 +1075,10 @@ PATHS = {
     "F": (path_f, (4, 2), PATH_F_SITES, ("rmsnorm",), 1),
     "X": (path_x, (6, 3), PATH_X_SITES, ("flash_attention", "rmsnorm"), 3),
 }
+#: timing repeats of each chromosome (after its warm-up run) on the
+#: full-depth paths, cut from 3 for the run's time: their forwards take
+#: 0.05-3 s, well above the host clock's spread
+PATH_REPEATS = dict.fromkeys("MHEFX", 1)
 #: paths with top-k routing: the reference must repeat bit for bit, and
 #: the forced plan verifies or a routing diagnostic explains why not
 ROUTED = {"E"}
@@ -1143,7 +1195,8 @@ def phase_path(label, dev, scratch: Path) -> tuple:
 
     ga = GAConfig(population=pop, generations=gens, seed=SEED,
                   cache_dir=str(scratch))
-    config = OffloadConfig(device=str(dev), ga=ga, repeats=3,
+    config = OffloadConfig(device=str(dev), ga=ga,
+                           repeats=PATH_REPEATS.get(label, 3),
                            options={"example_args": args},
                            log=lambda s: print(f"  plan {label}:", s,
                                                flush=True))
@@ -1776,6 +1829,390 @@ def phase_train(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase P: numeric Python programs through the python_ast frontend
+# ---------------------------------------------------------------------------
+
+#: the differential suite's numeric-Python workloads
+#: (``tests/test_frontend_differential.py``: ATTN_SRC, RMS_SRC, REC_SRC,
+#: BLOCK_SRC) and the ``app`` of ``examples/python_offload_demo.py``, copied
+#: here because both files import the JAX package
+P_ATTN_SRC = """
+def attn_app(q, k, v, n, d, scale):
+    out = np.zeros((n, d))
+    for i in range(n):
+        m = -1e30
+        for j in range(i + 1):
+            s = 0.0
+            for t in range(d):
+                s = s + q[i][t] * k[j][t]
+            s = s * scale
+            if s > m:
+                m = s
+        z = 0.0
+        for j in range(i + 1):
+            e = 0.0
+            for t in range(d):
+                e = e + q[i][t] * k[j][t]
+            z = z + np.exp(e * scale - m)
+        for t in range(d):
+            acc = 0.0
+            for j in range(i + 1):
+                e = 0.0
+                for u in range(d):
+                    e = e + q[i][u] * k[j][u]
+                acc = acc + np.exp(e * scale - m) / z * v[j][t]
+            out[i][t] = acc
+    return out
+"""
+P_RMS_SRC = """
+def rms_app(x, scale, n, d):
+    out = np.zeros((n, d))
+    for i in range(n):
+        ss = 0.0
+        for t in range(d):
+            ss = ss + x[i][t] * x[i][t]
+        inv = 1.0 / np.sqrt(ss / d + 1e-06)
+        for t in range(d):
+            out[i][t] = x[i][t] * inv * (1.0 + scale[t])
+    return out
+"""
+P_REC_SRC = """
+def rec_app(a, b, h, n, d):
+    out = np.zeros((n, d))
+    for t in range(n):
+        for c in range(d):
+            h[c] = np.exp(a[t][c]) * h[c] + b[t][c]
+            out[t][c] = h[c]
+    return out
+"""
+P_BLOCK_SRC = """
+def attn_stack(x, scale, wq, wk, wv):
+    S = x.shape[0]
+    D = x.shape[1]
+    xn = np.zeros_like(x)
+    q = np.zeros_like(x)
+    k = np.zeros_like(x)
+    v = np.zeros_like(x)
+    out = np.zeros_like(x)
+    for i in range(S):
+        ss = 0.0
+        for j in range(D):
+            ss += x[i, j] * x[i, j]
+        r = 1.0 / math.sqrt(ss / D + 1e-06)
+        for j in range(D):
+            xn[i, j] = x[i, j] * r * (1.0 + scale[j])
+    for i in range(S):
+        for j in range(D):
+            sq = 0.0
+            sk = 0.0
+            sv = 0.0
+            for t in range(D):
+                sq += xn[i, t] * wq[t, j]
+                sk += xn[i, t] * wk[t, j]
+                sv += xn[i, t] * wv[t, j]
+            q[i, j] = sq
+            k[i, j] = sk
+            v[i, j] = sv
+    for i in range(S):
+        m = -1e30
+        for j in range(i + 1):
+            s = 0.0
+            for t in range(D):
+                s += q[i, t] * k[j, t]
+            s = s / math.sqrt(D)
+            if s > m:
+                m = s
+        z = 0.0
+        for j in range(i + 1):
+            s = 0.0
+            for t in range(D):
+                s += q[i, t] * k[j, t]
+            w = math.exp(s / math.sqrt(D) - m)
+            z += w
+            for t in range(D):
+                out[i, t] += w * v[j, t]
+        for t in range(D):
+            out[i, t] = out[i, t] / z
+    return out
+"""
+P_DEMO_SRC = """
+def app(a, b, x, sig_re, sig_im, n, m, k, iters, fftn):
+    c = np.zeros((n, m))
+    for i in range(n):                      # naive O(n^3) matmul
+        for j in range(m):
+            acc = 0.0
+            for t in range(k):
+                acc = acc + a[i, t] * b[t, j]
+            c[i, j] = acc
+    out_re = np.zeros((fftn,))
+    out_im = np.zeros((fftn,))
+    for kk in range(fftn):                  # naive O(n^2) DFT
+        sr = 0.0
+        si = 0.0
+        for t in range(fftn):
+            ang = -2.0 * math.pi * kk * t / fftn
+            sr = sr + sig_re[t] * math.cos(ang) - sig_im[t] * math.sin(ang)
+            si = si + sig_re[t] * math.sin(ang) + sig_im[t] * math.cos(ang)
+        out_re[kk] = sr
+        out_im[kk] = si
+    y = np.zeros((n,))
+    for it in range(iters):                 # iterative vector update
+        y = y + np.tanh(c @ x) * 0.1
+    s = 0.0
+    for i in range(n):                      # small scalar reduction
+        s = s + y[i] * y[i]
+    return c, y, s, out_re, out_im
+"""
+
+#: phase P's widths are published ones (qwen3_0_6b's head_dim and d_model,
+#: recurrentgemma_2b's RG-LRU width); the sequence length / rows are the
+#: scale, cut because CPython interprets the reference program
+#: (attention costs O(n^2 d^2) interpreted)
+P_SCALE = {"attention": 8, "rmsnorm": 128, "recurrence": 128}
+P_REDUCED = {
+    "attention": "sequence 2048 -> 8 (CPython interprets O(n^2 d^2))",
+    "rmsnorm": "rows 4096 -> 128 (CPython interprets every element)",
+    "recurrence": "steps 2048 -> 128 (CPython interprets every element)"}
+#: the suite's sizes for BLOCK_SRC, the demo's own for its app
+P_BLOCK_S, P_BLOCK_D = 16, 8
+P_DEMO_CONSTS = {"n": 24, "m": 24, "k": 24, "iters": 50, "fftn": 64}
+#: the kernel the ``gpu_kernel`` variant of each workload's site launches
+P_KERNEL = {"attention": "flash_attention", "rmsnorm": "rmsnorm",
+            "recurrence": "rglru_scan"}
+P_GA = (4, 2)
+#: the kernels each path runs (phase P: its three workloads')
+PATH_KERNELS = {**{label: p[3] for label, p in PATHS.items()},
+                "P": tuple(P_KERNEL.values())}
+
+
+def p_workloads() -> dict:
+    """Each workload's (source, consts, inputs), drawn with numpy from
+    seed 0 in float64 as the suite draws them, at the widths of the
+    configs (``P_SCALE`` rows); the recurrence from a nonzero state."""
+    cfg, rg = get_config("qwen3_0_6b"), get_config("recurrentgemma_2b")
+    hd, dm, dr = cfg.resolved_head_dim, cfg.d_model, rg.d_rnn_resolved
+    rng = np.random.default_rng(SEED)
+    n = P_SCALE["attention"]
+    attn = dict(q=rng.standard_normal((n, hd)), k=rng.standard_normal((n, hd)),
+                v=rng.standard_normal((n, hd)))
+    n = P_SCALE["rmsnorm"]
+    rms = dict(x=rng.standard_normal((n, dm)),
+               scale=rng.standard_normal(dm) * 0.1)
+    n = P_SCALE["recurrence"]
+    rec = dict(a=-np.abs(rng.standard_normal((n, dr))) * 0.2,
+               b=rng.standard_normal((n, dr)) * 0.5,
+               h=rng.standard_normal(dr) * 0.5)
+    return {
+        "attention": (P_ATTN_SRC, {"n": P_SCALE["attention"], "d": hd,
+                                   "scale": 1.0 / math.sqrt(hd)}, attn),
+        "rmsnorm": (P_RMS_SRC, {"n": P_SCALE["rmsnorm"], "d": dm}, rms),
+        "recurrence": (P_REC_SRC, {"n": P_SCALE["recurrence"], "d": dr}, rec),
+    }
+
+
+def _p_spans(trace_path: Path) -> dict:
+    spans, _ = read_trace(str(trace_path))
+    return {s["name"]: s["dur_s"] for s in spans}
+
+
+def p_forced(graph, coding) -> tuple:
+    """``gpu_kernel`` on every variant site (the loop nests whose pattern
+    has registry variants), the interpreter everywhere else."""
+    return tuple(2 if graph.by_name(s.region).meta.get("pattern")
+                 and not s.members else 0 for s in coding.sites)
+
+
+def p_transfers(art, graph, inputs) -> dict:
+    """One run's H2D/D2H counts and bytes beside the transfer planner's
+    prediction for the same implementation map."""
+    ex = art.executor()
+    ex.run(**inputs)
+    torch.cuda.synchronize()
+    plan = plan_transfers(graph, art.impl, hoist=art.hoist_transfers)
+    return {"measured": dataclasses.asdict(ex.stats),
+            "planned": {"h2d": sorted(t.var for t in plan.transfers
+                                      if t.direction == "h2d"),
+                        "d2h": sorted(t.var for t in plan.transfers
+                                      if t.direction == "d2h"),
+                        "estimated_count": plan.estimated_count(graph)}}
+
+
+def p_plan(label, src, consts, inputs, dev, scratch: Path, ga=P_GA,
+           repeats=1):
+    """``Offloader.prepare`` then ``Offloader.search`` (``plan`` is
+    exactly that) on the source string, traced for the seconds of the
+    feasibility check (``prepare.build_graph``: one interpreted run and
+    each loop's check) and the calibration (``prepare.make_fitness``: one
+    interpreted run, the timed all-interpreted baseline, the variant
+    binding and the library-block measurements)."""
+    trace = scratch / f"trace-{label}.jsonl"
+    config = OffloadConfig(
+        device=str(dev), repeats=repeats, trace=str(trace),
+        ga=GAConfig(population=ga[0], generations=ga[1], seed=SEED),
+        options={"consts": consts},
+        log=lambda s: print(f"  plan P {label}:", s, flush=True))
+    offloader = Offloader(config)
+    t0 = time.perf_counter()
+    ctx = offloader.prepare(src, inputs)
+    res = offloader.search(ctx)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    spans = _p_spans(trace)
+    graph, bundle = ctx.graph, ctx.bundle
+    summary = {
+        "interpreted_s": res.baseline.time_s,
+        "feasibility_check_s": spans.get("prepare.build_graph"),
+        "calibration_s": spans.get("prepare.make_fitness"),
+        "search_s": spans.get("plan.search"), "plan_s": plan_s,
+        "loops": {r.name: ("offloadable" if r.offloadable else
+                           r.meta.get("offload_error", "not offloadable"))
+                  for r in graph.loops()},
+        "variant_menus": {r: sorted(m) for r, m in
+                          bundle.context["variant_sites"].items()},
+        "variant_fallbacks": bundle.context["variant_fallbacks"],
+        "block_sites": {b: {"menu": sorted(e["menu"]),
+                            "members": list(e["members"])}
+                        for b, e in bundle.context["block_sites"].items()},
+        "library_blocks": sorted(r for r, e in
+                                 bundle.context["lib_calls"].items()
+                                 if "lib" in e),
+        "gene_length": res.coding.length,
+        "alphabet": list(res.coding.destinations),
+        "winner_bits": "".join(map(str, res.best.bits)),
+        "winner_destinations": res.destinations,
+        "winner_s": res.best.time_s, "speedup": res.speedup,
+        "verified": res.verification["verified"],
+        "measurements": res.ga.evaluations}
+    check(res.verification["verified"],
+          f"phase P {label}: the winning plan did not verify")
+    return offloader, ctx, res, summary
+
+
+def p_launched(fn) -> tuple:
+    """Run ``fn`` once: its result, the kernels it launched and their
+    launches by flash path, RMSNorm variant and RG-LRU route (differences
+    of the wrappers' counts, which phase P's total keeps)."""
+    before, before_sub = ops.launch_counts(), sub_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after, after_sub = ops.launch_counts(), sub_counts()
+    launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
+    by = {name: {k: n - before_sub[name].get(k, 0)
+                 for k, n in counts.items()
+                 if n != before_sub[name].get(k, 0)}
+          for name, counts in after_sub.items()}
+    return out, launches, {k: v for k, v in by.items() if v}
+
+
+def p_reference(ctx) -> dict:
+    """The interpreted program's outputs (CPython + numpy, float64), from
+    the frontend's calibration run."""
+    return ctx.bundle.context["reference"]
+
+
+def phase_python(dev, scratch: Path) -> dict:
+    """Phase P: ``Offloader`` over plain numeric Python source on the card
+    (the python_ast frontend).  Each workload is planned (GA 4 x 2 over
+    the interpreter and the variant menu), then its forced chromosome —
+    ``gpu_kernel`` on the matched loop nest — must bind ``cuda``, launch
+    its kernel once a run, and verify; its device launches and idle share
+    and its transfers beside the planner's prediction are printed.  Then
+    ``BLOCK_SRC`` (the ``attention_stack`` block, whose variants launch no
+    hand kernel) and the demo ``app`` (the matmul and DFT library
+    adapters, and the eager offloaded generic loops)."""
+    out = {"reduced": P_REDUCED, "workloads": {}}
+    for label, (src, consts, inputs) in p_workloads().items():
+        t0 = time.perf_counter()
+        offloader, ctx, res, summary = p_plan(label, src, consts, inputs,
+                                              dev, scratch)
+        forced = p_forced(ctx.graph, ctx.coding)
+        check(sum(forced) == 2, f"phase P {label}: expected one variant "
+                                f"site, found {forced}")
+        art = offloader.apply(ctx, forced)
+        check(set(art.report.substituted.values()) == {"cuda"},
+              f"phase P {label}: the forced chromosome bound "
+              f"{art.report.substituted} ({art.report.fallbacks})")
+        got, launches, by = p_launched(lambda: art.run(**inputs))
+        check(launches == {P_KERNEL[label]: 1},
+              f"phase P {label}: one run of the forced chromosome launched "
+              f"{launches}, not {{{P_KERNEL[label]!r}: 1}}")
+        reference = p_reference(ctx)
+        fv = verify(reference, got, rtol=1e-2, atol=1e-2)
+        check(fv.ok, f"phase P {label}: the forced chromosome does not "
+                     f"verify: {fv}")
+        summary["forced"] = {
+            "bits": "".join(map(str, forced)),
+            "substituted": art.report.substituted,
+            "launches": launches, "by_path_variant_route": by,
+            "max_abs": fv.max_abs, "max_rel": fv.max_rel,
+            "transfers": p_transfers(art, ctx.graph, inputs),
+            "where_time_goes": where_time_goes(
+                lambda: art.run(**inputs), (), 3)}
+        summary["phase_s"] = time.perf_counter() - t0
+        print(f"phase P {label}:", json.dumps(summary), flush=True)
+        out["workloads"][label] = summary
+
+    # BLOCK_SRC at the suite's size: the block gene's two variants
+    rng = np.random.default_rng(SEED)
+    s, d = P_BLOCK_S, P_BLOCK_D
+    inputs = dict(x=rng.standard_normal((s, d)),
+                  scale=rng.standard_normal(d) * 0.1,
+                  wq=rng.standard_normal((d, d)) / math.sqrt(d),
+                  wk=rng.standard_normal((d, d)) / math.sqrt(d),
+                  wv=rng.standard_normal((d, d)) / math.sqrt(d))
+    offloader, ctx, res, summary = p_plan("block", P_BLOCK_SRC, {}, inputs,
+                                          dev, scratch)
+    block = next(s_ for s_ in ctx.coding.sites if s_.members)
+    reference = p_reference(ctx)
+    summary["block_variants"] = {}
+    for gene in (1, 2):
+        bits = tuple(gene if s_ is block else 0 for s_ in ctx.coding.sites)
+        art = offloader.apply(ctx, bits)
+        got, launches, _ = p_launched(lambda: art.run(**inputs))
+        fv = verify(reference, got, rtol=1e-2, atol=1e-2)
+        variant = art.report.substituted.get(block.region)
+        check(variant is not None and fv.ok and not launches,
+              f"phase P block: gene {gene} bound {variant}, verified "
+              f"{fv.ok}, launched {launches}")
+        summary["block_variants"][variant] = {"max_abs": fv.max_abs,
+                                              "launches": launches}
+    print("phase P block:", json.dumps(summary), flush=True)
+    out["block"] = summary
+
+    # the demo app at its own sizes: the matmul and fft library adapters
+    rng = np.random.default_rng(SEED)
+    c = P_DEMO_CONSTS
+    inputs = dict(a=rng.random((c["n"], c["k"])), b=rng.random((c["k"], c["m"])),
+                  x=rng.random(c["m"]), sig_re=rng.random(c["fftn"]),
+                  sig_im=rng.random(c["fftn"]))
+    offloader, ctx, res, summary = p_plan("demo", P_DEMO_SRC, c, inputs, dev,
+                                          scratch)
+    libs = {bo.pattern for bo in res.block.offloads
+            if bo.region in summary["library_blocks"]}
+    check({"matmul", "fft"} <= {bo.pattern for bo in res.block.offloads}
+          and libs and libs <= {"matmul", "fft"},
+          f"phase P demo: matched {[bo.pattern for bo in res.block.offloads]}"
+          f", library blocks kept {sorted(libs)}")
+    summary["block_time_s"] = ctx.bundle.context["block_time_s"]
+    # the eager offloaded generic loops: every top-level loop that passed
+    # the feasibility check runs as its rewritten function on the card, one
+    # launch a scalar op (the matmul nest and the DFT included)
+    eager = {r.name: "jit" for r in ctx.graph.loops()
+             if r.offloadable and r.parent is None}
+    art = PyOffloadArtifact(ctx.target, eager, {}, device=dev)
+    fv = verify(p_reference(ctx), art.run(**inputs), rtol=1e-2,
+                atol=1e-2)
+    summary["eager_loops"] = {"loops": sorted(eager), "verified": fv.ok,
+                              "max_abs": fv.max_abs,
+                              "where_time_goes": where_time_goes(
+                                  lambda: art.run(**inputs), (), 1)}
+    check(fv.ok, f"phase P demo: the eager loops do not verify: {fv}")
+    print("phase P demo:", json.dumps(summary), flush=True)
+    out["demo"] = summary
+    return out
+
+
 def where_time_goes(fn, args, iters: int) -> dict:
     """One forward of ``fn``: host wall time (synchronized, no profiler)
     beside the time ``torch.profiler`` records for the device's own
@@ -1907,6 +2344,23 @@ def main() -> int:
         print(f"{what} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
 
+    # phase P: numeric Python source through the python_ast frontend
+    scratch = Path(tempfile.mkdtemp(prefix="plan-P-", dir=build.BUILD_DIR))
+    ops.reset_launch_counts()
+    try:
+        phase_python(dev, scratch)
+    finally:
+        shutil.rmtree(scratch)
+    by_path["P"] = ops.launch_counts()
+    p_counts = sub_counts()
+    for name in PATH_KERNELS["P"]:
+        check(by_path["P"][name] > 0,
+              f"phase P: the {name} kernel was never launched")
+        kernels[name].setdefault(sub_keys[name], {})["P"] = p_counts[name]
+    print("phase P launches:", json.dumps(by_path["P"]), json.dumps(p_counts),
+          flush=True)
+    done("phase P")
+
     for label in ("Q", "R", "W", "M", "H"):
         run_path(label)
     for label, make_model, n_sites in (
@@ -1950,7 +2404,7 @@ def main() -> int:
     done("phase T")
     for name, entry in kernels.items():
         per_path = {label: counts[name] for label, counts in by_path.items()
-                    if name in PATHS[label][3]}
+                    if name in PATH_KERNELS[label]}
         entry["launches"] = sum(per_path.values())
         entry["launches_by_path"] = per_path
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -1,10 +1,12 @@
 """Port of ``repro/core/frontends/registry.py``: the frontend protocol,
 ``OffloadConfig`` (with a ``device`` field: plans run on ``cuda`` unless the
-caller asks for the CPU), the registry and the static-cost fitness
-(:func:`static_cost_fitness_factory`).  :func:`detect_frontend` routes an
-architecture config to ``module``, and an ``nn.Module``, or a callable
-with torch ``example_args``, to ``export``.  The ``ir`` frontend is not
-ported yet.
+caller asks for the CPU), the registry, the static-cost fitness
+(:func:`static_cost_fitness_factory`) and the generic ``ir`` frontend
+(:class:`IRFrontend`).  :func:`detect_frontend` routes a ``RegionGraph``
+to ``ir``, Python source (a string, a parsed ``PyProgram``, or a callable
+without ``example_args``) to ``python_ast``, an architecture config to
+``module``, and an ``nn.Module``, or a callable with torch
+``example_args``, to ``export``.
 
 Frontend protocol + registry: the "common method" switchboard.
 
@@ -37,7 +39,7 @@ from repro_torch.core.genes import GeneCoding
 from repro_torch.core.ir import RegionGraph
 
 __all__ = [
-    "Frontend", "FitnessBundle", "OffloadConfig",
+    "Frontend", "FitnessBundle", "IRFrontend", "OffloadConfig",
     "register_frontend", "get_frontend", "frontend_names", "detect_frontend",
     "decoded_pattern", "resolve_alphabet", "static_cost_fitness_factory",
 ]
@@ -122,7 +124,9 @@ class OffloadConfig:
                                               # cost)
     options: dict = field(default_factory=dict)   # frontend-specific knobs
                                               # (export: example_args, name,
-                                              #  registry)
+                                              #  registry; python_ast:
+                                              #  consts, registry,
+                                              #  block_sites)
 
 
 @dataclass
@@ -210,21 +214,27 @@ def frontend_names() -> tuple[str, ...]:
 
 def detect_frontend(target: Any, config: OffloadConfig) -> str:
     """Map a target to a registered frontend name (duck-typed, so the
-    registry never imports a concrete frontend module): an architecture
-    config is a ``module`` target; an ``nn.Module``, or a callable with
-    ``example_args``, is a ``torch.export`` program."""
+    registry never imports a concrete frontend module)."""
     import torch
 
+    if isinstance(target, RegionGraph):
+        return "ir"
+    if isinstance(target, str):
+        return "python_ast"
+    if hasattr(target, "graph") and hasattr(target, "check_offloadable"):
+        return "python_ast"                    # a parsed PyProgram
     if hasattr(target, "arch_id") and hasattr(target, "family"):
         return "module"                        # an ArchConfig
     if isinstance(target, torch.nn.Module):
         return "export"
-    if callable(target) and "example_args" in config.options:
-        return "export"
+    if callable(target):
+        # a callable with example args is exported; otherwise its source is
+        # parsed like any other Python program
+        if "example_args" in config.options:
+            return "export"
+        return "python_ast"
     raise TypeError(f"cannot detect a frontend for target of type "
-                    f"{type(target).__name__}: the port plans architecture "
-                    f"configs, nn.Modules and callables with "
-                    f"options['example_args']")
+                    f"{type(target).__name__}; pass OffloadConfig.frontend")
 
 
 # ---------------------------------------------------------------------------
@@ -256,3 +266,41 @@ def static_cost_fitness_factory(graph: RegionGraph, unit_s: float = 1e-6
         return fit
 
     return factory
+
+
+# ---------------------------------------------------------------------------
+# the generic IR frontend: plan a bare RegionGraph
+# ---------------------------------------------------------------------------
+
+
+class IRFrontend:
+    """Plans any :class:`RegionGraph` directly — the degenerate frontend the
+    other three lower into, useful for tests and for callers that built
+    their graph elsewhere.  Fitness is the static-cost stub unless the
+    config overrides it."""
+
+    name = "ir"
+
+    def build_graph(self, target: RegionGraph, inputs: Optional[dict],
+                    config: OffloadConfig) -> RegionGraph:
+        if not isinstance(target, RegionGraph):
+            raise TypeError(f"ir frontend needs a RegionGraph, got "
+                            f"{type(target).__name__}")
+        return target
+
+    def make_fitness(self, graph: RegionGraph, target: Any,
+                     inputs: Optional[dict],
+                     config: OffloadConfig) -> FitnessBundle:
+        from repro_torch.core.block_offload import block_offload_pass
+        from repro_torch.core.pattern_db import default_db
+
+        block = block_offload_pass(graph, config.db or default_db(),
+                                   confirm=config.confirm)
+        return FitnessBundle(
+            fitness_factory=static_cost_fitness_factory(graph),
+            block=block, claimed=block.claimed_regions,
+            cache_extra="ir|staticcost", measured=False)
+
+    def apply_plan(self, graph: RegionGraph, coding: GeneCoding,
+                   values: tuple, bundle: FitnessBundle) -> dict:
+        return decoded_pattern(coding, values, bundle.base_impl)

@@ -1,15 +1,17 @@
 """Port of ``repro/core/offload.py``: ``Offloader``, ``plan``,
 ``ga_search``, ``OffloadResult`` and the ``SeedBank``.  The reference's
 process pool, surrogate screening and compile-overlap phase are not ported;
-the export frontend's measured fitness runs serially.
+the measured fitnesses (export, python_ast) run serially.
 
 The unified offload pipeline: one entry point for every frontend.
 
 The paper's claim is a *common* automatic offloading method across source
-languages (§3.3).  :meth:`Offloader.plan` takes a target — here an
-``nn.Module`` or a callable with ``options["example_args"]``, exported with
-``torch.export`` — resolves the registered frontend for it, and drives the
-pipeline:
+languages (§3.3).  :meth:`Offloader.plan` takes a target — numeric Python
+source (a string, a ``PyProgram``, or a function without
+``options["example_args"]``), an ``nn.Module`` or a callable with
+``options["example_args"]`` (exported with ``torch.export``), an
+architecture config, or a bare ``RegionGraph`` — resolves the registered
+frontend for it, and drives the pipeline:
 
   normalize -> build RegionGraph -> function-block pass (pattern DB)
      -> gene coding over a destination alphabet (ref / fused / kernel)

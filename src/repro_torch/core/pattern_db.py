@@ -1,11 +1,12 @@
 """Port of ``repro/core/pattern_db.py`` for the ``softmax_attention``,
-``rmsnorm``, ``linear_recurrence``, ``wkv_recurrence`` and ``matmul``
-records (thresholds and callee names unchanged).  Each record's
-``"export"`` vector is traced with ``torch.export`` from a torch twin of
-the reference's ``_jx_*`` comparison code — for the scan records, the
-vector of the twin's ``scan`` node (body ops plus one ``scan``, as the
-export frontend vectorizes a scan region); the ``python_ast`` vectors carry
-over unchanged.  The block and fft records come with their slices.
+``rmsnorm``, ``linear_recurrence``, ``wkv_recurrence``, ``matmul``,
+``attention_stack`` (a block record) and ``fft`` records (thresholds,
+callee names and record order unchanged).  Each record's ``"export"``
+vector is traced with ``torch.export`` from a torch twin of the
+reference's ``_jx_*`` comparison code — for the scan records, the vector
+of the twin's ``scan`` node (body ops plus one ``scan``, as the export
+frontend vectorizes a scan region); the ``python_ast`` vectors carry over
+unchanged.  The ``moe_dispatch`` block record is not ported yet.
 
 Code-pattern DB for function-block offload (paper §3.2.2, §4.1: 照合に
 用いるコードパターン DB は、MySQL8 を用いる。ライブラリ等を類似性検出技術で
@@ -331,6 +332,18 @@ def recurrence(a, b, h, out, n, d):
             h[c] = a[t][c] * h[c] + b[t][c]
             out[t][c] = h[c]
 """,
+    "fft": """
+def dft(re, im, out_re, out_im, n):
+    for k in range(n):
+        sr = 0.0
+        si = 0.0
+        for t in range(n):
+            ang = -2.0 * pi * k * t / n
+            sr = sr + re[t] * cos(ang) - im[t] * sin(ang)
+            si = si + re[t] * sin(ang) + im[t] * cos(ang)
+        out_re[k] = sr
+        out_im[k] = si
+""",
     "rmsnorm": """
 def rmsnorm(x, scale, out, n, d):
     for i in range(n):
@@ -340,6 +353,44 @@ def rmsnorm(x, scale, out, n, d):
         inv = 1.0 / sqrt(ss / d + 1e-6)
         for t in range(d):
             out[i][t] = x[i][t] * inv * (1.0 + scale[t])
+""",
+    "attention_stack": """
+def attention_stack(x, scale, wq, wk, wv, out, n, d, hd):
+    for i in range(n):
+        ss = 0.0
+        for t in range(d):
+            ss = ss + x[i][t] * x[i][t]
+        inv = 1.0 / sqrt(ss / d + 1e-6)
+        for t in range(d):
+            xn[i][t] = x[i][t] * inv * (1.0 + scale[t])
+    for i in range(n):
+        for h in range(hd):
+            aq = 0.0
+            ak = 0.0
+            av = 0.0
+            for t in range(d):
+                aq = aq + xn[i][t] * wq[t][h]
+                ak = ak + xn[i][t] * wk[t][h]
+                av = av + xn[i][t] * wv[t][h]
+            q[i][h] = aq
+            k[i][h] = ak
+            v[i][h] = av
+    for i in range(n):
+        m = -1e30
+        for j in range(n):
+            s = 0.0
+            for t in range(hd):
+                s = s + q[i][t] * k[j][t]
+            if s > m:
+                m = s
+        z = 0.0
+        for j in range(n):
+            z = z + exp(dot(q[i], k[j]) - m)
+        for t in range(hd):
+            acc = 0.0
+            for j in range(n):
+                acc = acc + exp(dot(q[i], k[j]) - m) / z * v[j][t]
+            out[i][t] = acc
 """,
 }
 
@@ -384,6 +435,15 @@ def _tx_wkv(r, k, v, lw, u):
 
 def _tx_matmul(a, b):
     return a @ b
+
+
+# --- canonical *block* programs: several regions' worth of work each --------
+
+
+def _tx_attention_stack(x, scale, wq, wk, wv):
+    xn = _tx_rmsnorm(x, scale)
+    q, k, v = xn @ wq, xn @ wk, xn @ wv
+    return _tx_attention(q, k, v)
 
 
 def _scan_region_vector(fn, *example_args) -> dict:
@@ -452,6 +512,32 @@ def default_db() -> PatternDB:
             replacement="torch.matmul",
             plan_field=None,
             threshold=0.88,
+        ),
+        PatternRecord(
+            name="attention_stack",
+            callee_names=("attention_stack", "attention_block", "attn_block",
+                          "attention", "self_attention", "sdpa"),
+            vectors={"python_ast": _py_vector(
+                         _PY_COMPARISON_CODE["attention_stack"]),
+                     "export": sim.vector_of_callable(
+                         _tx_attention_stack, q, torch.zeros((4,), dtype=f32),
+                         q.T @ q, q.T @ q, q.T @ q)},
+            replacement="repro_torch.models.attention.attend_chunked",
+            plan_field=("attn_impl", "chunked"),
+            threshold=0.85,
+            interface_note="whole rmsnorm+QKV+causal-attention block over an "
+                           "(S, d) residual stream",
+            block=True,
+        ),
+        PatternRecord(
+            name="fft",
+            callee_names=("fft", "rfft", "fft2", "ifft", "dft"),
+            vectors={"python_ast": _py_vector(_PY_COMPARISON_CODE["fft"])},
+            replacement="torch.fft.fft",
+            plan_field=None,
+            threshold=0.85,
+            interface_note="complex return instead of (re, im) pair",
+            interface_changes=True,
         ),
     ]
     return PatternDB(recs)

@@ -1,6 +1,7 @@
 """Port of ``repro/kernels/registry.py`` for the ``softmax_attention``,
-``rmsnorm``, ``linear_recurrence`` and ``wkv_recurrence`` patterns:
-pattern-DB entries -> executable variants.
+``rmsnorm``, ``linear_recurrence`` and ``wkv_recurrence`` patterns and the
+``attention_stack`` block pattern: pattern-DB entries -> executable
+variants.  ``moe_dispatch`` is not ported yet.
 
 Each pattern maps to an ordered set of :class:`Variant`\\ s — ``fused_torch``
 (the system's own fused PyTorch rewrite, counterpart of ``fused_jnp``) and
@@ -18,6 +19,13 @@ the substitution report then records the fallback to the reference path.
 The ``cuda`` variants reject what their kernels do not take (head dims that
 are not multiples of 8 up to 256, dtypes other than f32/bf16, WKV head dims
 other than 16/32/64).
+
+The block pattern ``attention_stack`` (rmsnorm + q/k/v projections + causal
+attention over an (S, d) residual stream) binds merged ``block`` sites
+whose operands the frontend ordered positionally (the Python-``ast``
+frontend's); a site that carries export nodes is refused until the export
+frontend builds block windows.  Its variants, ``block_chunked`` and
+``block_fused``, are PyTorch rewrites and launch no hand kernel.
 """
 from __future__ import annotations
 
@@ -56,7 +64,10 @@ class CallSite:
     """What a variant binds against: one matched region, concretized.
 
     ``kind`` is ``"span"`` (a run of ``call_function`` nodes of the export
-    graph) or ``"scan"`` (a ``scan`` node).  A span's ``in_avals`` follow its
+    graph), ``"scan"`` (a ``scan`` node, or a python_ast recurrence loop),
+    ``"call"`` (a python_ast loop nest) or ``"block"`` (a python_ast
+    function block); the python_ast frontend orders a site's operands by
+    role itself and passes no nodes.  A span's ``in_avals`` follow its
     inputs in first-use order (NOT the module's call order — see
     :func:`_attention_roles`), ``out_avals`` its outputs in graph order; a
     scan's follow the reference's ``[consts..., carry..., xs...]`` in and
@@ -478,6 +489,72 @@ def _bind_wkv_cuda(site: CallSite):
 
 
 # ---------------------------------------------------------------------------
+# attention_stack: rmsnorm + q/k/v projections + causal attention (block)
+# ---------------------------------------------------------------------------
+
+
+def _attention_stack_site(site: CallSite):
+    _require(site.kind == "block",
+             f"attention_stack binds merged block sites, not {site.kind}")
+    _require(not site.nodes,
+             "attention_stack binds positional (python_ast) block sites; "
+             "export block windows are not ported yet")
+    _require(len(site.in_avals) == 5, "expected (x, scale, wq, wk, wv)")
+    _require(sum(site.out_used) == 1,
+             "attention stack produces one used output")
+    _require(_floats(site.in_avals), "needs floating inputs")
+    # the site builder ordered the operands positionally; the shape checks
+    # below reject a wrong assignment
+    x_av, s_av, wq_av, wk_av, wv_av = site.in_avals
+    _require(x_av.ndim == 2, "(S, d) residual stream expected")
+    _require(s_av.ndim == 1, "expected one rank-1 rmsnorm scale")
+    _require(wq_av.shape == wk_av.shape == wv_av.shape and wq_av.ndim == 2,
+             "q/k/v projection weight shapes disagree")
+    _require(wq_av.shape[0] == x_av.shape[1], "projection d_model mismatch")
+    _require(s_av.shape[0] == x_av.shape[1], "scale must match d_model")
+    dh = wq_av.shape[1]
+    _require(2 <= dh <= 512, "head dim outside kernel range")
+    out_av = site.out_avals[list(site.out_used).index(True)]
+    _require(out_av.shape == (x_av.shape[0], dh),
+             "output is not attention-shaped")
+    return x_av, out_av
+
+
+def _bind_attention_stack_chunked(site: CallSite):
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import attend_chunked
+    from repro_torch.models.plan import ExecPlan
+
+    x_av, out_av = _attention_stack_site(site)
+    plan = ExecPlan(attn_impl="chunked", attn_kv_chunk=128,
+                    compute_dtype=str(x_av.dtype).split(".")[-1])
+
+    def fn(x, sc, wq, wk, wv):
+        xn = ref.rmsnorm_ref(x, sc)
+        q, k, v = xn @ wq, xn @ wk, xn @ wv
+        pos = torch.arange(x.shape[0], device=x.device)
+        o = attend_chunked(q[None, :, None, :], k[None, :, None, :],
+                           v[None, :, None, :], pos, pos, True, 0, plan)
+        return (_cast(o[0, :, 0, :], out_av),)
+    return fn
+
+
+def _bind_attention_stack_fused(site: CallSite):
+    from repro_torch.kernels import ref
+
+    x_av, out_av = _attention_stack_site(site)
+    scale = 1.0 / math.sqrt(out_av.shape[-1])
+
+    def fn(x, sc, wq, wk, wv):
+        xn = ref.rmsnorm_ref(x, sc)
+        q, k, v = xn @ wq, xn @ wk, xn @ wv
+        o = ref.flash_attention_ref(q[None], k[None], v[None],
+                                    causal=True, scale=scale)[0]
+        return (_cast(o, out_av),)
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # the default registry
 # ---------------------------------------------------------------------------
 
@@ -502,6 +579,16 @@ def default_registry() -> KernelRegistry:
         reg.register(Variant(pattern, "cuda", cuda,
                              "hand-written Hopper kernel "
                              "(repro_torch.kernels.ops)"))
+    # block-level patterns: whole-algorithm replacements over merged
+    # regions.  Registration order is the gene implementation order, so the
+    # flash-style chunked route sits at impl_index 1
+    reg.register(Variant("attention_stack", "block_chunked",
+                         _bind_attention_stack_chunked,
+                         "rmsnorm + QKV + flash attention via "
+                         "models/attention.attend_chunked"))
+    reg.register(Variant("attention_stack", "block_fused",
+                         _bind_attention_stack_fused,
+                         "rmsnorm + QKV + naive causal attention"))
     _DEFAULT = reg
     return reg
 

@@ -873,3 +873,50 @@ def test_scan_export_releases_the_program_on_card(cuda):
     del graph, params
     gc.collect()
     assert alive() is None
+
+
+#: ``RMS_SRC`` of ``tests/test_frontend_differential.py`` (copied: this file
+#: imports no JAX)
+RMS_SRC = """
+def rms_app(x, scale, n, d):
+    out = np.zeros((n, d))
+    for i in range(n):
+        ss = 0.0
+        for t in range(d):
+            ss = ss + x[i][t] * x[i][t]
+        inv = 1.0 / np.sqrt(ss / d + 1e-06)
+        for t in range(d):
+            out[i][t] = x[i][t] * inv * (1.0 + scale[t])
+    return out
+"""
+
+
+@pytest.mark.gpu
+def test_python_source_plan_runs_the_rmsnorm_kernel_on_card(cuda):
+    """``RMS_SRC`` planned through the python_ast frontend on the card (no
+    ``device``: ``cuda``), the forced chromosome with ``gpu_kernel`` on the
+    matched loop nest: it binds ``cuda``, launches the RMSNorm kernel once a
+    run, and matches the interpreted program and the CPU plan's output."""
+    from repro_torch.core.frontends.ast_frontend import Executor
+    from repro_torch.core.offload import OffloadConfig, Offloader
+
+    rng = np.random.default_rng(7)
+    inputs = dict(x=rng.standard_normal((48, 16)),
+                  scale=rng.standard_normal(16) * 0.1)
+    outs = {}
+    for device in (None, "cpu"):
+        offloader = Offloader(OffloadConfig(
+            repeats=1, device=device, options={"consts": {"n": 48, "d": 16}}))
+        ctx = offloader.prepare(RMS_SRC, inputs)
+        forced = tuple(2 if ctx.graph.by_name(s.region).meta.get("pattern")
+                       else 0 for s in ctx.coding.sites)
+        assert forced == (2,)
+        art = offloader.apply(ctx, forced)
+        assert art.report.substituted == {ctx.coding.sites[0].region: "cuda"}
+        tops.reset_launch_counts()
+        outs[device] = art.run(**inputs)["out"]
+        assert tops.launch_counts()["rmsnorm"] == (1 if device is None else 0)
+    assert art.executor().device.type == "cpu"
+    ref = Executor(ctx.target, {}, device="cpu").run(**inputs)["out"]
+    np.testing.assert_allclose(outs[None], ref, rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(outs[None], outs["cpu"], rtol=1e-5, atol=1e-5)
