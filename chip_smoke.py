@@ -1,6 +1,8 @@
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only K         # the build and phase K alone
+
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -20,8 +22,9 @@ Phases, in order; any failure exits non-zero before the last line:
    and the cross-attention's non-causal shapes, (2, 1500 / 448 queries,
    1500 keys, 12 heads of 64) in f32 and bf16, which no path binds yet;
    phase P's: flash at (1, 8, 1 / 1 head, 128) causal, RMSNorm at (128,
-   1024), RG-LRU at (1, 128, 2560) from a nonzero state, all f32; and a
-   few edge cases), with its time (CUDA events, median
+   1024), RG-LRU at (1, 128, 2560) from a nonzero state, all f32; phase
+   K's: flash at (1, 2048, 1 / 1 head, 128) causal and RMSNorm at (2048,
+   1024), f32; and a few edge cases), with its time (CUDA events, median
    of 25 launches, L2 flushed before each; the plain scan loops, median of
    5), the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one (``library_ms``, timed
@@ -60,6 +63,24 @@ P. phase P, numeric Python source through the python_ast frontend
    DFT nests match, the library adapters run, and every top-level loop run
    eagerly on the card (one launch a scalar op) verifies, with its launch
    count;
+K. phase K, function-block genes in the export frontend (the reference's
+   ``bench_block_offload`` comparison at published widths), the launch
+   counters set to 0 before it and read after.  Two ``nn.Module`` programs,
+   each planned through ``Offloader.plan`` (f32, seed 0, GA 6 x 2, 1
+   repeat) with block sites on (the default) and with
+   ``options={"block_sites": False}``: K1, the attention stack at
+   Qwen3-0.6B's width (x (2048, 1024), an ``RMSNorm`` submodule, wq/wk/wv
+   (1024, 128), a causal single-head attention submodule, wo (128, 1024)
+   and the residual) must get exactly one ``fnblock_*`` region, whose
+   ``block_chunked`` and ``block_fused`` bind and verify, and the loop
+   arm's forced chromosome must launch the RMSNorm and flash kernels once
+   each and verify; K2, OLMoE-1B-7B's MoE in the ``moe_dispatch`` record's
+   dense one-hot form (router, softmax, top-8, one-hot combine and the
+   three expert einsums over 4096 tokens, d 2048, 64 experts of width
+   1024) must get one ``fnblock_*`` region whose ``block_scatter`` (the
+   dropless capacity-limited dispatch) binds and verifies.  Each arm's
+   winner, its forward time, and the forced chromosomes' times are
+   printed, and the overlap phase's estimate and backoff;
 3. the main paths, each through ``Offloader.plan`` with the launch
    counters set to 0 just before it and read just after.  Each plan must
    verify; the forced all-kernel plan must bind the CUDA kernels at every
@@ -72,7 +93,16 @@ P. phase P, numeric Python source through the python_ast frontend
    share, top kernels), and the device's span of one forward by CUDA
    events.  On path Q every flash launch must have taken the wgmma path;
    on paths Q and R every RMSNorm launch the variant its width selects,
-   and on path R every RG-LRU launch the ``tma`` route.
+   and on path R every RG-LRU launch the ``tma`` route.  Every path's
+   plan carries the export frontend's function-block genes: the count of
+   ``fnblock_*`` regions that bind, their variants and members, and the
+   overlap phase's estimate and backoff are printed; the forced all-kernel
+   chromosome leaves each ``fnblock_*`` gene on ``ref``.  After path Q,
+   phase QO plans Q twice, its prepares serial (``compile_workers=0``) and
+   on 4 threads, each chromosome's time a fixed function of its bits (the
+   prepares -- substitution, warm-up and verification on the card -- are
+   real): the two searches must give the same best bits and measure the
+   same chromosomes.
 
    - Q: one full-width Qwen3-0.6B dense block (d_model 1024, 16 q / 8 kv
      heads, head_dim 128, d_ff 3072) in bf16 at batch 2 x 2048 tokens, GA
@@ -99,30 +129,32 @@ P. phase P, numeric Python source through the python_ast frontend
      tokens, twice (identical tokens), then under ``REFERENCE_PLAN`` after
      ``swap_plan`` (the tokens of a server built on that plan), with the
      prefill time, the decode time per token and tokens/s;
-   - H: the whole RecurrentGemma-2B (26 layers at full width in the
-     pattern rglru, rglru, local attention; random weights from seed 0 in
+   - H: RecurrentGemma-2B at full width and 8 of its 26 layers (cut for
+     the run's time, ``PATH_LAYERS``) in the pattern rglru, rglru, local
+     attention (random weights from seed 0 in
      the reference's distributions) built with ``build_model``, its
      prefill of (2, 2048) tokens -- S = the local window, so the local
      attention is exactly causal -- planned like M in f32 (the ``step``
      scan: one scan site a recurrent sublayer), GA 4 x 2 (cut from 6 x 3
-     for the run's time): 18 ``linear_recurrence`` + 8
-     ``softmax_attention`` + 53 ``rmsnorm`` sites;
-     one forward of the forced all-kernel plan must launch RG-LRU 18 times
-     (all ``tma``), flash 8 times (all ``scalar``) and RMSNorm 53 times
-     (all ``d2560_l32``).  The all-reference program (~220k launches) is
+     for the run's time): 6 ``linear_recurrence`` + 2
+     ``softmax_attention`` + 17 ``rmsnorm`` sites;
+     one forward of the forced all-kernel plan must launch RG-LRU 6 times
+     (all ``tma``), flash twice (all ``scalar``) and RMSNorm 17 times
+     (all ``d2560_l32``).  The all-reference program (~70k launches) is
      profiled for one forward.  Then the bf16 diagnostic of the forced
      all-kernel prefill, and ``Server.generate`` in bf16 under
      ``OFFLOAD_PLAN`` (the ``assoc`` scan in prefill; RG-LRU states and ring
      caches in decode): 4 requests of 512 prompt tokens and 16 greedy new
      tokens, twice (identical tokens), with the launches of a decode step;
-   - E: the whole OLMoE-1B-7B (16 layers at full width, 64 experts top-8 of
-     width 1024, MHA with QK-norm; random weights from seed 0), alone on the
+   - E: OLMoE-1B-7B at full width (64 experts top-8 of width 1024, MHA
+     with QK-norm) and 8 of its 16 layers (cut for the run's time; random
+     weights from seed 0), alone on the
      card, its prefill of (2, 2048) tokens planned in f32 under the
      ``scatter_ep`` MoE, GA 6 x 3 seeded with the forced all-kernel
-     chromosome: exactly 16 ``softmax_attention`` + 65 ``rmsnorm`` sites
+     chromosome: exactly 8 ``softmax_attention`` + 33 ``rmsnorm`` sites
      (no router, expert or MoE region binds); one forward of the forced
-     plan must launch flash 16 times (all ``scalar``) and RMSNorm 65 times
-     (33 ``generic_l32``, 32 ``d128_l32``); no chromosome may fail with an
+     plan must launch flash 8 times (all ``scalar``) and RMSNorm 33 times
+     (17 ``generic_l32``, 16 ``d128_l32``); no chromosome may fail with an
      error; the all-reference prefill run twice gives the same bits.  The
      forced plan verifies (outcome a), or (outcome b) a routing diagnostic
      finds a (layer, token) whose top-k set the kernels' rounding changed
@@ -130,12 +162,14 @@ P. phase P, numeric Python source through the python_ast frontend
      is printed with the per-layer K/V errors.  Then one all-reference
      forward under ``dense_onehot`` (time only), and ``Server.generate``
      in bf16 under ``OFFLOAD_PLAN`` (16 new tokens);
-   - F: the whole RWKV-6-3B (32 layers at full width, 40 heads of 64),
-     alone on the card: its f32 prefill of (2, 2048) tokens once under the
-     ``step`` WKV form and once ``chunked`` (they must agree under the
-     verifier's rule), then the ``chunked`` prefill planned with GA 4 x 2,
-     seeded like E: only the final norm binds (``d2560_l32``); the 65
-     LayerNorm regions (x, scale, bias) and the 32 multi-head WKV scans
+   - F: RWKV-6-3B at full width (40 heads of 64) and 8 of its 32 layers
+     (cut for the run's time),
+     alone on the card: its f32 ``chunked`` prefill of (2, 2048) tokens
+     planned with GA 4 x 2 (its ``step`` prefill, once a check against
+     ``chunked``, went for the run's time: the CPU and card tests hold the
+     two forms to each other),
+     seeded like E: only the final norm binds (``d2560_l32``); the 17
+     LayerNorm regions (x, scale, bias) and the 8 multi-head WKV scans
      match and are refused; the forced plan verifies.  Then
      ``Server.generate`` in bf16 under ``OFFLOAD_PLAN`` (chunked prefill,
      RWKV states replaced in decode; 16 new tokens);
@@ -263,8 +297,24 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_NEW_H = 4, 512, 32, 16
 #: 4-token start-of-transcript prefix
 WHISPER = get_config("whisper_small")
 X_TOKENS, SERVE_PROMPT_X = 448, 4
+#: depth cut for the run's time, widths as published: path H's
+#: RecurrentGemma-2B runs 8 of its 26 layers (the pattern rglru, rglru,
+#: local attention kept), path E's OLMoE-1B-7B 8 of its 16, path F's
+#: RWKV-6-3B 8 of its 32
+PATH_LAYERS = {"recurrentgemma_2b": 8, "olmoe_1b_7b": 8, "rwkv6_3b": 8}
 SEED = 0
 REPEATS = 25
+
+
+def path_config(arch: str):
+    """``arch``'s published config at the depth its path runs
+    (``PATH_LAYERS``)."""
+    cfg = get_config(arch)
+    if arch in PATH_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=PATH_LAYERS[arch])
+    return cfg
+
+
 #: the plain scan loops take thousands of launches a call
 PLAIN_SCAN_REPEATS = 5
 #: the RWKV-6 time-mix clamps its decay at -exp(2) a step (``rwkv.py:239``)
@@ -583,7 +633,7 @@ def phase_kernels(dev) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     bf16, f32 = torch.bfloat16, torch.float32
     cfg = get_config("qwen3_0_6b")
-    rg = get_config("recurrentgemma_2b")
+    rg = path_config("recurrentgemma_2b")
     hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     tokens = BATCH * SEQ
     # path Q's four RMSNorm calls per block forward: ln1, q-norm, k-norm,
@@ -603,7 +653,7 @@ def phase_kernels(dev) -> dict:
         norms_m[(n, d)] = rmsnorm_case(dev, n, d, f32, 1e-5, flush, gen)
         print("rmsnorm  ", json.dumps(norms_m[(n, d)]), flush=True)
 
-    # path H's 53 calls per prefill, in f32: ln1 and ln2 of each of 26
+    # path H's 17 calls per prefill, in f32: ln1 and ln2 of each of 8
     # sublayers and the final norm over the last token's rows
     path_h_norms = [(tokens, rg.d_model)] * (2 * rg.n_layers) \
         + [(BATCH, rg.d_model)]
@@ -611,11 +661,11 @@ def phase_kernels(dev) -> dict:
     for n, d in sorted(set(path_h_norms)):
         norms_h[(n, d)] = rmsnorm_case(dev, n, d, f32, 1e-5, flush, gen)
         print("rmsnorm  ", json.dumps(norms_h[(n, d)]), flush=True)
-    # path E's 65 calls per prefill, in f32: ln1, q-norm, k-norm (16 kv
-    # heads: as many rows as the q-norm) and ln2 of each of 16 layers, and
+    # path E's 33 calls per prefill, in f32: ln1, q-norm, k-norm (16 kv
+    # heads: as many rows as the q-norm) and ln2 of each of 8 layers, and
     # the final norm; d_model 2048 takes the generic loop.  Path F's one
     # call is path H's final norm, (2, 2560)
-    olmoe = get_config("olmoe_1b_7b")
+    olmoe = path_config("olmoe_1b_7b")
     oh = olmoe.resolved_head_dim
     path_e_norms = [(tokens, olmoe.d_model), (tokens * olmoe.n_heads, oh),
                     (tokens * olmoe.n_kv_heads, oh),
@@ -714,6 +764,14 @@ def phase_kernels(dev) -> dict:
                          h0=True, time_major=False, flush=flush, gen=gen)
     print("rglru    ", json.dumps(p_rglru), flush=True)
 
+    # phase K's loop arm, f32: flash over one causal head of 128 at K1's
+    # 2048 positions, RMSNorm over K1's (2048, 1024) residual stream
+    k_flash = flash_case(dev, 1, K1_S, K1_S, 1, 1, hd, True, f32, 2e-5, 1e-4,
+                         flush, gen)
+    print("flash    ", json.dumps(k_flash), flush=True)
+    k_norm = rmsnorm_case(dev, K1_S, cfg.d_model, f32, 1e-5, flush, gen)
+    print("rmsnorm  ", json.dumps(k_norm), flush=True)
+
     path_wkv = wkv6_case(dev, 1, WKV_SEQ, 1, WKV_DIM, log_w=None,
                          flush=flush, gen=gen)
     print("wkv6     ", json.dumps(path_wkv), flush=True)
@@ -765,6 +823,7 @@ def phase_kernels(dev) -> dict:
                 "shapes": [{k: norms_x[nd][k] for k in row_keys}
                            for nd in sorted(norms_x)]},
         path_p={"calls_per_run": 1, **{k: p_norm[k] for k in row_keys}},
+        path_k={"calls_per_forward": 1, **{k: k_norm[k] for k in row_keys}},
         shapes=[{k: norms[nd][k] for k in row_keys}
                 for nd in sorted(norms)])
     flash_entry = _entry("flash_attention", path_flash,
@@ -785,7 +844,9 @@ def phase_kernels(dev) -> dict:
                                  "non_causal": [
                                      {**flash_keys(r), "causal": False}
                                      for r in x_non_causal]},
-                         path_p={"calls_per_run": 1, **flash_keys(p_flash)})
+                         path_p={"calls_per_run": 1, **flash_keys(p_flash)},
+                         path_k={"calls_per_forward": 1,
+                                 **flash_keys(k_flash)})
     rglru_entry = _entry("rglru_scan", path_rglru,
                          replaces="src/repro/kernels/rglru_scan.py:55",
                          path_h={"calls_per_prefill": 2 * (rg.n_layers // 3)
@@ -891,12 +952,13 @@ def path_m(dev):
 
 @functools.lru_cache(maxsize=1)
 def _model_f32(dev, arch: str):
-    """The whole ``arch`` at its published widths, weights drawn from seed
+    """``arch`` at its published widths (at its path's depth,
+    :func:`path_config`), weights drawn from seed
     0 in the reference's distributions on a CPU generator and moved to the
     card in f32 as drawn (the host holds one tensor at a time); tokens
     uniform in [0, vocab) from the same generator, batch 2 x 2048.  Kept
     on the card until another model is asked for or ``free_models``."""
-    cfg = get_config(arch)
+    cfg = path_config(arch)
     gen = torch.Generator().manual_seed(SEED)
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -909,7 +971,7 @@ def _model_f32(dev, arch: str):
 
 
 def recurrentgemma_model(dev, dtype):
-    """The whole RecurrentGemma-2B (26 layers, full width), weights drawn
+    """RecurrentGemma-2B at full width and 8 of its 26 layers, weights drawn
     from seed 0 in the reference's distributions on a CPU generator, then
     moved to the card; tokens uniform in [0, vocab) from the same
     generator, batch 2 x 2048 (= the local window).  The f32 draw is made
@@ -1037,21 +1099,26 @@ PATH_M_DTYPE = torch.float32
 PATH_M_SITES = ([("softmax_attention", "cuda")] * 28
                 + [("rmsnorm", "cuda")] * (4 * 28 + 1))
 
-#: sites of path H: 18 recurrences, 8 local attentions, two norms a
-#: sublayer and the final norm
-PATH_H_SITES = ([("linear_recurrence", "cuda")] * 18
-                + [("softmax_attention", "cuda")] * 8
-                + [("rmsnorm", "cuda")] * (2 * 26 + 1))
+#: sites of path H: a recurrence or a local attention a layer (6 and 2 of
+#: 8), two norms a sublayer and the final norm
+_H_KINDS = [path_config("recurrentgemma_2b").block_pattern[i % 3]
+            for i in range(PATH_LAYERS["recurrentgemma_2b"])]
+PATH_H_SITES = ([("linear_recurrence", "cuda")] * _H_KINDS.count("rglru")
+                + [("softmax_attention", "cuda")]
+                * _H_KINDS.count("local_attn")
+                + [("rmsnorm", "cuda")] * (2 * len(_H_KINDS) + 1))
 
 #: sites of path E: attention and four norms a layer, and the final norm;
 #: no router, expert or MoE region
-PATH_E_SITES = ([("softmax_attention", "cuda")] * 16
-                + [("rmsnorm", "cuda")] * (4 * 16 + 1))
+E_LAYERS = PATH_LAYERS["olmoe_1b_7b"]
+PATH_E_SITES = ([("softmax_attention", "cuda")] * E_LAYERS
+                + [("rmsnorm", "cuda")] * (4 * E_LAYERS + 1))
 #: sites of path F: the final norm binds; the embedding's and each
-#: layer's two LayerNorms (x, scale, bias) and the 32 multi-head WKV scans
-#: match and are refused
-PATH_F_SITES = ([("rmsnorm", "cuda")] + [("rmsnorm", "ref")] * (1 + 2 * 32)
-                + [("wkv_recurrence", "ref")] * 32)
+#: layer's two LayerNorms (x, scale, bias) and each layer's multi-head WKV
+#: scan match and are refused
+PATH_F_SITES = ([("rmsnorm", "cuda")]
+                + [("rmsnorm", "ref")] * (1 + 2 * PATH_LAYERS["rwkv6_3b"])
+                + [("wkv_recurrence", "ref")] * PATH_LAYERS["rwkv6_3b"])
 #: sites of path X: 62 norms and 12 causal self-attentions on the
 #: kernels, the 12 encoder and 12 cross-attentions on ``ref``
 PATH_X_SITES = [(p, v) for _, p, v in whisper_sites(WHISPER)]
@@ -1085,7 +1152,7 @@ ROUTED = {"E"}
 #: paths whose search is seeded with the forced chromosome
 #: (``Offloader.search``'s ``extra_seeds``), and on which no chromosome at
 #: all may fail with an error
-SEEDED = {"E", "F", "X"}
+SEEDED = {"H", "E", "F", "X"}
 
 
 #: the kernel each pattern's ``cuda`` variant launches
@@ -1099,18 +1166,19 @@ PATTERN_KERNEL = {"softmax_attention": "flash_attention",
 PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"},
                  "M": {"d1024_l32", "d128_l32"}, "H": {"d2560_l32"},
                  "E": {"generic_l32", "d128_l32"}, "F": {"d2560_l32"},
-                 "X": {"generic_l32"}}
+                 "X": {"generic_l32"}, "K": {"d1024_l32"}}
 #: RMSNorm launches by variant of one forward of the forced plan, where
 #: a path pins them: path E's ln1, ln2 and final norm at d 2048 take the
 #: generic loop, its q- and k-norms the d = 128 instance; path X's 62
 #: norms at d 768 all take the generic loop
-PATH_VARIANT_COUNTS = {"E": {"generic_l32": 33, "d128_l32": 32},
+PATH_VARIANT_COUNTS = {"E": {"generic_l32": 2 * E_LAYERS + 1,
+                             "d128_l32": 2 * E_LAYERS},
                        "X": {"generic_l32": len(x_norm_calls(WHISPER))}}
 PATH_ROUTES = {"R": {"tma"}, "H": {"tma"}}
 #: the flash path each path's launches take (paths M, H, E and X in f32,
 #: path H at head dim 256: ``scalar``)
 PATH_FLASH = {"Q": "wgmma", "M": "scalar", "H": "scalar", "E": "scalar",
-              "X": "scalar"}
+              "X": "scalar", "K": "scalar"}
 
 
 def sub_counts() -> dict:
@@ -1118,6 +1186,16 @@ def sub_counts() -> dict:
     return {"flash_attention": dict(ops.flash_attention.launches_by_path),
             "rmsnorm": dict(ops.rmsnorm.launches_by_variant),
             "rglru_scan": dict(ops.rglru_scan.launches_by_route)}
+
+
+def counts_since(before: tuple) -> tuple:
+    """The launches, and their splits (:func:`sub_counts`), made since
+    ``before = (ops.launch_counts(), sub_counts())``: a phase reads a part
+    of its run this way without setting the counts to 0."""
+    (b, b_sub), a, a_sub = before, ops.launch_counts(), sub_counts()
+    return ({k: n - b[k] for k, n in a.items()},
+            {name: {k: n - b_sub[name].get(k, 0) for k, n in split.items()}
+             for name, split in a_sub.items()})
 
 
 def check_sub_counts(label, what, counts, launches, kernels) -> None:
@@ -1139,12 +1217,13 @@ def check_sub_counts(label, what, counts, launches, kernels) -> None:
 def forced_chromosome(graph, coding, site_variant=None) -> tuple:
     """Every matched site on its ``cuda`` variant (with ``site_variant``,
     on the variant it names for the site's module, ``cuda`` or ``ref``),
-    every other site on ``ref``."""
+    every other site -- a function block's gene too, so that its members
+    bind the kernels -- on ``ref``."""
     bits = []
     for s in coding.sites:
         region = graph.by_name(s.region)
-        if not region.meta.get("pattern"):
-            bits.append(0)
+        if not region.meta.get("pattern") or s.members:
+            bits.append(0)              # unmatched, or a function block
             continue
         variant = site_variant(region.meta["module"]) if site_variant \
             else "cuda"
@@ -1159,7 +1238,7 @@ def check_site_order(label, graph, coding) -> None:
         return
     found = [(r.meta["module"], r.meta["pattern"]) for r in
              (graph.by_name(s.region) for s in coding.sites)
-             if r.meta.get("pattern")]
+             if r.meta.get("pattern") and not r.meta.get("block_members")]
     want = PATH_SITE_ORDER[label]
     first = next((i for i, (f, w) in enumerate(itertools.zip_longest(
         found, want)) if f != w), None)
@@ -1243,8 +1322,9 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     t0 = time.perf_counter()
     forced = engine.substitute(res.coding.decode(forced_bits))
     substitute_s = time.perf_counter() - t0
+    blocks = {r.name: r for r in block_regions(res.graph)}
     chosen = [(c.pattern, c.chosen) for c in forced.report.choices
-              if c.pattern]
+              if c.pattern and c.region not in blocks]
     check(sorted(chosen) == sorted(expected),
           f"path {label}: forced all-kernel plan did not bind the kernels: "
           f"{chosen} ({forced.report.fallbacks})")
@@ -1319,7 +1399,19 @@ def phase_path(label, dev, scratch: Path) -> tuple:
         "chosen": per_site,
         "measurements": res.ga.evaluations,
         "s_per_chromosome": res.ga.eval_wall_s / max(res.ga.evaluations, 1),
-        "plan_s": plan_s, "verify_failures": verify_fails,
+        "plan_s": plan_s,
+        "overlap": {"compile_overlap_saved_s":
+                    res.ga.compile_overlap_saved_s,
+                    "overlap_est_saved_s": res.ga.overlap_est_saved_s,
+                    "overlap_disabled": res.ga.overlap_disabled},
+        "fnblock": {name: {"pattern": r.meta["pattern"],
+                           "variants": list(r.alternatives[1:]),
+                           "members": list(r.meta["block_members"]),
+                           "chosen": res.artifact.report.substituted.get(
+                               name, "ref")}
+                    for name, r in blocks.items()},
+        "n_fnblock": len(blocks),
+        "verify_failures": verify_fails,
         "n_verify_failures": len(verify_fails),
         "artifact_max_abs": v.max_abs, "forced_max_abs": fv.max_abs,
         "forced_max_rel": fv.max_rel, "forced_launches": forced_launches,
@@ -1346,7 +1438,9 @@ def phase_path(label, dev, scratch: Path) -> tuple:
           f"program is made, {planned_gb:.2f} GB after planning, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return launches, {k: search_counts[k] for k in kernels
-                      if k in search_counts}
+                      if k in search_counts}, {
+        k: summary[k] for k in ("plan_s", "n_fnblock", "fnblock", "overlap",
+                                "measurements", "gene_length")}
 
 
 #: paths that run the finding of the causal binder
@@ -1483,27 +1577,6 @@ def moe_dense_forward(dev) -> dict:
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print("where the time goes, path E, all reference under dense_onehot:",
           json.dumps(out), flush=True)
-    return out
-
-
-def rwkv_forms(dev) -> dict:
-    """Path F's prefill once under the ``step`` WKV form (the reference's
-    oracle: a scan of 2048 steps a layer) and once under ``chunked``: the
-    wall time of each, and the verifier's rule between them."""
-    model, params, tokens = _model_f32(dev, "rwkv6_3b")
-    outs, out = {}, {}
-    for form in ("step", "chunked"):
-        plan = PATH_F_PLAN.replace(wkv_impl=form)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            outs[form] = model.prefill(params, {"tokens": tokens}, plan)
-        torch.cuda.synchronize()
-        out[f"{form}_wall_s"] = time.perf_counter() - t0
-    v = verify(outs["step"], outs["chunked"], rtol=1e-2, atol=1e-2)
-    out.update(verified=v.ok, max_abs=v.max_abs, max_rel=v.max_rel)
-    print("path F, step against chunked:", json.dumps(out), flush=True)
-    check(v.ok, f"path F: the chunked prefill differs from the step one: {v}")
     return out
 
 
@@ -1983,7 +2056,8 @@ P_KERNEL = {"attention": "flash_attention", "rmsnorm": "rmsnorm",
 P_GA = (4, 2)
 #: the kernels each path runs (phase P: its three workloads')
 PATH_KERNELS = {**{label: p[3] for label, p in PATHS.items()},
-                "P": tuple(P_KERNEL.values())}
+                "P": tuple(P_KERNEL.values()), "K": ("flash_attention",
+                                                     "rmsnorm")}
 
 
 def p_workloads() -> dict:
@@ -2093,16 +2167,14 @@ def p_launched(fn) -> tuple:
     """Run ``fn`` once: its result, the kernels it launched and their
     launches by flash path, RMSNorm variant and RG-LRU route (differences
     of the wrappers' counts, which phase P's total keeps)."""
-    before, before_sub = ops.launch_counts(), sub_counts()
+    before = ops.launch_counts(), sub_counts()
     out = fn()
     torch.cuda.synchronize()
-    after, after_sub = ops.launch_counts(), sub_counts()
-    launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
-    by = {name: {k: n - before_sub[name].get(k, 0)
-                 for k, n in counts.items()
-                 if n != before_sub[name].get(k, 0)}
-          for name, counts in after_sub.items()}
-    return out, launches, {k: v for k, v in by.items() if v}
+    launches, by = counts_since(before)
+    by = {name: {k: n for k, n in split.items() if n}
+          for name, split in by.items()}
+    return out, {k: n for k, n in launches.items() if n}, \
+        {k: v for k, v in by.items() if v}
 
 
 def p_reference(ctx) -> dict:
@@ -2213,6 +2285,391 @@ def phase_python(dev, scratch: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase K: function-block genes in the export frontend, at published widths
+# ---------------------------------------------------------------------------
+
+#: K1: Qwen3-0.6B's d_model and head_dim, a 2048-token single-head stack;
+#: K2: OLMoE-1B-7B's MoE (d 2048, 64 experts top-8, expert width 1024)
+#: over 4096 tokens, in the record's dense one-hot form
+K1_S = 2048
+K2_T = 4096
+K_GA = (6, 2)
+
+
+class CausalAttention(torch.nn.Module):
+    """Causal single-head attention over (S, dh) q, k, v: the attention
+    core as a submodule (its attribute ``attention`` is what the
+    ``softmax_attention`` and ``attention_stack`` records match by name)."""
+
+    def forward(self, q, k, v):
+        s = q @ k.T / math.sqrt(q.shape[-1])
+        mask = torch.tril(torch.ones(q.shape[0], k.shape[0],
+                                     dtype=torch.bool, device=q.device))
+        return torch.softmax(torch.where(mask, s, -1e30), dim=-1) @ v
+
+
+class AttentionStack(torch.nn.Module):
+    """K1's program: RMSNorm (a submodule), the q/k/v projections, causal
+    single-head attention (a submodule), the output projection and the
+    residual, over an (S, d) residual stream."""
+
+    def __init__(self, d, dh, gen, dev):
+        super().__init__()
+        self.norm = RMSNorm(d, device=dev)
+        with torch.no_grad():
+            self.norm.weight.copy_(torch.randn(d, generator=gen) * 0.1)
+
+        def w(fan_in, fan_out):
+            return torch.nn.Parameter((torch.randn(fan_in, fan_out,
+                                                   generator=gen)
+                                       / math.sqrt(fan_in)).to(dev))
+        self.wq, self.wk, self.wv, self.wo = (w(d, dh), w(d, dh), w(d, dh),
+                                              w(dh, d))
+        self.attention = CausalAttention()
+
+    def forward(self, x):
+        xn = self.norm(x)
+        o = self.attention(xn @ self.wq, xn @ self.wk, xn @ self.wv)
+        return x + o @ self.wo
+
+
+class TopKRouter(torch.nn.Module):
+    """Softmax top-k router returning the (T, E) combined gate matrix:
+    zero outside each token's k experts, gates renormalized."""
+
+    def __init__(self, weight, top_k):
+        super().__init__()
+        self.weight = torch.nn.Parameter(weight)
+        self.top_k = top_k
+
+    def forward(self, x):
+        probs = torch.softmax(x @ self.weight, dim=-1)
+        gates, idx = torch.topk(probs, self.top_k)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        onehot = (idx[..., None] == torch.arange(
+            self.weight.shape[1], device=x.device)).float()
+        return torch.einsum("tk,tke->te", gates, onehot)
+
+
+class DenseExperts(torch.nn.Module):
+    """Every token through every expert's SwiGLU FFN, combined by the gate
+    matrix (the dense one-hot form: (T, E, F) intermediates)."""
+
+    def __init__(self, w_gate, w_up, w_down):
+        super().__init__()
+        self.w_gate, self.w_up, self.w_down = (
+            torch.nn.Parameter(w) for w in (w_gate, w_up, w_down))
+
+    def forward(self, x, combine):
+        g = torch.einsum("td,edf->tef", x, self.w_gate)
+        u = torch.einsum("td,edf->tef", x, self.w_up)
+        y = torch.einsum("tef,efd->ted", F.silu(g) * u, self.w_down)
+        return torch.einsum("ted,te->td", y, combine)
+
+
+class MoEDispatch(torch.nn.Module):
+    """K2's program: the ``moe_dispatch`` record's dense one-hot MoE, the
+    router and the experts as submodules."""
+
+    def __init__(self, cfg, gen, dev):
+        super().__init__()
+        e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+
+        def w(*shape, fan_in):
+            return (torch.randn(*shape, generator=gen)
+                    / math.sqrt(fan_in)).to(dev)
+        self.router = TopKRouter(w(d, e, fan_in=d), cfg.moe.top_k)
+        self.experts = DenseExperts(w(e, d, f, fan_in=d), w(e, d, f, fan_in=d),
+                                    w(e, f, d, fan_in=f))
+
+    def forward(self, x):
+        return self.experts(x, self.router(x))
+
+
+def k_programs(dev) -> dict:
+    """K1 and K2 at published widths, weights and inputs from seed 0."""
+    qwen, olmoe = get_config("qwen3_0_6b"), get_config("olmoe_1b_7b")
+    gen = torch.Generator().manual_seed(SEED)
+    k1 = AttentionStack(qwen.d_model, qwen.resolved_head_dim, gen, dev)
+    x1 = torch.randn(K1_S, qwen.d_model, generator=gen).to(dev)
+    gen = torch.Generator().manual_seed(SEED)
+    k2 = MoEDispatch(olmoe, gen, dev)
+    x2 = torch.randn(K2_T, olmoe.d_model, generator=gen).to(dev)
+    return {"K1": (k1, (x1,)), "K2": (k2, (x2,))}
+
+
+def k_plan(label, model, args, scratch: Path, block_sites: bool,
+           seed_forced: bool = False):
+    """One arm of phase K: ``Offloader.plan``'s two halves (export
+    frontend, f32, seed 0, GA 6 x 2, 1 repeat) with block sites on (the
+    default) or off; with ``seed_forced`` the search starts from the
+    forced all-kernel chromosome too, so that it launches every kernel the
+    program binds.  Returns the result, the planning wall time and the
+    launches of the plan (:func:`counts_since`)."""
+    arm = "block" if block_sites else "loop"
+    cache = scratch / f"{label}-{arm}"
+    options = {"example_args": args}
+    if not block_sites:
+        options["block_sites"] = False
+    config = OffloadConfig(
+        device=str(args[0].device),
+        ga=GAConfig(population=K_GA[0], generations=K_GA[1],
+                                   seed=SEED, cache_dir=str(cache)),
+        repeats=1, options=options,
+        log=lambda m: print(f"  plan {label} {arm}:", m, flush=True))
+    before = ops.launch_counts(), sub_counts()
+    t0 = time.perf_counter()
+    offloader = Offloader(config)
+    ctx = offloader.prepare(model)
+    seeds = [forced_chromosome(ctx.graph, ctx.coding)] if seed_forced else []
+    res = offloader.search(ctx, extra_seeds=seeds)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    searched = counts_since(before)
+    check(res.verification["verified"],
+          f"phase K {label} {arm}: the winning plan did not verify")
+    return res, plan_s, searched
+
+
+def k_chosen(res) -> dict:
+    """The winner's implementation at each gene site (``ref`` where none
+    was substituted)."""
+    sub = res.artifact.report.substituted
+    return {s.region: sub.get(s.region, "ref") for s in res.coding.sites}
+
+
+def k_time(fn, args, flush) -> float:
+    """A forward's device time (median of 5, CUDA events, L2 flushed)."""
+    with torch.no_grad():
+        return time_ms(lambda: fn(*args), flush, repeats=5)
+
+
+def block_regions(graph) -> list:
+    """The graph's function-block (``fnblock_*``) regions."""
+    return [r for r in graph.regions if r.meta.get("block_members")]
+
+
+def phase_blocks(dev, scratch: Path) -> dict:
+    """Phase K: the reference's ``bench_block_offload`` comparison at
+    published widths.  Each program is planned twice through
+    ``Offloader.plan``, with block sites on and with
+    ``options={"block_sites": False}``.  K1 (the attention stack) must get
+    exactly one ``fnblock_*`` region binding ``block_chunked`` and
+    ``block_fused``, each verifying; the loop arm's forced chromosome must
+    launch the RMSNorm and flash kernels once each and verify.  K2 (the MoE
+    dispatch) must get one ``fnblock_*`` region whose ``block_scatter``
+    binds and verifies.  Each arm's winner, its forward time and the forced
+    chromosomes' times are printed.  K1's searches start from the forced
+    chromosome too.  Returns the launches, and their splits, of the four
+    plans alone: the checks and timings around them are read as
+    differences of the counts and left out."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out, searched = {}, []
+    programs = k_programs(dev)
+
+    # --- K1: the attention stack --------------------------------------
+    model, args = programs.pop("K1")
+    with torch.no_grad():
+        reference = model(*args)
+    res, plan_s, counts = k_plan("K1", model, args, scratch, True, True)
+    searched.append(counts)
+    blocks = block_regions(res.graph)
+    check(len(blocks) == 1 and blocks[0].meta["pattern"] == "attention_stack",
+          f"phase K1: expected one attention_stack fnblock region, found "
+          f"{[(b.name, b.meta['pattern']) for b in blocks]}")
+    fb = blocks[0]
+    engine = res.details["engine"]
+    k1 = {"block_arm": {"plan_s": plan_s, "fnblock": fb.name,
+                        "members": list(fb.meta["block_members"]),
+                        "window_nodes": len(fb.meta["nodes"]),
+                        "winner": k_chosen(res),
+                        "best_bits": "".join(map(str, res.best.bits)),
+                        "best_s": res.best.time_s,
+                        "baseline_s": res.baseline.time_s,
+                        "speedup": res.speedup,
+                        "overlap_est_saved_s": res.ga.overlap_est_saved_s,
+                        "overlap_disabled": res.ga.overlap_disabled,
+                        "search_launches": counts[0],
+                        "variants": {}}}
+    for variant in ("block_chunked", "block_fused"):
+        v, chosen = engine.verify_block(fb.name, variant)
+        sub = engine.substitute({fb.name: variant})
+        with torch.no_grad():
+            got, launched, _ = p_launched(lambda: sub(*args))
+        fv = verify(reference, got, rtol=1e-2, atol=1e-2)
+        check(chosen == variant and v.ok and fv.ok
+              and sub.report.substituted == {fb.name: variant},
+              f"phase K1: {variant} bound {chosen}, verified block {v}, "
+              f"program {fv}, substituted {sub.report.substituted}")
+        k1["block_arm"]["variants"][variant] = {
+            "block_max_abs": v.max_abs, "max_abs": fv.max_abs,
+            "launches": launched, "ms": k_time(sub, args, flush)}
+    k1["block_arm"]["all_ref_ms"] = k_time(engine.substitute({}), args,
+                                           flush)
+    k1["block_arm"]["winner_ms"] = k_time(res.artifact, args, flush)
+    del res, engine
+
+    res, plan_s, counts = k_plan("K1", model, args, scratch, False, True)
+    searched.append(counts)
+    check(not block_regions(res.graph), "phase K1 loop arm: a block region")
+    engine = res.details["engine"]
+    forced = forced_chromosome(res.graph, res.coding)
+    sub = engine.substitute(res.coding.decode(forced))
+    with torch.no_grad():
+        got, launched, _ = p_launched(lambda: sub(*args))
+    fv = verify(reference, got, rtol=1e-2, atol=1e-2)
+    check(launched == {"flash_attention": 1, "rmsnorm": 1} and fv.ok,
+          f"phase K1 loop arm: the forced chromosome launched {launched}, "
+          f"verified {fv}")
+    k1["loop_arm"] = {"plan_s": plan_s, "winner": k_chosen(res),
+                      "best_bits": "".join(map(str, res.best.bits)),
+                      "best_s": res.best.time_s,
+                      "baseline_s": res.baseline.time_s,
+                      "speedup": res.speedup,
+                      "overlap_est_saved_s": res.ga.overlap_est_saved_s,
+                      "overlap_disabled": res.ga.overlap_disabled,
+                      "search_launches": counts[0],
+                      "forced": {"bits": "".join(map(str, forced)),
+                                 "substituted": sub.report.substituted,
+                                 "launches": launched,
+                                 "max_abs": fv.max_abs,
+                                 "ms": k_time(sub, args, flush)},
+                      "winner_ms": k_time(res.artifact, args, flush)}
+    print("phase K1:", json.dumps(k1), flush=True)
+    out["K1"] = k1
+    del res, engine, sub, model, args, reference
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- K2: the MoE dispatch -----------------------------------------
+    model, args = programs.pop("K2")
+    with torch.no_grad():
+        reference = model(*args)
+    k2 = {}
+    for block_sites in (True, False):
+        arm = "block_arm" if block_sites else "loop_arm"
+        torch.cuda.reset_peak_memory_stats()
+        res, plan_s, counts = k_plan("K2", model, args, scratch,
+                                     block_sites)
+        searched.append(counts)
+        engine = res.details["engine"]
+        blocks = block_regions(res.graph)
+        entry = {"plan_s": plan_s, "winner": k_chosen(res),
+                 "best_bits": "".join(map(str, res.best.bits)),
+                 "best_s": res.best.time_s,
+                 "baseline_s": res.baseline.time_s,
+                 "overlap_est_saved_s": res.ga.overlap_est_saved_s,
+                 "overlap_disabled": res.ga.overlap_disabled,
+                 "search_launches": counts[0],
+                 "dense_ms": k_time(engine.substitute({}), args, flush)}
+        if block_sites:
+            check(len(blocks) == 1
+                  and blocks[0].meta["pattern"] == "moe_dispatch",
+                  f"phase K2: expected one moe_dispatch fnblock region, "
+                  f"found {[(b.name, b.meta['pattern']) for b in blocks]}")
+            fb = blocks[0]
+            v, chosen = engine.verify_block(fb.name, "block_scatter")
+            sub = engine.substitute({fb.name: "block_scatter"})
+            with torch.no_grad():
+                fv = verify(reference, sub(*args), rtol=1e-2, atol=1e-2)
+            check(chosen == "block_scatter" and v.ok and fv.ok,
+                  f"phase K2: block_scatter bound {chosen}, verified block "
+                  f"{v}, program {fv}")
+            entry.update(fnblock=fb.name,
+                         members=list(fb.meta["block_members"]),
+                         block_scatter={"block_max_abs": v.max_abs,
+                                        "max_abs": fv.max_abs,
+                                        "ms": k_time(sub, args, flush)},
+                         picked=entry["winner"][fb.name])
+            del sub
+        else:
+            check(not blocks, "phase K2 loop arm: a block region")
+        entry["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        k2[arm] = entry
+        del res, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("phase K2:", json.dumps(k2), flush=True)
+    out["K2"] = k2
+    launches = {k: sum(c[0][k] for c in searched) for k in searched[0][0]}
+    splits = {name: {k: sum(c[1][name].get(k, 0) for c in searched)
+                     for k in {k for c in searched for k in c[1][name]}}
+              for name in searched[0][1]}
+    return launches, splits
+
+
+class DeterministicTiming:
+    """A measured fitness whose ``prepare`` is the real one (substitute,
+    warm-up run on the card, verify) and whose ``measure`` returns a time
+    that is a fixed function of the chromosome: two searches that differ
+    only in how their prepares are scheduled then follow the same GA
+    trajectory, so the overlap phase's effect on the plan can be compared
+    exactly (a wall-clock time differs from run to run)."""
+
+    def __init__(self, fitness):
+        self.fitness = fitness
+        self.measured: list = []
+
+    def prepare(self, bits):
+        return self.fitness.prepare(bits)
+
+    def measure(self, prepared):
+        from repro_torch.core.ga import Evaluation
+
+        self.measured.append(prepared.bits)
+        if prepared.failure is not None:
+            return prepared.failure
+        bits = prepared.bits
+        return Evaluation(bits, 1.0 - sum((i % 3 + 1) * 0.01 * int(v)
+                                          for i, v in enumerate(bits)),
+                          True, {})
+
+    def __call__(self, bits):
+        return self.measure(self.prepare(bits))
+
+
+def phase_overlap(dev, scratch: Path) -> dict:
+    """Path Q planned twice, its prepares serial (``compile_workers=0``)
+    and overlapped on 4 threads, each chromosome's time a fixed function
+    of its bits (:class:`DeterministicTiming`) so the two searches must
+    agree: the same best bits and the same set of measured chromosomes.
+    Their planning wall times and the overlap phase's own estimate are
+    printed."""
+    target, args = path_q(dev)
+    out = {}
+    for workers in (0, 4):
+        ga = GAConfig(population=PATHS["Q"][1][0],
+                      generations=PATHS["Q"][1][1], seed=SEED,
+                      compile_workers=workers,
+                      cache_dir=str(scratch / f"Q-cw{workers}"))
+        offloader = Offloader(OffloadConfig(
+            device=str(dev), ga=ga, repeats=1,
+            options={"example_args": args}))
+        ctx = offloader.prepare(target)
+        fitness = DeterministicTiming(ctx.bundle.fitness_factory(ctx.coding))
+        ctx.config.fitness_fn = fitness
+        t0 = time.perf_counter()
+        res = offloader.search(ctx)
+        torch.cuda.synchronize()
+        out[workers] = {"plan_s": time.perf_counter() - t0,
+                        "best_bits": "".join(map(str, res.best.bits)),
+                        "measured": sorted("".join(map(str, b))
+                                           for b in fitness.measured),
+                        "n_measured": len(fitness.measured),
+                        "compile_overlap_saved_s":
+                            res.ga.compile_overlap_saved_s,
+                        "overlap_est_saved_s": res.ga.overlap_est_saved_s,
+                        "overlap_disabled": res.ga.overlap_disabled}
+    check(out[0]["best_bits"] == out[4]["best_bits"]
+          and out[0]["measured"] == out[4]["measured"],
+          f"path Q: the overlapped search differs from the serial one: "
+          f"{out}")
+    print("path Q, serial against overlapped prepares:", json.dumps(out),
+          flush=True)
+    return out
+
+
 def where_time_goes(fn, args, iters: int) -> dict:
     """One forward of ``fn``: host wall time (synchronized, no profiler)
     beside the time ``torch.profiler`` records for the device's own
@@ -2295,7 +2752,12 @@ def _journal_fingerprint(scratch: Path) -> str:
     return journals[0].stem[len("measurements_"):]
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    """The full run with no arguments.  ``--only K`` runs the build and
+    phase K alone, and its last line says so (``phase K alone: ok``), not
+    the full run's contract line."""
+    check(argv in ([], ["--only", "K"]), "usage: chip_smoke.py [--only K]")
+    only_k = bool(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2320,48 +2782,80 @@ def main() -> int:
                       if v.get("spill_stores") or v.get("spill_loads")}
             check(not spills, f"{name}: kernels spill: {spills}")
 
-    kernels = phase_kernels(dev)
-    print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
-    by_path = {}
+    kernels = None
+    if not only_k:
+        kernels = phase_kernels(dev)
+        print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+    by_path, plans = {}, {}
     sub_keys = {"flash_attention": "launches_by_kernel_path",
                 "rmsnorm": "launches_by_variant",
                 "rglru_scan": "launches_by_route"}
+
+    def record(label, launches, counts):
+        by_path[label] = launches
+        if kernels is None:
+            return
+        for name in PATH_KERNELS[label]:
+            if name in sub_keys:
+                kernels[name].setdefault(sub_keys[name], {})[label] = \
+                    counts[name]
 
     def run_path(label):
         scratch = Path(tempfile.mkdtemp(prefix=f"plan-{label}-",
                                         dir=build.BUILD_DIR))
         try:
-            by_path[label], by_kernel = phase_path(label, dev, scratch)
-            for name, counts in by_kernel.items():
-                if name in sub_keys:
-                    kernels[name].setdefault(sub_keys[name], {})[label] = \
-                        counts
+            launches, by_kernel, plans[label] = phase_path(label, dev,
+                                                           scratch)
+            record(label, launches, by_kernel)
         finally:
             shutil.rmtree(scratch)
         done(f"path {label}")
+
+    def run_phase(label, fn, counts_its_plans=False):
+        """A phase driven with the launch counters set to 0 just before it
+        and read just after, or, ``counts_its_plans``, the launches of its
+        plans as it returns them; each of its kernels must have launched."""
+        scratch = Path(tempfile.mkdtemp(prefix=f"plan-{label}-",
+                                        dir=build.BUILD_DIR))
+        ops.reset_launch_counts()
+        try:
+            planned = fn(dev, scratch)
+        finally:
+            shutil.rmtree(scratch)
+        launches, counts = planned if counts_its_plans else \
+            (ops.launch_counts(), sub_counts())
+        for name in PATH_KERNELS[label]:
+            check(launches[name] > 0,
+                  f"phase {label}: the {name} kernel was never launched")
+        check_sub_counts(label, "its plans", counts, launches,
+                         PATH_KERNELS[label])
+        record(label, launches, counts)
+        print(f"phase {label} launches:", json.dumps(launches),
+              json.dumps(counts), flush=True)
+        done(f"phase {label}")
 
     def done(what):
         print(f"{what} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
 
-    # phase P: numeric Python source through the python_ast frontend
-    scratch = Path(tempfile.mkdtemp(prefix="plan-P-", dir=build.BUILD_DIR))
-    ops.reset_launch_counts()
+    if only_k:
+        run_phase("K", phase_blocks, counts_its_plans=True)
+        print("phase K alone: ok", flush=True)
+        return 0
+    # numeric Python source through the python_ast frontend
+    run_phase("P", phase_python)
+    # function-block genes at published widths
+    run_phase("K", phase_blocks, counts_its_plans=True)
+    run_path("Q")
+    # path Q's prepares serial against overlapped
+    scratch = Path(tempfile.mkdtemp(prefix="plan-QO-", dir=build.BUILD_DIR))
     try:
-        phase_python(dev, scratch)
+        phase_overlap(dev, scratch)
     finally:
         shutil.rmtree(scratch)
-    by_path["P"] = ops.launch_counts()
-    p_counts = sub_counts()
-    for name in PATH_KERNELS["P"]:
-        check(by_path["P"][name] > 0,
-              f"phase P: the {name} kernel was never launched")
-        kernels[name].setdefault(sub_keys[name], {})["P"] = p_counts[name]
-    print("phase P launches:", json.dumps(by_path["P"]), json.dumps(p_counts),
-          flush=True)
-    done("phase P")
-
-    for label in ("Q", "R", "W", "M", "H"):
+    done("path Q, serial against overlapped prepares")
+    for label in ("R", "W", "M", "H"):
         run_path(label)
     for label, make_model, n_sites in (
             ("M", qwen3_model, len(PATH_M_SITES)),
@@ -2383,15 +2877,13 @@ def main() -> int:
                 SERVE_NEW_H, False)
     done("serve E")
     free_models()
-    rwkv_forms(dev)
-    done("path F, step and chunked")
     run_path("F")
     serve_phase(dev, "F", lambda d, _: _model_f32(d, "rwkv6_3b"),
                 SERVE_NEW_H, False)
     done("serve F")
+    free_models()
     # the whole Whisper-small: its prefill planned, its bf16 diagnostic,
     # and serving (path SW), the Server casting the f32 draw once
-    free_models()
     run_path("X")
     bf16_diagnostic(dev, "X", whisper_model,
                     sum(v == "cuda" for _, v in PATH_X_SITES), causal_sites)
@@ -2402,6 +2894,9 @@ def main() -> int:
     free_models()
     phase_train(dev)
     done("phase T")
+    # each path's planning: wall time, the function-block genes that bind,
+    # and what the overlap phase did
+    print("planning by path:", json.dumps(plans), flush=True)
     for name, entry in kernels.items():
         per_path = {label: counts[name] for label, counts in by_path.items()
                     if name in PATH_KERNELS[label]}
@@ -2415,4 +2910,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,27 +1,61 @@
-"""Port of ``repro/core/evaluator.py``: the serial path — :class:`Evaluator`
-and the persistent :class:`MeasurementCache` keyed by program fingerprint.
-
-The measured export path is serial by nature (wall-clock timings must not
-interleave), as the reference's measured jaxpr path is (``serial_only``).
-The reference's thread pool, process pool, compile-overlap phase and
-surrogate pre-screen are not ported yet; its static
-:func:`transfer_cost_surrogate` is (the static-cost fitness ranks by it).
+"""Port of ``repro/core/evaluator.py``: the batched-parallel GA evaluation
+engine (the "verification environment" scheduler) -- thread pool with
+in-flight dedup, persistent measurement cache, surrogate pre-screen,
+compile-parallel / time-serial phase with its probe calibration and
+self-disable, and the spawn :class:`ProcessPool` built from a registered
+fitness factory.
 
 The paper measures every offload pattern in a real verification environment
-(run + verify), which makes measurement the search bottleneck.  This module
-reduces the *number* of measurements (arXiv:2002.12115): a whole generation
-is deduped against the in-memory cache (phenotype-keyed, so chromosomes that
-decode to the same program share one measurement) and against an on-disk
-journal so re-planning the same program never re-measures a known pattern.
-Results come back in population order.
+(build + run + verify), which makes measurement the search bottleneck.
+Yamato's follow-up work (arXiv:2002.12115) attacks exactly this: reduce the
+*number* of verification measurements (dedup, duplicate-avoiding offspring)
+and their *cost* (reuse across runs).  This module is that subsystem:
+
+* **generation-batched, parallel evaluation** — the whole offspring
+  population is deduped against the cache and dispatched to a thread pool
+  (wall-clock fitness must stay serial for timing fidelity, ``workers=0``),
+  with *in-flight dedup* so identical chromosomes proposed concurrently are
+  measured once;
+
+* a **persistent on-disk measurement cache** keyed by
+  ``(program fingerprint, bits)`` so re-planning the same program across
+  processes never re-measures a known pattern;
+
+* an optional **surrogate pre-screen**: offspring are ranked by a cost
+  estimate (the static transfer-cost formula below, or a journal-fitted
+  :class:`repro_torch.core.surrogate.FittedSurrogate`) and only the most
+  promising ``screen_top_k`` are measured per generation.  Measurement
+  stays the final arbiter — the surrogate only prioritizes, it never
+  scores a chromosome (the paper's anti-static-prediction stance);
+
+* a **compile-parallel / time-serial phase** for two-phase fitness
+  functions (:class:`repro_torch.core.fitness.WallClockFitness` and
+  anything else exposing ``prepare(bits)`` / ``measure(prepared)``): when
+  the timing loop must stay serial (``workers <= 1``), per-chromosome
+  prepares (substitution, warm-up run, verification) are dispatched
+  concurrently on ``compile_workers`` threads *ahead* of the strictly
+  serial timing loop, so a generation pays max(prepare) instead of
+  sum(prepare) where prepares overlap.  A prepare that holds the GIL (FX
+  surgery, eager forwards) contends instead; the phase measures that and
+  turns itself off.  The card is synchronized before the first timing, so
+  no prepare's launches leak into it.  :class:`EvalStats` reports the
+  wall-clock saved.
+
+The engine is deterministic: results are returned in population order and a
+fixed-seed GA run produces identical results in serial and parallel modes
+(fitness functions themselves must be deterministic for this to hold).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import os
+import sys
+import threading
 import time
-from dataclasses import dataclass
+from concurrent.futures import Future, ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import wait as _wait_futures
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
 
 from repro_torch.core.ga import Evaluation
@@ -29,8 +63,10 @@ from repro_torch.core.journal import Journal, newest_per_key
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
-__all__ = ["EvalStats", "Evaluator", "MeasurementCache"]
-
+__all__ = ["EvalStats", "Evaluator", "MeasurementCache", "ProcessPool",
+           "transfer_cost_surrogate", "register_fitness_factory",
+           "fitness_factory", "fitness_factory_names", "record_search_meta",
+           "last_rank_corr"]
 
 # ---------------------------------------------------------------------------
 # persistent measurement cache
@@ -41,14 +77,27 @@ def _bits_key(bits: Sequence[int]) -> str:
     return "".join(str(int(b)) for b in bits) or "-"
 
 
-#: default per-fingerprint measurement-journal bound (newest-per-bits
-#: compaction past 2x this bound keeps journals finite).
+#: default per-fingerprint measurement-journal bound.  A long-lived planning
+#: service replays GA refinement against the same fingerprint indefinitely;
+#: newest-per-bits compaction past 2x this bound (the seed bank's policy)
+#: keeps journals finite without ever discarding the latest measurement of a
+#: pattern.
 _MEASUREMENTS_MAX_RECORDS = 2048
 
 
 class MeasurementCache:
-    """On-disk (fingerprint, bits) -> Evaluation store, one JSONL per program,
-    on the shared :class:`~repro_torch.core.journal.Journal`."""
+    """On-disk (fingerprint, bits) -> Evaluation store, one JSONL per program.
+
+    Built on the shared :class:`repro_torch.core.journal.Journal` (the same
+    flock/fsync code path as the seed bank, search meta, surrogate fits and
+    the plan store): appends serialize on the sidecar lock so concurrent
+    writers from different processes can share one file; duplicate lines are
+    harmless (last write wins on load).  Only *finite, valid-or-invalid
+    measured* results are persisted — screened or skipped chromosomes never
+    enter the store.  The journal is bounded: past ``2 * max_records`` lines
+    it compacts to the newest record per bits-key, newest ``max_records``
+    overall, so a long-lived service can't grow it without limit.
+    """
 
     def __init__(self, cache_dir: str, fingerprint: str,
                  max_records: int = _MEASUREMENTS_MAX_RECORDS):
@@ -93,8 +142,90 @@ class MeasurementCache:
 
 
 # ---------------------------------------------------------------------------
+# per-search metadata: the surrogate's measured track record
+# ---------------------------------------------------------------------------
+
+_SEARCH_META_FILE = "search_meta.jsonl"
+_SEARCH_META_MAX_LINES = 512
+#: default staleness horizon for rank-corr records: a fingerprint's surrogate
+#: track record from last week says little about today's machine/load, and
+#: auto-screening must never act on a stale fingerprint.
+_SEARCH_META_HORIZON_S = 7 * 24 * 3600.0
+
+
+def record_search_meta(cache_dir: str, fingerprint: str,
+                       rank_corr: float, now: Optional[float] = None,
+                       horizon_s: Optional[float] = None,
+                       kind: Optional[str] = None) -> None:
+    """Journal one search's surrogate rank correlation for its program
+    fingerprint — the evidence :func:`last_rank_corr` serves back so a later
+    search of the same program can justify screening automatically.
+
+    Records are timestamped, and the journal decays: records older than the
+    staleness horizon (``horizon_s``, default one week) are compacted away,
+    as are legacy records without a timestamp (their age is unprovable).
+    Past ``_SEARCH_META_MAX_LINES`` live lines the journal additionally
+    collapses to the newest record per fingerprint (writes serialize on a
+    sidecar flock, like the seed bank's journal)."""
+    if not math.isfinite(rank_corr):
+        return
+    now = time.time() if now is None else float(now)
+    horizon = _SEARCH_META_HORIZON_S if horizon_s is None else float(horizon_s)
+    os.makedirs(cache_dir, exist_ok=True)
+    journal = Journal(os.path.join(cache_dir, _SEARCH_META_FILE))
+    rec = {"fingerprint": fingerprint, "rank_corr": float(rank_corr),
+           "ts": now}
+    if kind:                     # which surrogate produced the evidence
+        rec["kind"] = str(kind)  # (static formula vs journal-fitted model)
+    with journal.lock():
+        journal.append([rec], locked=False)
+        recs = journal.records()
+        fresh = [r for r in recs
+                 if isinstance(r.get("ts"), (int, float))
+                 and now - r["ts"] <= horizon]
+        if len(fresh) == len(recs) and len(recs) <= _SEARCH_META_MAX_LINES:
+            return
+        journal.rewrite(
+            newest_per_key(fresh, key=lambda r: r.get("fingerprint"),
+                           max_records=_SEARCH_META_MAX_LINES),
+            locked=False)
+
+
+def last_rank_corr(cache_dir: str, fingerprint: str,
+                   max_age_s: Optional[float] = None,
+                   now: Optional[float] = None) -> Optional[float]:
+    """Most recent recorded surrogate rank correlation for a fingerprint.
+
+    Records older than ``max_age_s`` (default: the one-week staleness
+    horizon) — and legacy records with no timestamp — are ignored, so
+    auto-screening can never act on a stale fingerprint."""
+    now = time.time() if now is None else float(now)
+    max_age = _SEARCH_META_HORIZON_S if max_age_s is None else float(max_age_s)
+    out: Optional[float] = None
+    journal = Journal(os.path.join(cache_dir, _SEARCH_META_FILE))
+    for rec in journal.records():
+        if rec.get("fingerprint") == fingerprint:
+            ts = rec.get("ts")
+            if not isinstance(ts, (int, float)) or now - ts > max_age:
+                continue         # stale (or unprovably fresh)
+            corr = rec.get("rank_corr")
+            if isinstance(corr, (int, float)) and math.isfinite(corr):
+                out = float(corr)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
+
+
+def _synchronize_device() -> None:
+    """Wait for the card where this process has used one (a fitness on the
+    CPU, or a process-pool worker that never touched CUDA, skips this)."""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
 
 
 @dataclass
@@ -104,52 +235,158 @@ class EvalStats:
     measurements: int = 0        # fitness_fn actually invoked
     cache_hits: int = 0          # served from the in-memory cache
     persistent_hits: int = 0     # served from the on-disk cache at first touch
+    inflight_hits: int = 0       # joined an in-flight measurement
+    screened_out: int = 0        # skipped by the surrogate pre-screen
     eval_wall_s: float = 0.0     # wall-clock spent inside evaluate_batch
+    overlapped_compiles: int = 0  # warm-up compiles run in the overlap phase
+    compile_serial_s: float = 0.0  # sum of individual prepare() durations
+    compile_wall_s: float = 0.0    # wall-clock of the overlapped prepare phase
+    overlap_est_saved_s: float = 0.0  # probe-calibrated estimate of the true
+                                      # saving: n * (uncontended solo prepare)
+                                      # minus the phase's actual wall-clock
+    overlap_disabled: bool = False    # adaptive backoff tripped: contention
+                                      # ate the savings, overlap is off for
+                                      # the rest of this evaluator's life
 
     @property
     def measurements_saved(self) -> int:
-        return self.cache_hits + self.persistent_hits
+        return (self.cache_hits + self.persistent_hits
+                + self.inflight_hits + self.screened_out)
+
+    @property
+    def compile_overlap_saved_s(self) -> float:
+        """Wall-clock the compile-parallel phase saved over serial warm-up."""
+        return max(0.0, self.compile_serial_s - self.compile_wall_s)
 
     def as_dict(self) -> dict:
-        return {"measurements": self.measurements,
-                "cache_hits": self.cache_hits,
-                "persistent_hits": self.persistent_hits,
-                "measurements_saved": self.measurements_saved,
-                "eval_wall_s": self.eval_wall_s}
+        return {
+            "measurements": self.measurements,
+            "cache_hits": self.cache_hits,
+            "persistent_hits": self.persistent_hits,
+            "inflight_hits": self.inflight_hits,
+            "screened_out": self.screened_out,
+            "measurements_saved": self.measurements_saved,
+            "eval_wall_s": self.eval_wall_s,
+            "overlapped_compiles": self.overlapped_compiles,
+            "compile_serial_s": self.compile_serial_s,
+            "compile_wall_s": self.compile_wall_s,
+            "compile_overlap_saved_s": self.compile_overlap_saved_s,
+            "overlap_est_saved_s": self.overlap_est_saved_s,
+            "overlap_disabled": self.overlap_disabled,
+        }
 
 
 class Evaluator:
-    """Serial measurement scheduler for the GA: dedup -> measure -> record.
+    """Measurement scheduler for the GA: dedup -> screen -> dispatch.
 
-    ``phenotype_key`` canonicalizes chromosomes (``bits -> hashable``):
-    chromosomes with equal keys decode to the same program and share one
-    measurement; results are re-labelled with the requesting chromosome's
-    bits.  ``cache_dir`` + ``fingerprint`` persist measurements across
-    processes.  ``annotate`` enriches each new Evaluation before it is
-    cached (the multi-objective detail fields).
+    Parameters
+    ----------
+    fitness_fn:
+        ``bits -> Evaluation`` — the verification-environment measurement.
+    workers:
+        0 or 1 = serial (required for wall-clock timing fidelity); N > 1 =
+        thread pool of N for compile-bound fitness.
+    cache_dir / fingerprint:
+        when both given, measurements persist to
+        ``{cache_dir}/measurements_{fingerprint}.jsonl`` and prior runs'
+        results are loaded on construction.
+    surrogate:
+        optional ``bits -> float`` static cost estimate (lower = better),
+        used only to *rank* unmeasured offspring when ``screen_top_k`` caps
+        how many are measured per batch.
+    screen_top_k:
+        measure at most this many unmeasured chromosomes per batch (the
+        rest are deferred: reported invalid/unmeasured, never cached, so a
+        later generation may still measure them).
+    phenotype_key:
+        optional ``bits -> hashable`` canonicalization.  Chromosomes with
+        equal keys are *phenotype duplicates* — they decode to the same
+        program (clamped ``impl_index`` on short implementation menus,
+        predicate fallbacks) — and share one measurement: dedup, the
+        in-memory/persistent caches, and in-flight joining all key on it.
+        Results are re-labelled with the requesting chromosome's bits, so
+        the GA's bookkeeping is unaffected.  Default: identity (key by raw
+        bits, the historical behavior).
+    compile_workers:
+        thread count for the compile-parallel/time-serial phase, used only
+        when the fitness is two-phase (``prepare``/``measure``) and the
+        timing loop is serial (``workers <= 1``).  0/1/None disables
+        overlap (the historical serial warm-up).  Opt-in because it only
+        pays where prepares run side by side (device work, GIL-releasing
+        calls); a prepare dominated by GIL-held Python (FX surgery, eager
+        dispatch) contends instead, and the phase's backoff then turns it
+        off.  Timing fidelity is preserved either way: all prepares finish,
+        and the card is synchronized, before the first chromosome is
+        timed.
     """
 
-    def __init__(self, fitness_fn: Callable[[tuple], Evaluation],
+    def __init__(self, fitness_fn: Optional[Callable[[tuple], Evaluation]],
+                 workers: int = 0,
                  cache_dir: Optional[str] = None,
                  fingerprint: str = "",
+                 surrogate: Optional[Callable[[tuple], float]] = None,
+                 screen_top_k: Optional[int] = None,
+                 executor: Optional[Any] = None,
+                 dispatch_fn: Optional[Callable[[tuple], Evaluation]] = None,
                  phenotype_key: Optional[Callable[[tuple], Any]] = None,
+                 compile_workers: Optional[int] = None,
                  annotate: Optional[Callable[[Evaluation], Evaluation]]
                  = None):
         self.fitness_fn = fitness_fn
+        # post-measurement hook: enrich an Evaluation's detail dict before it
+        # is cached/persisted (multi-objective search stamps per-objective
+        # fields — energy_j, transfer_bytes — so journal rows carry them;
+        # see repro_torch.core.objectives.annotate_objectives)
         self.annotate = annotate
+        self.workers = max(0, int(workers))
+        self.compile_workers = max(0, int(compile_workers or 0))
         self._key = phenotype_key or (lambda bits: bits)
+        # external executor (e.g. a spawn-based ProcessPoolExecutor whose
+        # workers rebuilt the fitness in an initializer): a GIL-bound
+        # measurement only scales across *processes*; dispatch_fn must be
+        # picklable, and the engine
+        # keeps ownership of caching/dedup/persistence in the parent
+        self._executor = executor
+        self._dispatch_fn = dispatch_fn
+        if executor is not None and dispatch_fn is None:
+            raise ValueError("executor requires a picklable dispatch_fn")
+        if fitness_fn is None and executor is None:
+            raise ValueError("need fitness_fn or (executor, dispatch_fn)")
+        if screen_top_k is not None and surrogate is None:
+            raise ValueError(
+                "screen_top_k requires a surrogate ranking function; use "
+                "ga_search (which derives one from the region graph) "
+                "or pass surrogate= explicitly")
+        self.surrogate = surrogate
+        self.screen_top_k = screen_top_k
         self.stats = EvalStats()
-        self._cache: dict[Any, Evaluation] = {}
+        # (surrogate score, measured time) per finite measurement — the data
+        # behind surrogate_rank_correlation(), which calibrates screen_top_k
+        self._surrogate_pairs: list[tuple[float, float]] = []
+        self._cache: dict[tuple, Evaluation] = {}
+        self._lock = threading.Lock()
+        self._inflight: dict[tuple, Future] = {}
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._compile_pool: Optional[ThreadPoolExecutor] = None
+        self._overlap_batches = 0     # batches charged against the probe
+        self._overlap_probe_s: Optional[float] = None   # mean cost of one
+        self._overlap_solo_n = 0                        # solo prepare
         self._store: Optional[MeasurementCache] = None
         if cache_dir:
             self._store = MeasurementCache(cache_dir, fingerprint or "anon")
-            for bits, ev in self._store.load().items():
+            persisted = self._store.load()
+            for bits, ev in persisted.items():
                 self._cache[self._key(bits)] = ev
-        self._persisted_unseen = set(self._cache)
+            self._persisted_unseen = set(self._cache)
+        else:
+            self._persisted_unseen = set()
+
+    # -- cache interface ----------------------------------------------------
 
     def is_measured(self, bits: Sequence[int]) -> bool:
         """True if this chromosome (or a phenotype-equivalent one) already
-        has a measurement (memory or disk)."""
+        has a measurement (memory or disk).  Used by duplicate-avoiding
+        offspring generation."""
         return self._key(tuple(bits)) in self._cache
 
     @property
@@ -167,56 +404,378 @@ class Evaluator:
             self.stats.cache_hits += 1
         return ev
 
-    def _measure(self, bits: tuple) -> Evaluation:
-        fn = self.fitness_fn
-        key = _bits_key(bits)
-        if hasattr(fn, "prepare") and hasattr(fn, "measure"):
-            with obs_trace.span("eval.prepare", bits=key):
-                prep = fn.prepare(bits)
-            with obs_trace.span("eval.measure", bits=key):
-                ev = fn.measure(prep)
-        else:
-            with obs_trace.span("eval.measure", bits=key):
-                ev = fn(bits)
+    # -- measurement --------------------------------------------------------
+
+    def _record(self, bits: tuple, ev: Evaluation) -> Evaluation:
         if self.annotate is not None:
-            ev = self.annotate(ev)
-        self.stats.measurements += 1
-        self._cache[self._key(bits)] = ev
+            try:
+                ev = self.annotate(ev)
+            except Exception:  # noqa: BLE001 — annotation must never cost a
+                pass           # measurement; the objective fn recomputes
+        score = None
+        if self.surrogate is not None and math.isfinite(ev.time_s):
+            try:
+                score = float(self.surrogate(bits))
+            except Exception:  # noqa: BLE001 — a broken surrogate only
+                score = None   # loses calibration data, never a measurement
+        with self._lock:
+            self.stats.measurements += 1
+            self._cache[self._key(bits)] = ev
+            if score is not None:
+                self._surrogate_pairs.append((score, ev.time_s))
         if self._store is not None:
             self._store.store(ev)
         return ev
 
+    def surrogate_rank_correlation(self) -> float:
+        """Spearman rank correlation between the surrogate's static score and
+        the measured time across this engine's finite measurements.
+
+        +1 means the surrogate orders offspring exactly as measurement would
+        (screening is nearly free); ~0 means screening is a coin flip — the
+        number that lets ``screen_top_k`` be set from data instead of faith.
+        nan with fewer than 3 points or a constant ranking.
+        """
+        from repro_torch.core.surrogate import spearman_rank_corr
+
+        with self._lock:
+            pairs = list(self._surrogate_pairs)
+        return spearman_rank_corr([p[0] for p in pairs],
+                                  [p[1] for p in pairs])
+
+    def _measure(self, bits: tuple,
+                 parent: Optional[int] = None) -> Evaluation:
+        fn = self.fitness_fn
+        key = _bits_key(bits)
+        if (self.workers <= 1 and hasattr(fn, "prepare")
+                and hasattr(fn, "measure")):
+            # serial two-phase measurement (baseline chromosome, single-item
+            # batches, post-backoff batches): an uncontended prepare — time
+            # it to calibrate the overlap phase's saving estimate for free
+            t0 = time.perf_counter()
+            with obs_trace.span("eval.prepare", parent=parent, bits=key):
+                prep = fn.prepare(bits)
+            dt = time.perf_counter() - t0
+            with self._lock:
+                n = self._overlap_solo_n
+                prev = self._overlap_probe_s or 0.0
+                self._overlap_probe_s = (prev * n + dt) / (n + 1)
+                self._overlap_solo_n = n + 1
+            with obs_trace.span("eval.measure", parent=parent, bits=key):
+                ev = fn.measure(prep)
+            return self._record(bits, ev)
+        with obs_trace.span("eval.measure", parent=parent, bits=key):
+            ev = self.fitness_fn(bits)
+        return self._record(bits, ev)
+
+    def _run_measure(self, bits: tuple, fut: Future,
+                     parent: Optional[int] = None) -> None:
+        try:
+            ev = self._measure(bits, parent=parent)
+        except BaseException as e:  # fitness fns normally catch their own
+            try:
+                fut.set_exception(e)
+            except Exception:  # future already resolved by an aborted batch
+                pass
+            return
+        try:
+            fut.set_result(ev)
+        except Exception:  # future already resolved by an aborted batch;
+            pass           # the measurement itself is cached either way
+
     def evaluate(self, bits: Sequence[int]) -> Evaluation:
-        """Evaluate one chromosome (cache -> measure)."""
+        """Evaluate one chromosome (cache -> in-flight -> measure)."""
         return self.evaluate_batch([tuple(bits)])[0]
+
+    #: EvalStats fields mirrored into the process metrics registry as
+    #: ``eval.<field>`` counters after every batch (delta accounting).
+    _METRIC_FIELDS = ("measurements", "cache_hits", "persistent_hits",
+                      "inflight_hits", "screened_out", "overlapped_compiles")
+
+    def _publish_metrics(self, before: EvalStats, span) -> None:
+        st = self.stats
+        deltas = {f: getattr(st, f) - getattr(before, f)
+                  for f in self._METRIC_FIELDS}
+        deltas["compile_overlap_saved_s"] = (st.compile_overlap_saved_s
+                                             - before.compile_overlap_saved_s)
+        for name, d in deltas.items():
+            if d:
+                obs_metrics.counter(f"eval.{name}").inc(d)
+        span.set(**{k: round(v, 6) if isinstance(v, float) else v
+                    for k, v in deltas.items()})
 
     def evaluate_batch(self, population: Sequence[Sequence[int]]
                        ) -> list[Evaluation]:
         """Evaluate a whole population; results in population order.
-        Duplicates within the batch and chromosomes already measured (this
-        run or a persisted one) are served without a new measurement."""
+
+        Duplicates within the batch, chromosomes already measured (this run
+        or a persisted one), and chromosomes being measured concurrently by
+        another caller are all deduped to a single measurement.
+        """
         before = dataclasses.replace(self.stats)
         with obs_trace.span("eval.batch", size=len(population)) as sp:
-            t0 = time.perf_counter()
-            out: list[Evaluation] = []
-            for p in population:
-                bits = tuple(int(b) for b in p)
-                ev = self._lookup(self._key(bits))
-                if ev is None:
-                    ev = self._measure(bits)
-                out.append(ev if tuple(ev.bits) == bits
-                           else dataclasses.replace(ev, bits=bits))
-            self.stats.eval_wall_s += time.perf_counter() - t0
-            for f in ("measurements", "cache_hits", "persistent_hits"):
-                d = getattr(self.stats, f) - getattr(before, f)
-                if d:
-                    obs_metrics.counter(f"eval.{f}").inc(d)
-                sp.set(**{f: d})
+            out = self._evaluate_batch(population)
+            self._publish_metrics(before, sp)
             return out
 
+    def _evaluate_batch(self, population: Sequence[Sequence[int]]
+                        ) -> list[Evaluation]:
+        t0 = time.perf_counter()
+        pop = [tuple(int(b) for b in p) for p in population]
+        # everything below keys on the phenotype key (identity by default):
+        # decode-equivalent chromosomes share one measurement
+        keys = [self._key(bits) for bits in pop]
+        results: dict[Any, Evaluation] = {}
+        to_measure: list[tuple] = []   # representative bits per unique key,
+        measure_keys: list = []        # in first-appearance order
+        joined: dict[Any, Future] = {}
+        seen: set = set()
+
+        dup_pending: dict[Any, int] = {}
+        with self._lock:
+            for bits, key in zip(pop, keys):
+                if key in seen:
+                    # within-batch duplicate: one measurement serves all.
+                    # Attribution for still-pending keys waits until we know
+                    # whether they were measured or screened out (a screened
+                    # chromosome has no measurement to save).
+                    if key in results:
+                        self.stats.cache_hits += 1
+                    else:
+                        dup_pending[key] = dup_pending.get(key, 0) + 1
+                    continue
+                seen.add(key)
+                ev = self._lookup(key)
+                if ev is not None:
+                    results[key] = ev
+                elif key in self._inflight:
+                    self.stats.inflight_hits += 1
+                    joined[key] = self._inflight[key]
+                else:
+                    to_measure.append(bits)
+                    measure_keys.append(key)
+
+        # --- surrogate pre-screen: rank, measure only the top-k ------------
+        deferred: list[tuple[Any, tuple]] = []
+        if (self.screen_top_k is not None and self.surrogate is not None
+                and len(to_measure) > self.screen_top_k):
+            ranked = sorted(range(len(to_measure)),
+                            key=lambda i: (self.surrogate(to_measure[i]), i))
+            keep = set(ranked[: self.screen_top_k])
+            deferred = [(k, b) for i, (k, b)
+                        in enumerate(zip(measure_keys, to_measure))
+                        if i not in keep]
+            to_measure = [b for i, b in enumerate(to_measure) if i in keep]
+            measure_keys = [k for i, k in enumerate(measure_keys) if i in keep]
+            self.stats.screened_out += len(deferred)
+
+        # --- dispatch -------------------------------------------------------
+        # every measurement is announced in _inflight before it starts, so
+        # concurrent callers (serial or pooled) join it instead of repeating
+        # it.  The screen above ran outside the lock, so re-check here: a
+        # concurrent batch may have announced (or finished) one of ours.
+        futures: dict[Any, Future] = {}
+        fut_bits: dict[Any, tuple] = {}
+        with self._lock:
+            announced: list[tuple] = []
+            for bits, key in zip(to_measure, measure_keys):
+                ev = self._lookup(key)
+                if ev is not None:
+                    results[key] = ev
+                elif key in self._inflight:
+                    self.stats.inflight_hits += 1
+                    joined[key] = self._inflight[key]
+                else:
+                    fut: Future = Future()
+                    self._inflight[key] = fut
+                    futures[key] = fut
+                    fut_bits[key] = bits
+                    announced.append(bits)
+            to_measure = announced
+        try:
+            if self._executor is not None:
+                # cross-process dispatch: workers measure, parent records.
+                # Only results the worker actually returned are recorded and
+                # persisted — a dead worker / broken pool is transient infra
+                # failure, not a measurement, and must not poison the cache.
+                raw = [(key, bits,
+                        self._executor.submit(self._dispatch_fn, bits))
+                       for key, bits in fut_bits.items()]
+                for key, bits, rf in raw:
+                    try:
+                        ev = self._record(bits, rf.result())
+                    except Exception as e:  # noqa: BLE001 — worker died etc.
+                        ev = Evaluation(bits, float("inf"), False,
+                                        {"error": f"{type(e).__name__}: {e}"[:300],
+                                         "transient": True})
+                    futures[key].set_result(ev)
+            elif self.workers > 1 and len(to_measure) > 1:
+                pool = self._ensure_pool()
+                # pool threads have their own (empty) span stacks: hand them
+                # this thread's span id so their spans nest under the batch
+                parent = obs_trace.current_span_id()
+                for key, bits in fut_bits.items():
+                    pool.submit(self._run_measure, bits, futures[key],
+                                parent)
+            elif (self.compile_workers > 1 and len(fut_bits) > 1
+                  and not self.stats.overlap_disabled
+                  and hasattr(self.fitness_fn, "prepare")
+                  and hasattr(self.fitness_fn, "measure")):
+                # compile-parallel / time-serial: prepares overlap on
+                # threads, then the timing loop runs strictly serially in
+                # batch order
+                self._run_overlapped(fut_bits, futures)
+            else:
+                for key, bits in fut_bits.items():
+                    self._run_measure(bits, futures[key])
+            # let every dispatched measurement finish before collecting, so a
+            # stored exception can't abort the batch while siblings still run
+            # (the abandoned-future cleanup below must never race a worker)
+            _wait_futures(list(futures.values()))
+            for key, fut in futures.items():
+                results[key] = fut.result()
+        finally:
+            with self._lock:
+                for key, fut in futures.items():
+                    # resolve anything still pending (e.g. the serial loop
+                    # aborted on an earlier chromosome) so concurrent
+                    # callers joined on these futures don't hang forever
+                    if not fut.done():
+                        fut.set_exception(
+                            RuntimeError("measurement abandoned: batch "
+                                         "aborted before this chromosome"))
+                    self._inflight.pop(key, None)
+
+        for key, fut in joined.items():
+            results[key] = fut.result()
+        for key, bits in deferred:
+            # deferred chromosomes are NOT measurements: zero fitness this
+            # generation, absent from the cache so they can be measured later
+            results[key] = Evaluation(
+                bits, float("inf"), False, {"screened": True})
+
+        if dup_pending:
+            with self._lock:
+                for key, n in dup_pending.items():
+                    ev = results.get(key)
+                    if ev is not None and not ev.detail.get("screened"):
+                        self.stats.inflight_hits += n
+
+        self.stats.eval_wall_s += time.perf_counter() - t0
+        out: list[Evaluation] = []
+        for bits, key in zip(pop, keys):
+            ev = results[key]
+            # a phenotype hit carries the measured sibling's bits: re-label
+            # with the requesting chromosome so GA bookkeeping stays exact
+            out.append(ev if tuple(ev.bits) == bits
+                       else dataclasses.replace(ev, bits=bits))
+        return out
+
+    def _run_overlapped(self, fut_bits: dict, futures: dict) -> None:
+        """Two-phase dispatch: every chromosome's ``prepare`` (build +
+        warm-up compile + verification) runs concurrently; once all have
+        finished, ``measure`` (the timing loop) runs serially in batch
+        order.  Results — including prepare-time failures — are identical
+        to the serial path; only the wall-clock spent compiling shrinks.
+
+        The phase watches its own worth: serial two-phase measurements
+        (the baseline chromosome, single-item batches) time their prepare
+        as free *uncontended* probes, calibrating what one solo warm-up
+        truly costs — the naive ``compile_serial_s`` sum is inflated by
+        contention waits.  An overlapped batch charges
+        ``n * t_probe - wall`` against that calibration (when no solo
+        sample exists yet, the batch's first prepare runs alone to
+        bootstrap one).  When the cumulative estimate goes negative after
+        at least two charged batches — contention is eating more than the
+        overlap saves — overlap disables itself for the evaluator's
+        lifetime and later batches warm up serially."""
+        pool = self._ensure_compile_pool()
+        items = list(fut_bits.items())
+        # compile-pool threads parent their spans on the dispatching
+        # thread's batch span (their own stacks are empty)
+        parent = obs_trace.current_span_id()
+
+        def timed_prepare(bits: tuple):
+            t0 = time.perf_counter()
+            with obs_trace.span("eval.prepare", parent=parent,
+                                bits=_bits_key(bits), overlapped=True):
+                prep = self.fitness_fn.prepare(bits)
+            return prep, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        if self._overlap_probe_s is None:
+            # no solo sample yet: serialize one prepare to bootstrap the
+            # calibration, overlap the rest
+            first = pool.submit(timed_prepare, items[0][1])
+            _wait_futures([first])
+            t_probe = time.perf_counter() - t0
+            rest = [pool.submit(timed_prepare, bits) for _, bits in items[1:]]
+            _wait_futures(rest)
+            prep_futs = [first] + rest
+            if first.exception() is None:
+                with self._lock:
+                    self._overlap_probe_s = t_probe
+                    self._overlap_solo_n = 1
+        else:
+            prep_futs = [pool.submit(timed_prepare, bits)
+                         for _, bits in items]
+            _wait_futures(prep_futs)
+        compile_wall = time.perf_counter() - t0
+        # a prepare's launches may still be queued on the card: finish them
+        # before the first chromosome is timed
+        _synchronize_device()
+        with self._lock:
+            self.stats.overlapped_compiles += len(items)
+            self.stats.compile_wall_s += compile_wall
+            if self._overlap_probe_s is not None:
+                self.stats.overlap_est_saved_s += \
+                    self._overlap_probe_s * len(items) - compile_wall
+                self._overlap_batches += 1
+                if (self._overlap_batches >= 2
+                        and self.stats.overlap_est_saved_s < 0):
+                    self.stats.overlap_disabled = True
+        for (key, bits), pf in zip(items, prep_futs):
+            try:
+                prep, dt = pf.result()
+                with self._lock:
+                    self.stats.compile_serial_s += dt
+                with obs_trace.span("eval.measure", bits=_bits_key(bits)):
+                    ev = self.fitness_fn.measure(prep)
+                ev = self._record(bits, ev)
+            except BaseException as e:  # fitness fns normally catch their own
+                try:
+                    futures[key].set_exception(e)
+                except Exception:  # future resolved by an aborted batch
+                    pass
+                continue
+            try:
+                futures[key].set_result(ev)
+            except Exception:  # future resolved by an aborted batch;
+                pass           # the measurement itself is cached either way
+
+    def _ensure_pool(self) -> ThreadPoolExecutor:
+        with self._lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=self.workers,
+                    thread_name_prefix="ga-eval")
+            return self._pool
+
+    def _ensure_compile_pool(self) -> ThreadPoolExecutor:
+        with self._lock:
+            if self._compile_pool is None:
+                self._compile_pool = ThreadPoolExecutor(
+                    max_workers=self.compile_workers,
+                    thread_name_prefix="ga-compile")
+            return self._compile_pool
+
     def close(self) -> None:
-        """Nothing to release in the serial engine (kept for the GA's
-        evaluator protocol)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+        if self._compile_pool is not None:
+            self._compile_pool.shutdown(wait=True)
+            self._compile_pool = None
 
     def __enter__(self) -> "Evaluator":
         return self
@@ -225,8 +784,6 @@ class Evaluator:
         self.close()
 
 
-# ---------------------------------------------------------------------------
-# static surrogate: transfer-cost ranking (pre-screen only, never a score)
 # ---------------------------------------------------------------------------
 # static surrogate: transfer-cost ranking (pre-screen only, never a score)
 # ---------------------------------------------------------------------------
@@ -294,15 +851,113 @@ def transfer_cost_surrogate(graph, coding, var_bytes: Optional[dict] = None,
 
 
 # ---------------------------------------------------------------------------
-# the shipped deterministic fitness (the reference also registers it by name
-# for its process pool, which is not ported)
+# process-pool dispatch: fitness-factory registry + reusable spawn pool
 # ---------------------------------------------------------------------------
+
+#: name -> zero-state factory returning a ``bits -> Evaluation`` callable.
+#: Factories must be module-level (picklable by reference) so spawn workers
+#: can rebuild the fitness in their initializer.
+_FITNESS_FACTORIES: dict[str, Callable[..., Callable[[tuple], Evaluation]]] = {}
+
+
+def register_fitness_factory(name: str, factory: Callable,
+                             replace: bool = False) -> None:
+    """Register a fitness factory under ``name`` for pool-based evaluation
+    (``GAConfig.pool = name``).  The factory runs once per worker process."""
+    if name in _FITNESS_FACTORIES and not replace:
+        raise ValueError(f"fitness factory {name!r} already registered")
+    _FITNESS_FACTORIES[name] = factory
+
+
+def fitness_factory(name: str) -> Callable:
+    try:
+        return _FITNESS_FACTORIES[name]
+    except KeyError:
+        raise KeyError(f"unknown fitness factory {name!r}; registered: "
+                       f"{sorted(_FITNESS_FACTORIES)}") from None
+
+
+def fitness_factory_names() -> tuple[str, ...]:
+    return tuple(sorted(_FITNESS_FACTORIES))
 
 
 def _smoke_fitness_factory(scale: float = 0.1) -> Callable[[tuple], Evaluation]:
-    """Shipped example factory: a deterministic synthetic fitness with no
-    heavy dependencies (the GA parity tests' fixture)."""
+    """Shipped example factory (also the cross-process test fixture): a
+    deterministic synthetic fitness with no heavy dependencies."""
     def fit(bits: tuple) -> Evaluation:
         return Evaluation(tuple(bits), 1.0 + scale * sum(bits), True)
     return fit
 
+
+register_fitness_factory("smoke", _smoke_fitness_factory)
+
+
+_POOL_FITNESS: Optional[Callable[[tuple], Evaluation]] = None
+
+
+def _pool_worker_init(factory, args: tuple, kwargs: dict) -> None:
+    global _POOL_FITNESS
+    _POOL_FITNESS = factory(*args, **(kwargs or {}))
+
+
+def _pool_worker_eval(bits: tuple) -> Evaluation:
+    assert _POOL_FITNESS is not None, "worker initializer did not run"
+    return _POOL_FITNESS(bits)
+
+
+class ProcessPool:
+    """Spawn-based measurement pool built from a registered fitness factory.
+
+    A fitness that holds the GIL only scales across *processes*.  Each worker rebuilds the fitness once in
+    its initializer (the factory must be a module-level callable); the parent
+    keeps ownership of caching / dedup / persistence through the
+    :class:`Evaluator` it plugs into via :meth:`evaluator_kwargs`.
+
+    ``warm(chromosomes)`` pays every worker's one-time first-compile cost up
+    front (results are measured in the parent's Evaluator-free context and
+    discarded), so timed searches see a warm pool.
+    """
+
+    def __init__(self, factory: str | Callable, workers: Optional[int] = None,
+                 args: tuple = (), kwargs: Optional[dict] = None):
+        import multiprocessing as mp
+
+        if isinstance(factory, str):
+            factory = fitness_factory(factory)
+        self.workers = int(workers or min(4, (os.cpu_count() or 2)))
+        if self.workers < 1:
+            raise ValueError(f"workers must be >= 1, got {self.workers}")
+        self.executor: ProcessPoolExecutor = ProcessPoolExecutor(
+            max_workers=self.workers,
+            mp_context=mp.get_context("spawn"),
+            initializer=_pool_worker_init,
+            initargs=(factory, tuple(args), dict(kwargs or {})))
+
+    #: what Evaluator dispatches through the pool — module-level, picklable.
+    dispatch_fn = staticmethod(_pool_worker_eval)
+
+    def evaluator_kwargs(self) -> dict:
+        """Plug-in kwargs for :class:`Evaluator`: cross-process dispatch."""
+        return {"executor": self.executor, "dispatch_fn": _pool_worker_eval}
+
+    def warm(self, chromosomes: Sequence[tuple],
+             rounds_per_worker: int = 2) -> None:
+        """Run throwaway measurements so every worker initializes + compiles
+        before anything is timed.  ``chromosomes`` cycle round-robin."""
+        if not chromosomes:
+            return
+        futs = [self.executor.submit(
+                    _pool_worker_eval,
+                    tuple(chromosomes[i % len(chromosomes)]))
+                for i in range(rounds_per_worker * self.workers)]
+        for f in futs:
+            f.result()
+
+    def close(self) -> None:
+        self.executor.shutdown(wait=True)
+
+    def __enter__(self) -> "ProcessPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

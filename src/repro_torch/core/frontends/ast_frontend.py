@@ -1513,6 +1513,7 @@ class AstFrontend:
             fitness_factory=fitness_factory,
             block=block, claimed=claimed, base_impl=block_impl,
             cache_extra=cache_extra, measured=True,
+            serial_only=True, overlap_compiles=True,
             # variant sites make the gene an implementation choice, so the
             # frontend proposes the variant alphabet; plain programs keep
             # the paper's binary interp/jit gene

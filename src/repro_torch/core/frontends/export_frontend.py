@@ -46,6 +46,22 @@ alphabet (:func:`annotate_variants`), which is what lets the substitution
 engine turn a plan into a runnable program and
 :meth:`ExportFrontend.make_fitness` measure real wall-clock time.
 
+Function blocks (:func:`annotate_block_sites`, the counterpart of the
+reference's jaxpr pass).  The reference joins only span-adjacent
+offloadable regions; here a norm and an attention core are separated by
+the projections between them, which run in the caller's module and make
+short ``stmt`` regions.  So a *window* is a range of consecutive regions
+(graph order) whose first and last regions are offloadable and which holds
+at least two offloadable regions: the ``stmt`` regions inside it go with
+its node range but carry no gene, and its offloadable regions are its
+``block_members``.  Windows are tried widest-first and accepted greedily
+when they do not overlap one already kept, and a window is kept only if
+some registry variant binds its merged node range.  Each kept window
+becomes a ``fnblock_*`` region (kind ``block``, empty def/use sets — the
+block substitutes in place of its members — and ``meta["nodes"]``, every
+node of the window).  A program that is one region (a function with no
+submodules) has no window.
+
 A target that is not a module -- a function, a ``functools.partial`` or a
 bound method -- is exported as the forward of a wrapper that holds the
 modules (``nn.Module``) it reaches (:func:`target_modules`: closure cells,
@@ -55,7 +71,6 @@ for their calls, so ``lambda tok: model.prefill(params, ...)`` would lose
 every region.  A program that calls modules yet records no module scope
 is refused, never planned as one silent region.
 
-Not ported yet: block sites (``annotate_block_sites``).
 """
 from __future__ import annotations
 
@@ -63,6 +78,7 @@ import dis
 import functools
 import inspect
 import operator
+import time
 import types
 from typing import Any, Callable
 
@@ -73,8 +89,8 @@ from torch.utils import _pytree as pytree
 from repro_torch.core import similarity as sim
 from repro_torch.core.ir import Region, RegionGraph
 
-__all__ = ["ExportFrontend", "annotate_variants", "build_graph",
-           "resolve_device", "target_modules"]
+__all__ = ["ExportFrontend", "annotate_block_sites", "annotate_variants",
+           "build_graph", "resolve_device", "target_modules"]
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -405,6 +421,133 @@ def annotate_variants(graph: RegionGraph, db, registry=None) -> RegionGraph:
     return graph
 
 
+def annotate_block_sites(graph: RegionGraph, db, registry=None
+                         ) -> RegionGraph:
+    """Detect *function-block* offload sites: windows of consecutive
+    regions whose merged node range matches a ``block`` pattern-DB record
+    (arXiv 2004.09883's function-block genes alongside loop genes) and
+    binds a registry variant.  See the module docstring for the window
+    rule.
+
+    Each accepted window becomes a synthetic ``fnblock_*`` region appended
+    to the graph: one extra gene whose accelerated alternatives are the
+    registry's *block-level* variants.  While that gene is active it claims
+    its ``meta["block_members"]`` (see :class:`repro_torch.core.genes.
+    Site`), so the member regions' own genes go inert and the whole window
+    runs through the block adapter.
+
+    Every window is grown one region at a time from each offloadable
+    start, so its merged callees, vector, free inputs and live outputs
+    are kept incrementally (a whole model has O(regions²) windows); the
+    windows that match and bind are then accepted widest-first, lowest
+    start first, as the reference accepts them.
+    """
+    from repro_torch.core.substitution import _backend_of, is_subgraph
+    from repro_torch.core.variants import resolve_variant
+    from repro_torch.kernels.registry import Aval, CallSite, default_registry
+
+    registry = registry or default_registry()
+    gm = graph.meta.get("graph_module")
+    if gm is None:
+        return graph
+    by_name = {n.name: n for n in gm.graph.nodes}
+    order = {n: i for i, n in enumerate(gm.graph.nodes)}
+    # the variants bind for where the program's inputs and weights live
+    backend = _backend_of(tuple(n.meta.get("val") for n in gm.graph.nodes
+                                if n.op in ("placeholder", "get_attr")))
+    cands = [r for r in graph.regions
+             if r.meta.get("nodes") and not r.meta.get("block_members")]
+    spans = [tuple(by_name[nm] for nm in r.meta["nodes"]) for r in cands]
+    span_sets = [frozenset(span) for span in spans]
+    callees = [{c.lower().split(".")[-1] for c in r.callees} for r in cands]
+    avals: dict = {}
+
+    def aval(node) -> Aval:
+        if node not in avals:
+            avals[node] = Aval.of(node.meta["val"])
+        return avals[node]
+
+    bound: list[tuple] = []            # (lo, hi, match, bound names)
+    for lo, first in enumerate(cands):
+        if not first.offloadable:
+            continue
+        window: set = set()
+        ins: dict = {}                 # free inputs, first-use order
+        ext: dict = {}                 # window node -> users outside it
+        names: set = set()
+        merged: dict = {}
+        n_members = 0
+        for hi in range(lo, len(cands)):
+            new = span_sets[hi]
+            window.update(new)
+            for node in spans[hi]:
+                ins.pop(node, None)
+                ext[node] = sum(1 for u in node.users if u not in window)
+                for a in node.all_input_nodes:
+                    if a not in window:
+                        if not is_subgraph(a):
+                            ins[a] = None
+                    elif a in ext and a not in new:
+                        ext[a] -= 1
+            names |= callees[hi]
+            for k, v in cands[hi].feature_vector.items():
+                merged[k] = merged.get(k, 0) + v
+            if not cands[hi].offloadable:
+                continue
+            n_members += 1
+            if n_members < 2:
+                continue
+            m = db.match_merged(names, merged, first.name, graph.frontend)
+            if m is None or not registry.variant_names(m.record.name):
+                continue
+            outs = sorted((n for n, c in ext.items() if c > 0),
+                          key=order.__getitem__)
+            site = CallSite(
+                pattern=m.record.name, kind="block",
+                in_avals=tuple(aval(n) for n in ins),
+                out_avals=tuple(aval(n) for n in outs),
+                out_used=(True,) * len(outs), params={}, backend=backend,
+                nodes=tuple(n for span in spans[lo:hi + 1] for n in span),
+                in_nodes=tuple(ins))
+            ok = tuple(v for v in registry.variant_names(m.record.name)
+                       if resolve_variant(site, v, registry=registry,
+                                          backend=backend)[0] is not None)
+            if ok:
+                bound.append((lo, hi, m, ok))
+
+    accepted: list[tuple[int, int]] = []
+    blocks: list[Region] = []
+    for lo, hi, m, ok in sorted(bound, key=lambda b: (b[0] - b[1], b[0])):
+        if any(lo <= h and l <= hi for l, h in accepted):
+            continue
+        window = cands[lo:hi + 1]
+        vec: dict = {}
+        for r in window:
+            for k, c in r.feature_vector.items():
+                vec[k] = vec.get(k, 0) + c
+        nodes = sorted((n for span in spans[lo:hi + 1] for n in span),
+                       key=order.__getitem__)
+        blocks.append(Region(
+            name=f"fnblock_{len(blocks)}",
+            kind="block",
+            defs=frozenset(), uses=frozenset(),
+            callees=tuple(dict.fromkeys(c for r in window
+                                        for c in r.callees)),
+            feature_vector=vec,
+            offloadable=True,
+            alternatives=("ref",) + ok,
+            meta={"pattern": m.record.name,
+                  "pattern_match": {"how": m.how,
+                                    "score": round(m.score, 4)},
+                  "nodes": tuple(n.name for n in nodes),
+                  "module": "",
+                  "block_members": tuple(r.name for r in window
+                                         if r.offloadable)}))
+        accepted.append((lo, hi))
+    graph.regions.extend(blocks)
+    return graph
+
+
 def _check_devices(target: Any, example_args: tuple,
                    device: torch.device) -> None:
     tensors = [l for l in pytree.tree_leaves(example_args)
@@ -427,7 +570,11 @@ class ExportFrontend:
     unless the caller asks for the CPU).  The fitness is *measured*: every
     chromosome decodes to a substituted program (registry variants spliced
     in by the substitution engine), verified against the unsubstituted
-    program and wall-clock timed.
+    program and wall-clock timed.  Function-block genes
+    (:func:`annotate_block_sites`) ride alongside unless
+    ``options={"block_sites": False}``.  ``options={"static_cost": True}``
+    keeps the deterministic transfer-cost stub instead (no execution; its
+    results carry ``static_cost``).
     """
 
     name = "export"
@@ -439,22 +586,45 @@ class ExportFrontend:
         _check_devices(fn, example_args, resolve_device(config.device))
         graph = build_graph(fn, *example_args,
                             name=config.options.get("name", ""))
-        return annotate_variants(graph, config.db or default_db(),
-                                 registry=config.options.get("registry"))
+        db = config.db or default_db()
+        graph = annotate_variants(graph, db,
+                                  registry=config.options.get("registry"))
+        # function-block genes (whole-window substitution) ride alongside
+        # the loop/span genes unless explicitly disabled: the loop-only
+        # comparison arm passes options={"block_sites": False}
+        if config.options.get("block_sites", True):
+            t0 = time.perf_counter()
+            graph = annotate_block_sites(
+                graph, db, registry=config.options.get("registry"))
+            if config.log:
+                n = sum(1 for r in graph.regions
+                        if r.meta.get("block_members"))
+                config.log(f"block sites: {n} fnblock region(s) in "
+                           f"{time.perf_counter() - t0:.2f} s")
+        return graph
 
     def make_fitness(self, graph: RegionGraph, fn: Callable, inputs, config):
+        import threading
+
         from repro_torch.core.block_offload import block_offload_pass
         from repro_torch.core.fitness import WallClockFitness
-        from repro_torch.core.frontends.registry import (FitnessBundle,
-                                                         decoded_pattern)
+        from repro_torch.core.frontends.registry import (
+            FitnessBundle, decoded_pattern, static_cost_fitness_factory)
         from repro_torch.core.genes import VARIANT_ALPHABET
         from repro_torch.core.pattern_db import (default_db,
                                                  record_pattern_outcome)
         from repro_torch.core.substitution import SubstitutionEngine
 
-        device = resolve_device(config.device)
         block = block_offload_pass(graph, config.db or default_db(),
                                    confirm=config.confirm)
+        if config.options.get("static_cost"):
+            return FitnessBundle(
+                fitness_factory=static_cost_fitness_factory(graph),
+                block=block, claimed=block.claimed_regions,
+                base_impl={r: "kernel" for r in block.claimed_regions},
+                cache_extra=f"export={graph.source_name}|staticcost",
+                measured=False)
+        device = resolve_device(config.device)
         example_args = tuple(config.options.get("example_args", ()))
         engine = SubstitutionEngine(graph.meta["graph_module"], example_args,
                                     graph,
@@ -476,15 +646,17 @@ class ExportFrontend:
         def factory(coding):
             # bits -> SubstitutionReport of the program just built, so the
             # verifier outcome in prepare() can be attributed per (pattern,
-            # variant)
+            # variant).  Guarded: prepare may run on compile-pool threads.
             reports: dict = {}
+            rlock = threading.Lock()
 
             def build(values):
                 values = tuple(values)
                 impl = decoded_pattern(coding, values, {})
                 sub = engine.substitute(
                     impl, destinations=coding.destinations_of(values))
-                reports[values] = sub.report
+                with rlock:
+                    reports[values] = sub.report
                 return lambda: sub(*example_args)
 
             class _RecordingFitness(WallClockFitness):
@@ -493,7 +665,8 @@ class ExportFrontend:
 
                 def prepare(self, bits):
                     prep = super().prepare(tuple(bits))
-                    report = reports.pop(tuple(bits), None)
+                    with rlock:
+                        report = reports.pop(tuple(bits), None)
                     if report is None:     # build itself failed: no program
                         return prep
                     if prep.failure is None:
@@ -526,7 +699,7 @@ class ExportFrontend:
             cache_extra=(f"export={graph.source_name}|measured"
                          f"|args={args_sig}|device={device_name}"
                          f"|ndev={torch.cuda.device_count()}"),
-            measured=True,
+            serial_only=True, measured=True, overlap_compiles=True,
             destinations=VARIANT_ALPHABET,
             impl_resolver=engine.resolved_impl,
             context={"engine": engine, "example_args": example_args})
@@ -536,5 +709,8 @@ class ExportFrontend:
 
         values = tuple(values)
         impl = decoded_pattern(coding, values, bundle.base_impl)
-        return bundle.context["engine"].substitute(
-            impl, destinations=coding.destinations_of(values))
+        engine = bundle.context.get("engine")
+        if engine is None:               # static-cost path: impl map only
+            return impl
+        return engine.substitute(impl,
+                                 destinations=coding.destinations_of(values))

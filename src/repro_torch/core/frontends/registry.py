@@ -143,6 +143,19 @@ class FitnessBundle:
     claimed: tuple = ()                       # regions excluded from the gene
     base_impl: dict = field(default_factory=dict)  # block-claim impl bindings
     cache_extra: str = ""                     # measurement-context cache key
+    serial_only: bool = False                 # wall-clock: timings don't
+                                              # interleave; force workers=0
+    overlap_compiles: bool = False            # Offloader.plan enables the
+                                              # compile-parallel/time-serial
+                                              # phase when GAConfig.
+                                              # compile_workers is unset: a
+                                              # chromosome's prepare (build,
+                                              # warm-up, verify) overlaps
+                                              # other chromosomes' prepares
+                                              # ahead of the serial timing
+                                              # loop.  The evaluator's
+                                              # backoff turns it off where
+                                              # prepares contend instead
     measured: bool = True                     # False = static-cost stub (no
                                               # real execution behind fitness)
     destinations: Optional[tuple] = None      # frontend-proposed gene

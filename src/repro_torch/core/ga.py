@@ -1,7 +1,7 @@
-"""Port of ``repro/core/ga.py``: the same numpy RNG stream and the same
-``history``, so one seed and one deterministic fitness run the same search
-in both packages.  Only the serial evaluator exists in the port, so the
-thread/process-pool, compile-overlap and surrogate-screen knobs are absent.
+"""Port of ``repro/core/ga.py``: the same numpy RNG stream, the same
+``history`` and the same evaluator knobs (thread pool, process pool,
+compile overlap, surrogate screening), so one seed and one deterministic
+fitness run the same search in both packages.
 
 Genetic-algorithm engine for offload-pattern search (paper §3.2.1, §4.2.2).
 
@@ -16,11 +16,14 @@ Faithful to the paper's loop:
   * per-chromosome measurement cache (a pattern is never re-measured),
   * fixed generation count, best chromosome wins.
 
-Measurement scheduling (dedup and the persistent on-disk cache) lives in
-:mod:`repro_torch.core.evaluator`; `run_ga` drives it one *generation
-batch* at a time, and generates **duplicate-avoiding offspring**
-(arXiv:2002.12115): children that decode to an already-measured pattern are
-re-mutated so each verification measurement buys new information.
+Measurement scheduling (dedup, parallel dispatch, the persistent on-disk
+cache and the optional surrogate pre-screen) lives in
+:mod:`repro_torch.core.evaluator`; `run_ga` drives it one *generation batch* at a
+time, and generates **duplicate-avoiding offspring** (arXiv:2002.12115):
+children that decode to an already-measured pattern are re-mutated so each
+verification measurement buys new information.  With a deterministic fitness
+function the search trajectory is byte-identical in serial and parallel
+evaluation modes.
 """
 from __future__ import annotations
 
@@ -44,11 +47,71 @@ class GAConfig:
     elite: int = 2
     seed: int = 0
     patience: Optional[int] = None    # stop after N generations w/o improvement
+    # --- evaluation-engine knobs (repro_torch.core.evaluator) -------------
+    workers: int = 0                  # 0/1 serial; N>1 thread pool (compile-
+                                      # bound fitness only — keep wall-clock
+                                      # fitness serial for timing fidelity)
+    compile_workers: Optional[int] = None
+                                      # compile-parallel/time-serial phase for
+                                      # two-phase fitness (WallClockFitness
+                                      # prepare/measure): warm-up compiles of
+                                      # different chromosomes overlap on this
+                                      # many threads ahead of the strictly
+                                      # serial timing loop.  None = the
+                                      # frontend decides — Offloader.plan
+                                      # auto-enables it where the bundle
+                                      # asks (FitnessBundle.
+                                      # overlap_compiles: the export and
+                                      # python_ast measured paths); bare
+                                      # run_ga/ga_search keep warm-ups serial.
+                                      # 0/1 = explicitly serial.  Safe with
+                                      # serial_only fitness: timing never
+                                      # interleaves with compilation
+    pool: Optional[str] = None        # registered fitness-factory name: run
+                                      # measurements in an evaluator.
+                                      # ProcessPool of `workers` spawn
+                                      # processes built from that factory
+                                      # (a GIL-bound fitness only scales
+                                      # across processes).  Takes
+                                      # effect via ga_search, whose
+                                      # caller owns
+                                      # keeping the factory's fitness in sync
+                                      # with the searched coding; bare run_ga
+                                      # and Offloader.plan (which composes a
+                                      # fitness workers can't rebuild) raise
+    screen_top_k: Optional[int] = None  # surrogate pre-screen: measure at
+                                        # most k new offspring per generation.
+                                        # Needs a surrogate ranking fn, so it
+                                        # only takes effect via
+                                        # ga_search (or a hand-built
+                                        # Evaluator); bare run_ga raises
     cache_dir: Optional[str] = None   # persistent measurement cache location.
                                       # Needs a program fingerprint, so it
-                                      # only takes effect via ga_search (or
-                                      # a hand-built Evaluator); bare run_ga
-                                      # raises
+                                      # only takes effect via
+                                      # ga_search (or a hand-built
+                                      # Evaluator); bare run_ga raises
+    auto_screen: bool = True          # when screen_top_k is unset and a prior
+                                      # search of the same fingerprint (in
+                                      # cache_dir) recorded a surrogate rank
+                                      # correlation >= auto_screen_corr,
+                                      # ga_search sets screen_top_k to
+                                      # population // 2 by itself
+    auto_screen_corr: float = 0.6     # evidence bar for auto-screening
+    auto_screen_horizon_s: float = 7 * 24 * 3600.0
+                                      # staleness horizon for that evidence:
+                                      # rank-corr records older than this are
+                                      # ignored (and compacted away), so
+                                      # auto-screening never acts on a stale
+                                      # fingerprint
+    fit_surrogate: bool = True        # fit a regression surrogate against the
+                                      # fingerprint's measurement journal
+                                      # (repro_torch.core.surrogate) and prefer it
+                                      # over the static transfer-cost formula
+                                      # when its journal rank correlation is
+                                      # strictly better.  Takes effect via
+                                      # ga_search with a cache_dir
+    surrogate_min_records: int = 10   # journal rows below which the fit
+                                      # abstains and the hand formula stays
     dup_retries: int = 3              # re-mutation attempts per duplicate child
     objectives: tuple = ("latency",)  # objective axes for selection.  The
                                       # default single axis keeps the paper's
@@ -84,9 +147,29 @@ class GAResult:
     cache_hits: int                   # in-memory + in-flight dedup hits
     baseline: Optional[Evaluation] = None   # all-off pattern
     persistent_hits: int = 0          # measurements served by the disk cache
+    screened_out: int = 0             # offspring deferred by the surrogate
     duplicates_avoided: int = 0       # dup children re-mutated to fresh ones
     wall_s: float = 0.0               # total search wall-clock
     eval_wall_s: float = 0.0          # wall-clock inside measurement batches
+    surrogate_rank_corr: float = float("nan")  # Spearman corr of the
+                                      # surrogate's ranking vs measured
+                                      # fitness (nan when no surrogate or
+                                      # too few finite measurements) — the
+                                      # number that justifies screen_top_k
+    surrogate_kind: str = "static"    # which surrogate ranked offspring:
+                                      # the hand transfer-cost formula or a
+                                      # journal-fitted regression ("fitted",
+                                      # repro_torch.core.surrogate) — set by
+                                      # ga_search when the fitted model's
+                                      # journal rank corr beats the static
+    compile_overlap_saved_s: float = 0.0  # wall-clock saved by overlapping
+                                      # warm-up compiles ahead of the serial
+                                      # timing loop (EvalStats)
+    overlap_est_saved_s: float = 0.0  # the overlap phase's probe-
+                                      # calibrated estimate of that saving
+                                      # and whether its backoff turned it
+    overlap_disabled: bool = False    # off (EvalStats; reported by the
+                                      # port beside the reference's field)
     front: list = field(default_factory=list)  # Pareto-optimal Evaluations
                                       # (multi-objective search: every
                                       # non-dominated measured pattern,
@@ -101,8 +184,8 @@ class GAResult:
 
     @property
     def measurements_saved(self) -> int:
-        """Verification measurements avoided by the caches and dedup."""
-        return self.cache_hits + self.persistent_hits
+        """Verification measurements avoided by cache + dedup + screening."""
+        return self.cache_hits + self.persistent_hits + self.screened_out
 
 
 FitnessFn = Callable[[tuple], Evaluation]
@@ -204,8 +287,9 @@ def run_ga(length: int, fitness_fn: FitnessFn, cfg: GAConfig,
 
     ``evaluator`` is an optional pre-built :class:`repro_torch.core.evaluator.
     Evaluator` (callers that want a persistent cache keyed to a program
-    fingerprint construct it themselves — see ``ga_search``).  When
-    omitted, a serial one is built.  The GAResult measurement
+    fingerprint, or a surrogate pre-screen, construct it themselves — see
+    ``ga_search``).  When omitted, one is built from the GAConfig
+    knobs (`workers`, `cache_dir`, `screen_top_k`).  The GAResult measurement
     counters are the evaluator's lifetime totals, so pass a fresh evaluator
     per search if you want per-search numbers.
 
@@ -235,7 +319,14 @@ def run_ga(length: int, fitness_fn: FitnessFn, cfg: GAConfig,
                 "GAConfig.cache_dir requires a program fingerprint; call "
                 "ga_search (which keys the cache by the region "
                 "graph) or pass a pre-built Evaluator")
-        evaluator = Evaluator(fitness_fn)
+        if cfg.pool is not None:
+            raise ValueError(
+                "GAConfig.pool requires a fitness-factory ProcessPool; call "
+                "ga_search / Offloader.plan (which own the pool "
+                "lifecycle) or pass a pre-built Evaluator")
+        evaluator = Evaluator(fitness_fn, workers=cfg.workers,
+                              screen_top_k=cfg.screen_top_k,
+                              compile_workers=cfg.compile_workers)
 
     multi = objective_fn is not None
     archive: dict[tuple, Evaluation] = {}   # every measured pattern (multi)
@@ -251,6 +342,8 @@ def run_ga(length: int, fitness_fn: FitnessFn, cfg: GAConfig,
 
     def finish(best, history, baseline) -> GAResult:
         st = evaluator.stats
+        corr = getattr(evaluator, "surrogate_rank_correlation",
+                       lambda: float("nan"))()
         if owns_evaluator:
             evaluator.close()
         if multi:
@@ -260,11 +353,17 @@ def run_ga(length: int, fitness_fn: FitnessFn, cfg: GAConfig,
                 else []
         return GAResult(
             best, history, evaluations=st.measurements,
-            cache_hits=st.cache_hits,
+            cache_hits=st.cache_hits + st.inflight_hits,
             baseline=baseline, persistent_hits=st.persistent_hits,
+            screened_out=st.screened_out,
             duplicates_avoided=dup_avoided,
             wall_s=time.perf_counter() - t_start,
             eval_wall_s=st.eval_wall_s,
+            surrogate_rank_corr=corr,
+            compile_overlap_saved_s=getattr(st, "compile_overlap_saved_s",
+                                            0.0),
+            overlap_est_saved_s=getattr(st, "overlap_est_saved_s", 0.0),
+            overlap_disabled=getattr(st, "overlap_disabled", False),
             front=front)
 
     dup_avoided = 0

@@ -1,7 +1,6 @@
 """Port of ``repro/core/offload.py``: ``Offloader``, ``plan``,
-``ga_search``, ``OffloadResult`` and the ``SeedBank``.  The reference's
-process pool, surrogate screening and compile-overlap phase are not ported;
-the measured fitnesses (export, python_ast) run serially.
+``ga_search`` (with its surrogate, auto-screening and process pool),
+``OffloadResult`` and the ``SeedBank``.
 
 The unified offload pipeline: one entry point for every frontend.
 
@@ -16,20 +15,24 @@ frontend for it, and drives the pipeline:
   normalize -> build RegionGraph -> function-block pass (pattern DB)
      -> gene coding over a destination alphabet (ref / fused / kernel)
      -> seed the GA population (pattern-DB hits + similarity neighbors)
-     -> evaluate through the engine (cache, dedup) -> verify
+     -> evaluate through the batching engine (cache, dedup, screening,
+        workers / process pool, compile overlap) -> verify
      -> one unified OffloadResult whose ``artifact`` runs.
 
 The one-liner path is :func:`plan`.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
 
 from repro_torch.core import similarity as sim
-from repro_torch.core.evaluator import Evaluator
+from repro_torch.core.evaluator import (Evaluator, ProcessPool,
+                                        last_rank_corr, record_search_meta,
+                                        transfer_cost_surrogate)
 from repro_torch.core.journal import Journal
 import repro_torch.core.frontends  # noqa: F401 — registers the frontends
 from repro_torch.core.frontends.registry import (FitnessBundle, OffloadConfig,
@@ -52,7 +55,8 @@ def search_fingerprint(graph: RegionGraph, coding: Optional[GeneCoding] = None,
                        exclude: Sequence[str] = (),
                        cache_extra: str = "") -> str:
     """The persistent-cache fingerprint ``ga_search`` keys a search by —
-    exposed so tools can open the measurement journal a search wrote."""
+    exposed so tools can open the measurement journal and fitted-surrogate
+    records a search wrote."""
     if coding is None:
         coding = coding_from_graph(graph, exclude=exclude)
     return graph.fingerprint(f"{cache_extra}|exclude={sorted(exclude)}"
@@ -137,21 +141,39 @@ def ga_search(graph: RegionGraph, fitness_fn: Callable[[tuple], Evaluation],
 
     Owns the evaluation engine unless one is passed in: persistent cache
     keyed by the graph's content fingerprint (plus ``cache_extra`` for
-    measurement context the graph can't see) and the phenotype key, with
-    ``impl_resolver`` (usually ``FitnessBundle.impl_resolver``) folding the
-    frontend's bind results in, so chromosomes whose variants fall back to
-    the same implementation share one measurement.
+    measurement context the graph can't see), a screening surrogate
+    (always attached, so every search reports its surrogate rank
+    correlation; screening additionally requires ``screen_top_k``), and —
+    when ``ga_cfg.pool`` names a registered fitness factory — a spawn
+    :class:`ProcessPool` for cross-process measurement.
+
+    The surrogate is *learned where the evidence allows*: with a
+    ``cache_dir``, the fingerprint's measurement journal is fitted
+    (:func:`repro_torch.core.surrogate.fit_surrogate`, hand formula as prior)
+    and the fitted model replaces the static transfer-cost formula
+    whenever its journal rank correlation is strictly better — so
+    screening improves with every search instead of merely being measured.
+    ``GAResult.surrogate_kind`` records which model ranked the offspring.
+
+    ``impl_resolver`` (usually ``FitnessBundle.impl_resolver``) folds the
+    frontend's bind results into the phenotype key, so chromosomes whose
+    variants fall back to the same implementation share one measurement.
 
     A multi-axis ``cfg.objectives`` tuple (e.g.
     :data:`repro_torch.core.objectives.OBJECTIVES`) switches ``run_ga`` to
-    NSGA-style Pareto selection over an objective-vector function built from
-    the graph/coding (or taken from ``objective_fn``); every new measurement
-    is annotated with per-objective detail fields.
+    NSGA-style Pareto selection: an objective-vector function is built from
+    the graph/coding (or taken from ``objective_fn``), every new
+    measurement is annotated with per-objective detail fields so the
+    journal learns them, and — with a ``cache_dir`` — one ridge surrogate
+    per extra objective is fitted and persisted after the search (screening
+    itself stays latency-ranked).
     """
     from repro_torch.core import objectives as objmod
 
     cfg = ga_cfg or GAConfig()
     if coding is None:
+        # bare ga_search has no config/frontend in scope: the precedence
+        # helper resolves to the default alphabet (one rule everywhere)
         coding = coding_from_graph(graph, exclude=exclude,
                                    destinations=resolve_alphabet(None))
     multi = len(tuple(cfg.objectives)) > 1 or objective_fn is not None
@@ -159,21 +181,85 @@ def ga_search(graph: RegionGraph, fitness_fn: Callable[[tuple], Evaluation],
         objective_fn = objmod.make_objective_fn(graph, coding,
                                                 cfg.objectives)
     owns = evaluator is None
+    pool: Optional[ProcessPool] = None
+    fingerprint = ""
+    surrogate_kind = "static"
     if evaluator is None:
-        evaluator = Evaluator(
-            fitness_fn, cache_dir=cfg.cache_dir,
-            fingerprint=search_fingerprint(graph, coding, exclude,
-                                           cache_extra),
-            phenotype_key=phenotype_key(coding, resolver=impl_resolver),
-            annotate=objmod.annotate_objectives(graph, coding)
-            if multi else None)
+        surrogate = transfer_cost_surrogate(graph, coding)
+        fingerprint = search_fingerprint(graph, coding, exclude, cache_extra)
+        if cfg.cache_dir and cfg.fit_surrogate:
+            # journal-fitted surrogate (ROADMAP: *fit* the surrogate
+            # against measurement journals): prefer the regression over
+            # the hand formula only when the journal proves it ranks this
+            # program's patterns strictly better
+            from repro_torch.core.surrogate import fit_surrogate
+            fitted = fit_surrogate(graph, coding, cfg.cache_dir,
+                                   fingerprint, prior=surrogate,
+                                   min_records=cfg.surrogate_min_records)
+            if fitted is not None and fitted.beats_static:
+                surrogate = fitted
+                surrogate_kind = "fitted"
+                if log:
+                    log(f"surrogate: journal fit over {fitted.n_records} "
+                        f"records (rank corr {fitted.rank_corr:.2f} > "
+                        f"static {fitted.static_rank_corr:.2f}) replaces "
+                        f"the hand formula")
+        top_k = cfg.screen_top_k
+        if top_k is None and cfg.auto_screen and cfg.cache_dir:
+            # surrogate auto-screening (ROADMAP): a prior search of this
+            # exact program recorded how well the surrogate ranked its
+            # offspring — when that correlation clears the bar (and is
+            # fresh enough to trust), screening is evidence-backed and
+            # switches itself on
+            corr = last_rank_corr(cfg.cache_dir, fingerprint,
+                                  max_age_s=cfg.auto_screen_horizon_s)
+            if corr is not None and corr >= cfg.auto_screen_corr:
+                top_k = max(2, cfg.population // 2)
+                if log:
+                    log(f"auto-screen: prior surrogate rank corr "
+                        f"{corr:.2f} >= {cfg.auto_screen_corr:.2f} -> "
+                        f"screen_top_k={top_k}")
+        common = dict(cache_dir=cfg.cache_dir, fingerprint=fingerprint,
+                      surrogate=surrogate, screen_top_k=top_k,
+                      phenotype_key=phenotype_key(coding,
+                                                  resolver=impl_resolver),
+                      compile_workers=cfg.compile_workers,
+                      annotate=objmod.annotate_objectives(graph, coding)
+                      if multi else None)
+        if cfg.pool is not None:
+            pool = ProcessPool(cfg.pool, workers=cfg.workers or None)
+            evaluator = Evaluator(None, **pool.evaluator_kwargs(), **common)
+        else:
+            evaluator = Evaluator(fitness_fn, workers=cfg.workers, **common)
     try:
         ga = run_ga(coding.length, fitness_fn, cfg, log=log,
                     evaluator=evaluator, arity=coding.arity, seeds=seeds,
                     objective_fn=objective_fn if multi else None)
+        ga = dataclasses.replace(ga, surrogate_kind=surrogate_kind)
+        if owns and cfg.cache_dir and ga.screened_out == 0:
+            # only unscreened searches are evidence: a screened search
+            # measures the correlation on surrogate-selected survivors
+            # (range-restricted), which would let auto-screening justify
+            # itself with its own output
+            record_search_meta(cfg.cache_dir, fingerprint,
+                               ga.surrogate_rank_corr,
+                               horizon_s=cfg.auto_screen_horizon_s,
+                               kind=surrogate_kind)
+        if owns and multi and cfg.cache_dir and cfg.fit_surrogate:
+            # per-objective ridge fits from the (now annotated) journal —
+            # persisted for inspection/screening evidence, one model per
+            # extra objective from the same measurement rows
+            from repro_torch.core.surrogate import fit_surrogate
+            for obj in tuple(cfg.objectives):
+                if obj != "latency":
+                    fit_surrogate(graph, coding, cfg.cache_dir, fingerprint,
+                                  min_records=cfg.surrogate_min_records,
+                                  objective=obj)
     finally:
         if owns:
             evaluator.close()
+            if pool is not None:
+                pool.close()
     return coding, ga
 
 
@@ -365,10 +451,14 @@ class OffloadResult:
             "measurements": g.evaluations,
             "cache_hits": g.cache_hits,
             "persistent_hits": g.persistent_hits,
+            "screened_out": g.screened_out,
             "duplicates_avoided": g.duplicates_avoided,
             "measurements_saved": g.measurements_saved,
+            "surrogate_rank_corr": g.surrogate_rank_corr,
+            "surrogate_kind": g.surrogate_kind,
             "wall_s": g.wall_s,
             "eval_wall_s": g.eval_wall_s,
+            "compile_overlap_saved_s": g.compile_overlap_saved_s,
         }
 
     @property
@@ -439,7 +529,8 @@ class OffloadResult:
 
 class _DestinationCostFitness:
     """Charge cost-only destinations' modeled time on top of measurements,
-    preserving the inner fitness's two-phase (prepare/measure) protocol."""
+    preserving the inner fitness's two-phase (prepare/measure) protocol so
+    the compile-overlap path still applies."""
 
     def __init__(self, graph: RegionGraph, coding: GeneCoding,
                  inner: Callable, mesh_executed: bool = False):
@@ -625,6 +716,33 @@ class Offloader:
                                           mesh_executed=bundle.mesh_executed)
 
         ga_cfg = ga or cfg.ga
+        if bundle.serial_only and (ga_cfg.workers > 1
+                                   or ga_cfg.pool is not None):
+            # wall-clock measurements interleave on shared hardware —
+            # parallel timing is meaningless
+            log("wall-clock fitness: forcing serial evaluation (workers=0)")
+            ga_cfg = dataclasses.replace(ga_cfg, workers=0, pool=None)
+        if ga_cfg.compile_workers is None and bundle.overlap_compiles:
+            # the frontend asks for overlapped prepares ahead of the (still
+            # strictly serial) timing loop; the evaluator's backoff turns
+            # them off where they contend
+            cw = min(4, os.cpu_count() or 1)
+            if cw > 1:
+                log(f"compile-parallel/time-serial warm-ups: "
+                    f"compile_workers={cw}")
+                ga_cfg = dataclasses.replace(ga_cfg, compile_workers=cw)
+        if ga_cfg.pool is not None:
+            # pool workers rebuild their fitness from the registered factory
+            # and cannot see the fitness this pipeline just composed (block
+            # claims folded into base_impl, gene exclusions, destination
+            # costs, cfg.fitness_fn) — measuring one function while planning
+            # another would silently corrupt the result
+            raise ValueError(
+                "GAConfig.pool cannot be used through Offloader.plan: the "
+                "factory-built worker fitness cannot match the pipeline-"
+                "composed fitness. Drive ga_search directly with a factory "
+                "that reproduces your fitness, or use thread workers "
+                "(GAConfig.workers) here")
 
         # --- GA population warm starts ---------------------------------
         seeds: list[tuple] = [tuple(int(v) for v in s) for s in extra_seeds]

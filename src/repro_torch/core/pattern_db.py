@@ -1,12 +1,12 @@
-"""Port of ``repro/core/pattern_db.py`` for the ``softmax_attention``,
+"""Port of ``repro/core/pattern_db.py``: the ``softmax_attention``,
 ``rmsnorm``, ``linear_recurrence``, ``wkv_recurrence``, ``matmul``,
-``attention_stack`` (a block record) and ``fft`` records (thresholds,
-callee names and record order unchanged).  Each record's ``"export"``
-vector is traced with ``torch.export`` from a torch twin of the
+``attention_stack`` and ``moe_dispatch`` (block records) and ``fft``
+records (thresholds, callee names and record order unchanged).  Each
+record's ``"export"`` vector is traced with ``torch.export`` from a torch twin of the
 reference's ``_jx_*`` comparison code — for the scan records, the vector
 of the twin's ``scan`` node (body ops plus one ``scan``, as the export
 frontend vectorizes a scan region); the ``python_ast`` vectors carry over
-unchanged.  The ``moe_dispatch`` block record is not ported yet.
+unchanged.
 
 Code-pattern DB for function-block offload (paper §3.2.2, §4.1: 照合に
 用いるコードパターン DB は、MySQL8 を用いる。ライブラリ等を類似性検出技術で
@@ -256,6 +256,16 @@ class PatternDB:
         for r in regions:
             for k, v in (r.feature_vector or {}).items():
                 merged[k] = merged.get(k, 0) + v
+        return self.match_merged(callee_set, merged, regions[0].name,
+                                 frontend, min_similarity)
+
+    def match_merged(self, callee_set: set, merged: dict, region: str,
+                     frontend: str, min_similarity: Optional[float] = None
+                     ) -> Optional[Match]:
+        """:meth:`match_block`'s rule on a window already merged: the
+        lower-cased callee names of its regions and the sum of their
+        vectors (what a caller that grows windows one region at a time
+        keeps, instead of merging every window anew)."""
         total = sum(merged.values())
         best: Optional[Match] = None
         for rec in self.records:
@@ -263,7 +273,7 @@ class PatternDB:
                 continue
             names = {n.lower() for n in rec.callee_names}
             if callee_set & names:
-                return Match(rec, "name", 1.0, regions[0].name,
+                return Match(rec, "name", 1.0, region,
                              needs_confirmation=rec.interface_changes)
             vec = rec.vectors.get(frontend)
             if not vec or not merged:
@@ -277,7 +287,7 @@ class PatternDB:
             thr = (min_similarity if min_similarity is not None
                    else self.effective_threshold(rec))
             if score >= thr and (best is None or score > best.score):
-                best = Match(rec, "similarity", score, regions[0].name,
+                best = Match(rec, "similarity", score, region,
                              needs_confirmation=rec.interface_changes)
         return best
 
@@ -446,6 +456,22 @@ def _tx_attention_stack(x, scale, wq, wk, wv):
     return _tx_attention(q, k, v)
 
 
+def _tx_moe_dispatch(x, wr, wg, wu, wd):
+    logits = x @ wr
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, 2)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # one-hot as a comparison (exports without one_hot's data-dependent
+    # range check), as models/moe.py builds it
+    onehot = (idx[..., None] == torch.arange(wr.shape[1])).float()
+    combine = torch.einsum("tk,tke->te", gates, onehot)
+    g = torch.einsum("td,edf->tef", x, wg)
+    u = torch.einsum("td,edf->tef", x, wu)
+    h = torch.nn.functional.silu(g) * u
+    y = torch.einsum("tef,efd->ted", h, wd)
+    return torch.einsum("ted,te->td", y, combine)
+
+
 def _scan_region_vector(fn, *example_args) -> dict:
     """Characteristic vector of a canonical *scan region*: export the
     reference implementation, find its ``scan`` node, and count the body's
@@ -527,6 +553,21 @@ def default_db() -> PatternDB:
             threshold=0.85,
             interface_note="whole rmsnorm+QKV+causal-attention block over an "
                            "(S, d) residual stream",
+            block=True,
+        ),
+        PatternRecord(
+            name="moe_dispatch",
+            callee_names=("moe", "moe_dispatch", "moe_block", "router",
+                          "mixture_of_experts", "expert_dispatch"),
+            vectors={"export": sim.vector_of_callable(
+                         _tx_moe_dispatch, q, q.T @ q,
+                         torch.zeros((4, 4, 8), dtype=f32),
+                         torch.zeros((4, 4, 8), dtype=f32),
+                         torch.zeros((4, 8, 4), dtype=f32))},
+            replacement="repro_torch.models.moe.moe_scatter",
+            plan_field=("moe_impl", "scatter_ep"),
+            threshold=0.85,
+            interface_note="router + top-k dispatch + batched expert FFN",
             block=True,
         ),
         PatternRecord(

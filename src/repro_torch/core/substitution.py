@@ -18,6 +18,13 @@ are the scan's (carries, then ys), each marked used when its ``getitem``
 has a user.  A ``zeros`` initial carry stays in the graph as an input (the
 site's ``params["zero_init"]`` says so); a ``flip`` or ``permute`` beside
 the scan stays on the reference path.
+A function-block region (``meta["block_members"]``, from the export
+frontend's ``annotate_block_sites``) becomes a site of kind ``"block"``
+over its whole node range, members and the statements between them:
+:meth:`SubstitutionEngine.substitute` walks the sites widest-first, a block
+that binds claims its members (their requests fall back to ``ref``,
+``claimed by block <name>``), and a block whose variant does not bind
+releases them.
 Everything else runs the exported ATen ops unchanged.  The result,
 :class:`SubstitutedCallable`, runs eagerly (no compilation step).
 
@@ -74,15 +81,22 @@ class SubstitutedCallable:
                 f"fallbacks={list(self.report.fallbacks)})")
 
 
+def is_subgraph(node) -> bool:
+    """A ``get_attr`` of a subgraph (a ``scan``'s body): an operand of the
+    node that reads it, never a value the span takes as input."""
+    return node.op == "get_attr" and "val" not in node.meta
+
+
 def span_io(nodes) -> tuple[tuple, tuple]:
     """Free inputs (first-use order) and live outputs (graph order) of a
-    span of FX nodes: inputs are nodes the span reads but does not define;
-    outputs are span nodes read outside the span."""
+    span of FX nodes: inputs are nodes the span reads but does not define
+    (a ``scan``'s body excepted); outputs are span nodes read outside the
+    span."""
     span = set(nodes)
     ins: list = []
     for n in nodes:
         for a in n.all_input_nodes:
-            if a not in span and a not in ins:
+            if a not in span and a not in ins and not is_subgraph(a):
                 ins.append(a)
     outs = [n for n in nodes if any(u not in span for u in n.users)]
     return tuple(ins), tuple(outs)
@@ -197,8 +211,11 @@ class SubstitutionEngine:
             ins, outs = span_io(nodes)
             after = max((order[n] for n in ins), default=-1)
             anchor = next(n for n in nodes if order[n] > after)
+            # fnblock regions (merged multi-region windows from the block
+            # pass) bind block-level variants; plain spans stay spans
+            kind = "block" if region.meta.get("block_members") else "span"
             sites.append(SiteBinding(region.name, region.meta.get("pattern"),
-                                     nodes, ins, outs, anchor))
+                                     nodes, ins, outs, anchor, kind))
         return sites
 
     @property
@@ -231,21 +248,38 @@ class SubstitutionEngine:
         the legacy "kernel" auto choice).  Returns the runnable program.
         A mesh destination (``destinations``) is not executed by this
         engine: the site resolves its decoded implementation and the report
-        says so."""
-        report = SubstitutionReport()
+        says so.
+
+        Sites are resolved widest-first: a block site that binds computes
+        its whole node range, so a member site inside it is claimed and any
+        variant requested on it falls back to ``ref`` (reported as such).
+        The report lists the sites in graph order."""
+        choices: dict[str, SubstitutionChoice] = {}
         actions: list[tuple[SiteBinding, Callable]] = []
-        for site in self._sites:
+        accepted: list[tuple[frozenset, str]] = []
+        for site in sorted(self._sites, key=lambda s: -len(s.nodes)):
             requested = str(impl.get(site.region, "ref"))
+            span = frozenset(site.nodes)
+            owner = next((r for nodes, r in accepted
+                          if not span.isdisjoint(nodes)), None)
+            if owner is not None:
+                choices[site.region] = SubstitutionChoice(
+                    site.region, site.pattern, requested, "ref",
+                    f"claimed by block {owner}")
+                continue
             adapter, chosen, why = self._resolve_variant(site, requested)
             dname = (destinations or {}).get(site.region)
             if dname and dname.startswith("mesh:"):
                 why = (f"mesh {dname!r} is not executed by the export "
                        f"engine: modeled cost charged; {why}")
                 requested = dname
-            report.choices.append(SubstitutionChoice(
-                site.region, site.pattern, requested, chosen, why))
+            choices[site.region] = SubstitutionChoice(
+                site.region, site.pattern, requested, chosen, why)
             if adapter is not None:
                 actions.append((site, adapter))
+                accepted.append((span, site.region))
+        report = SubstitutionReport(
+            [choices[s.region] for s in self._sites])
 
         g = torch.fx.Graph()
         val_map: dict = {}
@@ -303,9 +337,9 @@ class SubstitutionEngine:
 
     def verify_block(self, region: str, impl_id,
                      rtol: float = 1e-2, atol: float = 1e-2):
-        """Span-granularity verification: the bound adapter's outputs
-        against the reference nodes' values over the span, on the example
-        arguments.  Returns ``(VerifyResult, chosen_impl)``; a predicate
+        """Span- or block-granularity verification: the bound adapter's
+        outputs against the reference nodes' values over the site's span (a
+        block site: its whole node range), on the example arguments.  Returns ``(VerifyResult, chosen_impl)``; a predicate
         rejection verifies trivially as the reference path."""
         from repro_torch.core.pattern_db import record_pattern_outcome
         from repro_torch.core.verifier import VerifyResult, verify as _verify

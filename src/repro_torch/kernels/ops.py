@@ -9,8 +9,8 @@ catches a failed build or launch.
 Each wrapper counts its launches in a plain integer attribute
 (``flash_attention.launches``, ``rmsnorm.launches``,
 ``rglru_scan.launches``, ``wkv6.launches``), incremented where the kernel
-is launched and nowhere else, so a run can show that it went through the
-kernels.  ``flash_attention.launches_by_path`` splits its count over the
+is launched and nowhere else (under one lock: launches may come from
+several threads), so a run can show that it went through the kernels.  ``flash_attention.launches_by_path`` splits its count over the
 kernel's paths (``"wgmma"``, ``"mma"``, ``"scalar"``),
 ``rmsnorm.launches_by_variant`` over the RMSNorm kernel's variants
 (``"d128_l16"``: the instance for d = 128 at 16 lanes a row;
@@ -31,6 +31,7 @@ head flattening for WKV are gone.  The RG-LRU ``h0`` fold into ``b[:, 0]``
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -44,6 +45,9 @@ __all__ = ["flash_attention", "rglru_scan", "rmsnorm", "wkv6",
            "reset_launch_counts", "launch_counts"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: guards the launch counts: the planner's overlapped prepares launch from
+#: several threads
+_COUNT_LOCK = threading.Lock()
 
 
 def _route(*tensors: torch.Tensor) -> str:
@@ -84,8 +88,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     path = _fa.select_path(q, k, v)
     _fa.launch(q, k, v, out, causal=causal, scale=scale, path=path)
-    flash_attention.launches += 1
-    flash_attention.launches_by_path[path] += 1
+    with _COUNT_LOCK:
+        flash_attention.launches += 1
+        flash_attention.launches_by_path[path] += 1
     return out
 
 
@@ -110,10 +115,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     out = torch.empty_like(x2)
     if x2.shape[0] > 0:
         _rn.launch(x2, scale, out, eps, variant=variant)
-        rmsnorm.launches += 1
         name = _rn.variant_name(variant)
-        rmsnorm.launches_by_variant[name] = \
-            rmsnorm.launches_by_variant.get(name, 0) + 1
+        with _COUNT_LOCK:
+            rmsnorm.launches += 1
+            rmsnorm.launches_by_variant[name] = \
+                rmsnorm.launches_by_variant.get(name, 0) + 1
     return out.reshape(x.shape)
 
 
@@ -154,8 +160,9 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
     if out.numel() > 0:
         route = _rg.select_route(la, bb)
         _rg.launch(la, bb, out, route=route)
-        rglru_scan.launches += 1
-        rglru_scan.launches_by_route[route] += 1
+        with _COUNT_LOCK:
+            rglru_scan.launches += 1
+            rglru_scan.launches_by_route[route] += 1
     return out
 
 
@@ -184,7 +191,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     if out.numel() > 0:
         _wk.launch(r, k, v, log_w, u, out)
-        wkv6.launches += 1
+        with _COUNT_LOCK:
+            wkv6.launches += 1
     return out
 
 

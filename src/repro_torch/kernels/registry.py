@@ -1,7 +1,7 @@
 """Port of ``repro/kernels/registry.py`` for the ``softmax_attention``,
 ``rmsnorm``, ``linear_recurrence`` and ``wkv_recurrence`` patterns and the
-``attention_stack`` block pattern: pattern-DB entries -> executable
-variants.  ``moe_dispatch`` is not ported yet.
+``attention_stack`` and ``moe_dispatch`` block patterns: pattern-DB entries
+-> executable variants.
 
 Each pattern maps to an ordered set of :class:`Variant`\\ s — ``fused_torch``
 (the system's own fused PyTorch rewrite, counterpart of ``fused_jnp``) and
@@ -20,12 +20,15 @@ The ``cuda`` variants reject what their kernels do not take (head dims that
 are not multiples of 8 up to 256, dtypes other than f32/bf16, WKV head dims
 other than 16/32/64).
 
-The block pattern ``attention_stack`` (rmsnorm + q/k/v projections + causal
-attention over an (S, d) residual stream) binds merged ``block`` sites
-whose operands the frontend ordered positionally (the Python-``ast``
-frontend's); a site that carries export nodes is refused until the export
-frontend builds block windows.  Its variants, ``block_chunked`` and
-``block_fused``, are PyTorch rewrites and launch no hand kernel.
+The block patterns bind merged ``block`` sites: an export window (the
+export frontend's ``annotate_block_sites``), whose operand roles come from
+its FX nodes' dataflow, or a python_ast block, whose operands the frontend
+ordered positionally.  ``attention_stack`` (rmsnorm + q/k/v projections +
+causal attention over an (S, d) residual stream) has ``block_chunked`` and
+``block_fused``; ``moe_dispatch`` (router, top-k, one-hot combine and the
+expert FFN over (T, d) tokens) has ``block_scatter``, the capacity-limited
+dispatch of :func:`repro_torch.models.moe.moe_scatter` at a capacity that
+drops nothing.  All three are PyTorch rewrites and launch no hand kernel.
 """
 from __future__ import annotations
 
@@ -146,6 +149,7 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: the matrix-product ops of the (pre-decomposition) export graph
 _DOT_OPS = (torch.ops.aten.matmul.default, torch.ops.aten.bmm.default,
             torch.ops.aten.mm.default)
+_EINSUM = torch.ops.aten.einsum.default
 
 
 def _require(cond: bool, why: str) -> None:
@@ -489,23 +493,109 @@ def _bind_wkv_cuda(site: CallSite):
 
 
 # ---------------------------------------------------------------------------
-# attention_stack: rmsnorm + q/k/v projections + causal attention (block)
+# block-level variants (function-block offload, arXiv 2004.09883): one
+# variant replaces a *merged multi-region window* — the whole algorithm, not
+# a single loop.  Block sites arrive with ``kind == "block"``; an export
+# block carries every node of its window (``site.nodes``), so the binders
+# infer operand roles by dataflow through the FX graph, as the span binders
+# do.  A python_ast block carries no nodes: its site builder ordered the
+# operands positionally.
 # ---------------------------------------------------------------------------
+
+
+def _dot_operands(node) -> Optional[tuple]:
+    """(lhs, rhs) of a two-operand matrix product (``matmul``/``mm``/``bmm``
+    or a two-operand ``einsum``), else None."""
+    if node.target in _DOT_OPS:
+        return node.args[0], node.args[1]
+    if node.target is _EINSUM and len(node.args[1]) == 2:
+        return tuple(node.args[1])
+    return None
+
+
+def _input_roots(site: CallSite) -> Callable:
+    """Dataflow helper: map any node of the site to the set of site inputs
+    it derives from (non-raising twin of ``_attention_roles``'s
+    ``sole_root``)."""
+    inputs = set(site.in_nodes)
+    span = set(site.nodes)
+
+    def roots(node) -> frozenset:
+        out, stack, seen = set(), [node], set()
+        while stack:
+            x = stack.pop()
+            if not isinstance(x, torch.fx.Node) or x in seen:
+                continue
+            seen.add(x)
+            if x in inputs:
+                out.add(x)
+            elif x in span:
+                stack.extend(x.all_input_nodes)
+        return frozenset(out)
+    return roots
+
+
+def _sole_rhs_dots(site: CallSite) -> list:
+    """The block's matrix products whose rhs traces back to exactly ONE
+    site input: its weight matmuls (score/combine products mix several
+    inputs on the rhs and drop out).  Returns [(node, rhs input node), ...]
+    in graph order — the program's weight-application order."""
+    roots = _input_roots(site)
+    out = []
+    for n in site.nodes:
+        ops = _dot_operands(n)
+        if ops is None:
+            continue
+        rr = roots(ops[1])
+        if len(rr) == 1:
+            out.append((n, next(iter(rr))))
+    return out
+
+
+def _scan_params(nodes, op, key: str):
+    """The argument ``key`` of the first ``op`` node among ``nodes`` (by
+    the op's schema: positional or keyword), or None where there is none
+    — e.g. ``k`` of an ``aten.topk``."""
+    for n in nodes:
+        if n.target is not op:
+            continue
+        names = [a.name for a in op._schema.arguments]
+        i = names.index(key)
+        if key in n.kwargs:
+            return n.kwargs[key]
+        if i < len(n.args):
+            return n.args[i]
+        return op._schema.arguments[i].default_value
+    return None
+
+
+# --- attention_stack: rmsnorm + q/k/v projections + causal attention -------
 
 
 def _attention_stack_site(site: CallSite):
     _require(site.kind == "block",
              f"attention_stack binds merged block sites, not {site.kind}")
-    _require(not site.nodes,
-             "attention_stack binds positional (python_ast) block sites; "
-             "export block windows are not ported yet")
     _require(len(site.in_avals) == 5, "expected (x, scale, wq, wk, wv)")
     _require(sum(site.out_used) == 1,
              "attention stack produces one used output")
     _require(_floats(site.in_avals), "needs floating inputs")
-    # the site builder ordered the operands positionally; the shape checks
-    # below reject a wrong assignment
-    x_av, s_av, wq_av, wk_av, wv_av = site.in_avals
+    if site.nodes:
+        projs = _sole_rhs_dots(site)
+        _require(len(projs) == 3,
+                 "expected exactly the q/k/v projection matmuls")
+        index = {n: i for i, n in enumerate(site.in_nodes)}
+        w_idx = tuple(index[r] for _, r in projs)  # (wq, wk, wv)
+        one_d = [i for i, a in enumerate(site.in_avals) if a.ndim == 1]
+        _require(len(one_d) == 1, "expected one rank-1 rmsnorm scale")
+        rest = set(range(5)) - set(w_idx) - {one_d[0]}
+        _require(len(rest) == 1, "cannot identify the residual-stream input")
+        roles = (rest.pop(), one_d[0]) + w_idx     # (x, scale, wq, wk, wv)
+    else:
+        # no nodes (the python_ast frontend): the site builder already
+        # ordered the operands positionally; the shape checks below reject
+        # a wrong assignment
+        roles = (0, 1, 2, 3, 4)
+    x_av, s_av, wq_av, wk_av, wv_av = (site.in_avals[i] for i in roles)
     _require(x_av.ndim == 2, "(S, d) residual stream expected")
     _require(s_av.ndim == 1, "expected one rank-1 rmsnorm scale")
     _require(wq_av.shape == wk_av.shape == wv_av.shape and wq_av.ndim == 2,
@@ -517,7 +607,7 @@ def _attention_stack_site(site: CallSite):
     out_av = site.out_avals[list(site.out_used).index(True)]
     _require(out_av.shape == (x_av.shape[0], dh),
              "output is not attention-shaped")
-    return x_av, out_av
+    return x_av, out_av, roles
 
 
 def _bind_attention_stack_chunked(site: CallSite):
@@ -525,32 +615,102 @@ def _bind_attention_stack_chunked(site: CallSite):
     from repro_torch.models.attention import attend_chunked
     from repro_torch.models.plan import ExecPlan
 
-    x_av, out_av = _attention_stack_site(site)
+    x_av, out_av, roles = _attention_stack_site(site)
     plan = ExecPlan(attn_impl="chunked", attn_kv_chunk=128,
                     compute_dtype=str(x_av.dtype).split(".")[-1])
 
-    def fn(x, sc, wq, wk, wv):
+    def fn(*xs):
+        x, sc, wq, wk, wv = (xs[i] for i in roles)
         xn = ref.rmsnorm_ref(x, sc)
         q, k, v = xn @ wq, xn @ wk, xn @ wv
         pos = torch.arange(x.shape[0], device=x.device)
         o = attend_chunked(q[None, :, None, :], k[None, :, None, :],
                            v[None, :, None, :], pos, pos, True, 0, plan)
-        return (_cast(o[0, :, 0, :], out_av),)
+        return _out_tuple(site, _cast(o[0, :, 0, :], out_av))
     return fn
 
 
 def _bind_attention_stack_fused(site: CallSite):
     from repro_torch.kernels import ref
 
-    x_av, out_av = _attention_stack_site(site)
+    x_av, out_av, roles = _attention_stack_site(site)
     scale = 1.0 / math.sqrt(out_av.shape[-1])
 
-    def fn(x, sc, wq, wk, wv):
+    def fn(*xs):
+        x, sc, wq, wk, wv = (xs[i] for i in roles)
         xn = ref.rmsnorm_ref(x, sc)
         q, k, v = xn @ wq, xn @ wk, xn @ wv
         o = ref.flash_attention_ref(q[None], k[None], v[None],
                                     causal=True, scale=scale)[0]
-        return (_cast(o, out_av),)
+        return _out_tuple(site, _cast(o, out_av))
+    return fn
+
+
+# --- moe_dispatch: router + top-k dispatch + batched expert FFN ------------
+
+
+def _moe_site(site: CallSite):
+    _require(site.kind == "block",
+             f"moe_dispatch binds merged block sites, not {site.kind}")
+    _require(bool(site.nodes), "block site carries no nodes")
+    _require(len(site.in_avals) == 5,
+             "expected (x, w_router, w_gate, w_up, w_down)")
+    _require(sum(site.out_used) == 1, "moe dispatch produces one used output")
+    _require(_floats(site.in_avals), "needs floating inputs")
+    rank3 = [i for i, a in enumerate(site.in_avals) if a.ndim == 3]
+    _require(len(rank3) == 3, "expected three (E,·,·) expert weight stacks")
+    index = {n: i for i, n in enumerate(site.in_nodes)}
+    # expert weights in application order: gate, up, down
+    w_order = [index[r] for _, r in _sole_rhs_dots(site)
+               if index[r] in rank3]
+    _require(len(w_order) == 3, "cannot order the expert weight matmuls")
+    wg_i, wu_i, wd_i = w_order
+    rank2 = [i for i, a in enumerate(site.in_avals) if a.ndim == 2]
+    _require(len(rank2) == 2, "expected tokens (T,d) and router (d,E)")
+    top_k = _scan_params(site.nodes, torch.ops.aten.topk.default, "k")
+    _require(top_k is not None, "no top-k routing found in the block")
+    # the router weight has E columns; tokens have d columns
+    wg_av = site.in_avals[wg_i]
+    n_experts, d = wg_av.shape[0], wg_av.shape[1]
+    a2, b2 = (site.in_avals[i] for i in rank2)
+    if a2.shape[1] == n_experts and b2.shape[1] == d:
+        wr_i, x_i = rank2
+    else:
+        _require(b2.shape[1] == n_experts and a2.shape[1] == d,
+                 "cannot tell router weight from token matrix")
+        x_i, wr_i = rank2
+    roles = (x_i, wr_i, wg_i, wu_i, wd_i)
+    x_av = site.in_avals[x_i]
+    _require(site.in_avals[wu_i].shape == wg_av.shape,
+             "gate/up expert shapes disagree")
+    _require(site.in_avals[wd_i].shape == (n_experts, wg_av.shape[2], d),
+             "down projection shape mismatch")
+    out_av = site.out_avals[list(site.out_used).index(True)]
+    _require(out_av.shape == x_av.shape, "moe output must be token-shaped")
+    return x_av, out_av, roles, n_experts, int(top_k)
+
+
+def _bind_moe_scatter(site: CallSite):
+    from repro_torch.configs.base import ArchConfig, MoEConfig
+    from repro_torch.models.moe import Router, moe_scatter
+    from repro_torch.models.plan import ExecPlan
+
+    x_av, out_av, roles, n_experts, top_k = _moe_site(site)
+    ff = site.in_avals[roles[2]].shape[2]
+    # capacity_factor = E makes the dispatch dropless (cap = T*k), so the
+    # scatter route is numerically the dense one-hot reference
+    cfg = ArchConfig("block_moe", "moe", d_model=x_av.shape[1],
+                     moe=MoEConfig(n_experts=n_experts, top_k=top_k,
+                                   d_ff_expert=ff,
+                                   capacity_factor=float(n_experts)))
+    plan = ExecPlan(moe_impl="scatter_ep",
+                    compute_dtype=str(x_av.dtype).split(".")[-1])
+
+    def fn(*xs):
+        x, wr, wg, wu, wd = (xs[i] for i in roles)
+        params = {"w_gate": wg, "w_up": wu, "w_down": wd}
+        out, _aux = moe_scatter(x, params, Router(wr, top_k), cfg, plan)
+        return _out_tuple(site, _cast(out, out_av))
     return fn
 
 
@@ -589,6 +749,10 @@ def default_registry() -> KernelRegistry:
     reg.register(Variant("attention_stack", "block_fused",
                          _bind_attention_stack_fused,
                          "rmsnorm + QKV + naive causal attention"))
+    reg.register(Variant("moe_dispatch", "block_scatter",
+                         _bind_moe_scatter,
+                         "capacity-limited scatter dispatch via "
+                         "models/moe.moe_scatter"))
     _DEFAULT = reg
     return reg
 

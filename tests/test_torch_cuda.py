@@ -678,6 +678,29 @@ def test_rwkv_chunked_prefill_and_decode_on_card_match_the_cpu(cuda):
                                        atol=1e-4, rtol=0)
 
 
+@pytest.mark.gpu
+def test_rwkv_step_and_chunked_prefills_agree_on_card(cuda):
+    """The WKV ``step`` form against the ``chunked`` form (chunks of 8
+    over 32 tokens) on the card: a reduced RWKV-6 prefill, f32, its logits
+    and every state leaf at 1e-4."""
+    from repro_torch.models import REFERENCE_PLAN
+
+    outs = []
+    for impl in ("step", "chunked"):
+        plan = REFERENCE_PLAN.replace(compute_dtype="float32", wkv_impl=impl,
+                                      wkv_chunk=8)
+        _, model, params, tokens = _reduced_family("rwkv6_3b", cuda)
+        with torch.no_grad():
+            outs.append(model.prefill(params, {"tokens": tokens}, plan))
+    (s_logits, s_state), (c_logits, c_state) = outs
+    assert s_logits.device.type == "cuda"
+    torch.testing.assert_close(s_logits, c_logits, atol=1e-4, rtol=0)
+    for a, b in zip(s_state["rwkv"], c_state["rwkv"], strict=True):
+        for f in ("wkv", "shift_tm", "shift_cm"):
+            torch.testing.assert_close(getattr(a, f), getattr(b, f),
+                                       atol=1e-4, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # the enc-dec family (path X)
 # ---------------------------------------------------------------------------
@@ -920,3 +943,125 @@ def test_python_source_plan_runs_the_rmsnorm_kernel_on_card(cuda):
     ref = Executor(ctx.target, {}, device="cpu").run(**inputs)["out"]
     np.testing.assert_allclose(outs[None], ref, rtol=2e-2, atol=2e-2)
     np.testing.assert_allclose(outs[None], outs["cpu"], rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# function-block genes and overlapped prepares on the card
+# ---------------------------------------------------------------------------
+
+
+class _CausalAttention(torch.nn.Module):
+    def forward(self, q, k, v):
+        s = q @ k.T / np.sqrt(q.shape[-1])
+        mask = torch.tril(torch.ones(q.shape[0], k.shape[0],
+                                     dtype=torch.bool, device=q.device))
+        return torch.softmax(torch.where(mask, s, -1e30), dim=-1) @ v
+
+
+class _AttentionStack(torch.nn.Module):
+    """Phase K1's program at (512, 256) -> head 128: RMSNorm and causal
+    attention as submodules, the projections and residual between them."""
+
+    def __init__(self, d, dh, dev):
+        super().__init__()
+        from repro_torch.models.layers import RMSNorm
+        g = torch.Generator().manual_seed(0)
+        self.norm = RMSNorm(d, device=dev)
+        with torch.no_grad():
+            self.norm.weight.copy_(torch.randn(d, generator=g) * 0.1)
+        self.wq, self.wk, self.wv, self.wo = (
+            torch.nn.Parameter((torch.randn(a, b, generator=g)
+                                / np.sqrt(a)).to(dev))
+            for a, b in ((d, dh), (d, dh), (d, dh), (dh, d)))
+        self.attention = _CausalAttention()
+
+    def forward(self, x):
+        xn = self.norm(x)
+        o = self.attention(xn @ self.wq, xn @ self.wk, xn @ self.wv)
+        return x + o @ self.wo
+
+
+def _stack_plan(cuda, **options):
+    from repro_torch.core.frontends.registry import OffloadConfig
+    from repro_torch.core.ga import GAConfig
+    from repro_torch.core.offload import Offloader
+
+    model = _AttentionStack(256, 128, cuda)
+    x = torch.randn(512, 256, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda)
+    offloader = Offloader(OffloadConfig(
+        ga=GAConfig(population=4, generations=2, seed=0), repeats=1,
+        options={"example_args": (x,), **options}))
+    return model, x, offloader
+
+
+@pytest.mark.gpu
+def test_attention_stack_block_variants_and_loop_arm_on_card(cuda):
+    """Phase K1 at a small size: the block window binds both variants,
+    each verifies on the card and launches no kernel; the loop arm's
+    forced chromosome launches the RMSNorm and flash kernels once each."""
+    from repro_torch.core.verifier import verify
+
+    model, x, offloader = _stack_plan(cuda)
+    res = offloader.plan(model)
+    assert res.verification["verified"]
+    engine = res.details["engine"]
+    blocks = [r for r in res.graph.regions if r.meta.get("block_members")]
+    assert len(blocks) == 1 and blocks[0].meta["pattern"] == "attention_stack"
+    with torch.no_grad():
+        want = model(x)
+    for variant in ("block_chunked", "block_fused"):
+        v, chosen = engine.verify_block(blocks[0].name, variant)
+        assert chosen == variant and v.ok, v
+        sub = engine.substitute({blocks[0].name: variant})
+        tops.reset_launch_counts()
+        got = sub(x)
+        torch.cuda.synchronize()
+        assert not any(tops.launch_counts().values())
+        assert verify(want, got).ok
+
+    model, x, offloader = _stack_plan(cuda, block_sites=False)
+    res = offloader.plan(model)
+    assert not any(r.meta.get("block_members") for r in res.graph.regions)
+    engine = res.details["engine"]
+    forced = {s.region: "cuda" for s in res.coding.sites
+              if res.graph.by_name(s.region).meta.get("pattern")}
+    sub = engine.substitute(forced)
+    tops.reset_launch_counts()
+    got = sub(x)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in tops.launch_counts().items() if n} == \
+        {"flash_attention": 1, "rmsnorm": 1}
+    assert verify(want, got).ok
+
+
+@pytest.mark.gpu
+def test_overlapped_prepares_plan_the_serial_search_on_card(cuda):
+    """One block program planned with its prepares serial and on 4
+    threads: each chromosome's time a fixed function of its bits, the
+    prepares real; the same best bits and the same measured chromosomes."""
+    from repro_torch.core.ga import Evaluation
+
+    out = {}
+    for workers in (0, 4):
+        model, x, offloader = _stack_plan(cuda)
+        offloader.config.ga.compile_workers = workers
+        ctx = offloader.prepare(model)
+        real = ctx.bundle.fitness_factory(ctx.coding)
+        measured = []
+
+        class Fixed:
+            def prepare(self, bits):
+                return real.prepare(bits)
+
+            def measure(self, prep):
+                measured.append(prep.bits)
+                if prep.failure is not None:
+                    return prep.failure
+                return Evaluation(prep.bits, 1.0 - 0.01 * sum(
+                    (i + 1) * int(v) for i, v in enumerate(prep.bits)), True)
+
+        ctx.config.fitness_fn = Fixed()
+        res = offloader.search(ctx)
+        out[workers] = (res.best.bits, sorted(measured))
+    assert out[0] == out[4]

@@ -6,11 +6,10 @@ The same logical workloads (attention, rmsnorm, recurrence) planned through
 the port's python_ast and export frontends give numerically equivalent
 outputs per chosen variant and a uniform
 :class:`~repro_torch.core.variants.SubstitutionReport`; every registered
-frontend reports uniformly and plans function-block genes uniformly (the
-python_ast frontend's ``attention_stack`` block against a torch twin of the
-same block; the export frontend has no block windows yet, so it is
-block-free here).  Left out: the serial-versus-parallel contract, which
-waits for the evaluator's process pool (ROADMAP queue 1, item 6)."""
+frontend reports uniformly, plans the same search serially and with thread
+workers, and plans function-block genes uniformly (the ``attention_stack``
+block of the python_ast frontend and of the export frontend, against each
+other and against a torch twin of the same block)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -284,10 +283,11 @@ def _det_fitness(values) -> Evaluation:
     return Evaluation(tuple(values), t, True)
 
 
-def _plan(name, seed=5):
+def _plan(name, workers=0, seed=5, log=None):
     target, inputs, kwargs = _frontend_fixture(name)
-    cfg = OffloadConfig(ga=GAConfig(population=6, generations=2, seed=seed),
-                        fitness_fn=_det_fitness, **CPU, **kwargs)
+    cfg = OffloadConfig(ga=GAConfig(population=6, generations=2, seed=seed,
+                                    workers=workers),
+                        fitness_fn=_det_fitness, log=log, **CPU, **kwargs)
     return Offloader(cfg).plan(target, inputs)
 
 
@@ -313,33 +313,110 @@ def test_every_frontend_reports_uniformly(name):
     assert res.summary()["substituted"] == rep.substituted
 
 
+@pytest.mark.parametrize("name", sorted(frontend_names()))
+def test_every_frontend_serial_parallel_report_identical(name):
+    """Thread workers (4) plan what the serial engine plans: the same best,
+    report and history.  The measured frontends (export, python_ast) are
+    serial-only: the pipeline forces their workers to 0, so for them this
+    holds the forcing, not a thread pool."""
+    logged: list = []
+    r_ser = _plan(name, workers=0)
+    r_par = _plan(name, workers=4, log=logged.append)
+    forced = any("forcing serial evaluation" in m for m in logged)
+    assert forced == (name in {"export", "python_ast"}), logged
+    assert r_ser.best.bits == r_par.best.bits
+    assert r_ser.report == r_par.report
+    assert [h["best_time_s"] for h in r_ser.ga.history] == \
+        [h["best_time_s"] for h in r_par.ga.history]
+
+
+def test_export_static_cost_path_is_opt_in():
+    """Twin of ``test_jaxpr_static_cost_path_is_opt_in``: the transfer-cost
+    stub only on request, and its artifact is the impl map."""
+    fn, args = _ex_case("attention")
+    res = plan(fn, config=OffloadConfig(
+        ga=GAConfig(population=6, generations=2, seed=0),
+        options={"example_args": args, "static_cost": True}, **CPU))
+    assert res.verification["mode"] == "static-cost"
+    assert not res.verification["verified"]
+    assert res.best.detail.get("static_cost")
+    assert isinstance(res.artifact, dict)    # impl map, not a callable
+    measured = plan(fn, config=OffloadConfig(
+        ga=GAConfig(population=4, generations=1, seed=0), repeats=1,
+        options={"example_args": args}, **CPU))
+    assert measured.verification == {"mode": "measured", "verified": True}
+    assert callable(measured.artifact)
+
+
 # ---------------------------------------------------------------------------
 # contract 4: function-block genes
 # ---------------------------------------------------------------------------
 
 #: frontends whose planning pipeline has no function-block pass — they must
-#: still plan the absence uniformly (no member-carrying gene sites).  The
-#: export frontend's block windows are not ported yet.
-_BLOCK_FREE = {"export", "module", "ir"}
+#: still plan the absence uniformly (no member-carrying gene sites)
+_BLOCK_FREE = {"module", "ir"}
 
-_BLOCK: dict = {}
+_BLOCK_BUNDLES: dict = {}
 
 
-def _block_bundle():
-    if not _BLOCK:
-        inputs = _DIFF._block_inputs()
+class BlockStack(torch.nn.Module):
+    """The export twin of ``BLOCK_SRC``: rmsnorm and causal attention as
+    submodules (``RMSNorm``, ``Attention``), the q/k/v projections between
+    them in the caller's module, as a model layer has them."""
+
+    def __init__(self, scale):
+        super().__init__()
+        from repro_torch.models.layers import RMSNorm
+        self.norm = RMSNorm(scale.shape[0])
+        with torch.no_grad():
+            self.norm.weight.copy_(scale)
+        self.attn = Attention()
+
+    def forward(self, x, wq, wk, wv):
+        xn = self.norm(x)
+        return self.attn(xn @ wq, xn @ wk, xn @ wv)
+
+
+def _block_bundle(name):
+    if name in _BLOCK_BUNDLES:
+        return _BLOCK_BUNDLES[name]
+    inputs = _DIFF._block_inputs()
+    if name == "python_ast":
         fe = get_frontend("python_ast")
         cfg = OffloadConfig(repeats=1, **CPU)
         program = fe.normalize_target(_DIFF.BLOCK_SRC, inputs, cfg)
         graph = fe.build_graph(program, inputs, cfg)
         bundle = fe.make_fitness(graph, program, inputs, cfg)
-        coding = coding_from_graph(graph, exclude=bundle.claimed,
-                                   destinations=bundle.destinations)
-        ref = tast.Executor(program, {}, hoist_transfers=False,
-                            **CPU).run(**inputs)["out"]
-        _BLOCK.update(fe=fe, graph=graph, bundle=bundle, coding=coding,
-                      inputs=inputs, ref=np.asarray(ref))
-    return _BLOCK
+        ref = np.asarray(tast.Executor(program, {}, hoist_transfers=False,
+                                       **CPU).run(**inputs)["out"])
+        runner = lambda art: np.asarray(  # noqa: E731
+            art.run(**inputs)["out"])
+    elif name == "export":
+        x, scale, wq, wk, wv = _f32(*(inputs[n] for n in
+                                      ("x", "scale", "wq", "wk", "wv")))
+        model = BlockStack(scale)
+        args = (x, wq, wk, wv)
+        fe = get_frontend("export")
+        cfg = OffloadConfig(repeats=1, options={"example_args": args}, **CPU)
+        graph = fe.build_graph(model, None, cfg)
+        bundle = fe.make_fitness(graph, model, None, cfg)
+        with torch.no_grad():
+            ref = model(*args).numpy()
+
+        def runner(sub):
+            with torch.no_grad():
+                return sub(*args).numpy()
+    else:
+        raise AssertionError(
+            f"frontend {name!r} is registered but has no function-block "
+            f"fixture: add one (or list it in _BLOCK_FREE) in "
+            f"tests/test_torch_frontend_differential.py")
+    coding = coding_from_graph(graph, exclude=bundle.claimed,
+                               destinations=bundle.destinations)
+    _BLOCK_BUNDLES[name] = dict(fe=fe, graph=graph, bundle=bundle,
+                                coding=coding, inputs=inputs, ref=ref,
+                                runner=runner)
+    return _BLOCK_BUNDLES[name]
 
 
 def _tx_block(x, scale, wq, wk, wv):
@@ -363,7 +440,7 @@ def test_block_genes_uniform_across_frontends(name):
         res = _plan(name)
         assert all(not s.members for s in res.coding.sites)
         return
-    b = _block_bundle()
+    b = _block_bundle(name)
     coding, graph = b["coding"], b["graph"]
     values, fb = _block_values(coding, graph, 1)
     site = next(s for s in coding.sites if s.region == fb.name)
@@ -381,7 +458,7 @@ def test_block_genes_uniform_across_frontends(name):
 
 @pytest.mark.parametrize("gene", [1, 2])
 def test_block_variant_outputs_match_the_torch_twin(gene):
-    b = _block_bundle()
+    b = _block_bundle("python_ast")
     values, fb = _block_values(b["coding"], b["graph"], gene)
     impl = b["coding"].decode(values)[fb.name]
     artifact = b["fe"].apply_plan(b["graph"], b["coding"], values,
@@ -396,6 +473,28 @@ def test_block_variant_outputs_match_the_torch_twin(gene):
     with torch.no_grad():
         twin = _tx_block(*args).numpy()
     np.testing.assert_allclose(out, twin, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("gene", [1, 2])
+def test_block_variant_outputs_match_python_vs_export(gene):
+    """Twin of ``test_block_variant_outputs_match_python_vs_jaxpr``: both
+    frontends bind the same block implementation for one gene value and
+    compute the same numbers."""
+    outs = {}
+    for name in ("python_ast", "export"):
+        b = _block_bundle(name)
+        values, fb = _block_values(b["coding"], b["graph"], gene)
+        impl = b["coding"].decode(values)[fb.name]
+        artifact = b["fe"].apply_plan(b["graph"], b["coding"], values,
+                                      b["bundle"])
+        assert artifact.report.substituted.get(fb.name) == impl, \
+            artifact.report.fallbacks
+        out = b["runner"](artifact)
+        np.testing.assert_allclose(out, b["ref"], rtol=RTOL, atol=ATOL)
+        outs[name] = (impl, out)
+    assert outs["python_ast"][0] == outs["export"][0]
+    np.testing.assert_allclose(outs["python_ast"][1], outs["export"][1],
+                               rtol=RTOL, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

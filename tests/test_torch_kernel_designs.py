@@ -267,3 +267,68 @@ def test_cpu_calls_count_no_variant_or_route():
     tops.reset_launch_counts()
     assert tops.rmsnorm.launches_by_variant == {}
     assert set(tops.rglru_scan.launches_by_route.values()) == {0}
+
+
+def test_first_use_from_many_threads_builds_once_and_types_every_entry(
+        monkeypatch, tmp_path):
+    """The first use of a kernel from several threads at once (the
+    planner's overlapped prepares): ``build.library`` compiles and loads
+    the library once under its lock, and every thread's ``_fn`` comes back
+    typed."""
+    import ctypes
+    import sys
+    import threading
+    import time
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rn
+
+    builds, loads = [], []
+
+    class FakeLibrary:
+        def __init__(self, path):
+            loads.append(path)
+
+        def __getattr__(self, symbol):
+            fn = type("Fn", (), {})()      # a fresh object per lookup
+            setattr(self, symbol, fn)
+            return fn
+
+    def fake_start(name):
+        time.sleep(0.01)                   # a slow first build
+        return None, None, tmp_path / f"{name}.so"
+
+    def fake_finish(name, proc, tmp, out):
+        builds.append(name)
+        out.touch()
+
+    monkeypatch.setattr(build, "_lib_path", lambda n: tmp_path / f"{n}.so")
+    monkeypatch.setattr(build, "_start", fake_start)
+    monkeypatch.setattr(build, "_finish", fake_finish)
+    monkeypatch.setattr(build.ctypes, "CDLL", FakeLibrary)
+    monkeypatch.setattr(build, "_loaded", {})
+    got, errors = [], []
+
+    def first_use():
+        try:
+            fn = rn._fn()
+            got.append((fn.argtypes, fn.restype))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    rn._fn.cache_clear()
+    try:
+        threads = [threading.Thread(target=first_use) for _ in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+        rn._fn.cache_clear()
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert builds == ["rmsnorm"] and len(loads) == 1 and len(got) == 32
+    assert all(len(a) == 11 and a[0] is ctypes.c_void_p
+               and r is ctypes.c_int for a, r in got)
