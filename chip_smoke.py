@@ -197,7 +197,12 @@ K. phase K, function-block genes in the export frontend (the reference's
    kept on the card, each pair compared there in f64; ``verify_s``) and as
    the parent commit ran it (the reference as f64 host arrays, the
    candidate copied over; ``verify_host_s``), and the path's peak device
-   memory is printed;
+   memory is printed.  Phase C1 on every path: the all-reference and the
+   forced all-kernel programs' rooflines from their aten graphs
+   (``repro_torch.hlo_analysis``, a host-only walk; every kernel node
+   charged its registry variant's cost, no node left without one), their
+   compute, memory and step ms printed beside the measured device ms,
+   which must reach the compute ms;
 4. phase T, training (no hand kernel lies on it: the reference trains
    through the jnp twin of the flash kernel, ``_flash``'s custom VJP):
 
@@ -220,6 +225,18 @@ K. phase K, function-block genes in the export frontend (the reference's
      and its replayed steps 4 and 5 must match T3's losses within 1e-4
      relative; the checkpoints are deleted after;
 
+C. phase C2, a plan chosen by the compiled-artifact cost model:
+   ``Offloader.plan`` of the Qwen3-0.6B config with ``options={"lower_fn":
+   ...}`` (the module frontend's ``CostModelFitness``): each chromosome's
+   ExecPlan lowers the train step at full width and depth, f32, over one
+   sequence of 4096 tokens (fake tensors on the card; 2 and 3 layers traced
+   and extrapolated to 28), scored by its roofline, ∞ above the card's
+   memory; GA 6 x 2 from seed 0.  Every chromosome's terms, ``live_bytes``
+   and fit are printed, then the winner's plan against the baseline; the
+   winner (and the baseline, where it differs and fits) runs 3 real steps:
+   each must take at least its compute time; s/step and the peak device
+   memory are printed beside ``step_s`` and ``live_bytes``.  Then phase
+   C's seconds (C1's graph walks and C2);
 5. a ``{"kernels": [...]}`` line (each RMSNorm and RG-LRU entry carries its
    per-shape rows beside the path sums), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -255,7 +272,9 @@ import torch.nn.functional as F  # noqa: E402
 from torch._higher_order_ops.scan import scan  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch import hlo_analysis  # noqa: E402
+from repro_torch import roofline as rl  # noqa: E402
+from repro_torch.configs.base import TRAIN_4K, get_config  # noqa: E402
 from repro_torch.core.evaluator import MeasurementCache  # noqa: E402
 from repro_torch.core.frontends.ast_frontend import PyOffloadArtifact  # noqa: E402
 from repro_torch.core.ga import GAConfig  # noqa: E402
@@ -279,12 +298,6 @@ from repro_torch.models.transformer import (INIT_STD, DenseBlock,  # noqa: E402
                                             RecurrentSublayer)
 from repro_torch.obs.trace import read_trace  # noqa: E402
 from repro_torch.runtime.serve import Server  # noqa: E402
-
-#: H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them,
-#: HBM3 bandwidth.  Bounds below are against these, at 700 W.
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 
 BATCH, SEQ = 2, 2048
 #: path W: one WKV head at RWKV-6-3B's head width
@@ -346,8 +359,12 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip smoke check failed: {what}")
 
 
-def bound_ms(n_bytes: float, flops: float, peak_flops: float) -> tuple:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / peak_flops
+def bound_ms(cost: rl.KernelCost) -> tuple:
+    """The least time an H100 SXM could take for ``cost`` (its published
+    dense peaks at 700 W, ``repro_torch.roofline``): bytes over the HBM
+    rate or operations over the peak of their precision, the larger."""
+    t_bytes = cost.bytes / rl.HBM_BW
+    t_ops = cost.flops / rl.PEAK_FLOPS[cost.dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -415,9 +432,8 @@ def rmsnorm_case(dev, n, d, dtype, tol, flush, gen):
                lambda: F.rms_norm(x, (d,), w.to(dtype), 1e-6), flush),
            "same_bytes_ms": time_ms(lambda: torch.empty_like(x).copy_(x),
                                     flush)}
-    n_bytes = 2 * n * d * x.element_size() + d * s.element_size()
-    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 4.0 * n * d,
-                                                PEAK_F32_FLOPS)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        rl.rmsnorm_cost(n, d, x.dtype, s.dtype))
     return row
 
 
@@ -453,11 +469,8 @@ def flash_case(dev, b, sq, sk, hq, hkv, d, causal, dtype, tol, rel_limit,
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                qt, kt, vt, is_causal=causal, enable_gqa=True), flush)}
     # work this run's inputs need: the (row, key) pairs the mask keeps
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    flops = 4.0 * b * hq * d * pairs
-    n_bytes = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * q.element_size()
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, flops, peak)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        rl.flash_cost(b, sq, sk, hq, hkv, d, causal, dtype))
     if path == ["wgmma"]:
         # host time of one call: the wrapper, the bare launch (three
         # tensor-map encodings and the launch), and the encodings alone
@@ -549,10 +562,7 @@ def rglru_case(dev, b, s, d, *, h0, time_major, flush, gen):
            "library_ms": None,
            "same_bytes_ms": time_ms(lambda: torch.add(la, bb, out=out),
                                     flush)}
-    n = b * s * d
-    n_bytes = 3 * n * 4 + (b * d * 4 if h0 else 0)
-    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 3.0 * n,
-                                                PEAK_F32_FLOPS)
+    row["bound_ms"], row["bound_by"] = bound_ms(rl.rglru_cost(b, s, d, h0))
     return row
 
 
@@ -577,10 +587,8 @@ def wkv6_case(dev, b, s, h, d, *, log_w, flush, gen):
                                PLAIN_SCAN_REPEATS),
            "library_ms": None}
     row["launch_us"] = launch_breakdown_us(lambda: ops.wkv6(r, k, v, lw, u))
-    n = b * s * h * d
     # the step form: about 4 f32 operations per state entry per step
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        5 * n * 4 + h * d * 4, 4.0 * n * d, PEAK_F32_FLOPS)
+    row["bound_ms"], row["bound_by"] = bound_ms(rl.wkv6_cost(b, s, h, d))
     return row
 
 
@@ -1430,17 +1438,67 @@ def phase_path(label, dev, scratch: Path) -> tuple:
             label, res, engine, args, reference)
     print(f"path {label}:", json.dumps(summary), flush=True)
     unsubstituted = engine.substitute({})
+    measured = {}
     for name, fn in (("baseline (all ref)", unsubstituted),
                      ("plan winner", res.artifact), ("all kernels", forced)):
+        measured[name] = where_time_goes(fn, args, iters)
         print(f"where the time goes, path {label}, {name}:",
-              json.dumps(where_time_goes(fn, args, iters)), flush=True)
+              json.dumps(measured[name]), flush=True)
+    summary["roofline"] = path_rooflines(
+        label, {"baseline (all ref)": unsubstituted, "all kernels": forced},
+        measured, sum(v == "cuda" for _, v in expected))
     print(f"path {label} device memory: {resident_gb:.2f} GB held when the "
           f"program is made, {planned_gb:.2f} GB after planning, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return launches, {k: search_counts[k] for k in kernels
                       if k in search_counts}, {
         k: summary[k] for k in ("plan_s", "n_fnblock", "fnblock", "overlap",
-                                "measurements", "gene_length")}
+                                "measurements", "gene_length", "roofline")}
+
+
+def path_rooflines(label, programs: dict, measured: dict,
+                   kernel_sites: int) -> dict:
+    """Phase C1: each program's roofline on one H100 from its aten graph
+    (``repro_torch.hlo_analysis``, a host-only walk; the all-kernel
+    program's kernel nodes charged their registry variants' costs) beside
+    its measured device time.  The FLOPs' time is a hard lower bound:
+    the device time (profiler, else the CUDA-event span) must reach it;
+    the bytes' time is printed only (L2 holds activations that the
+    analyzer counts as HBM traffic)."""
+    out = {}
+    for name, prog in programs.items():
+        t0 = time.perf_counter()
+        cost = hlo_analysis.analyze_hlo(prog, 1)
+        roof = rl.analyze(prog)
+        analyze_s = time.perf_counter() - t0
+        kernels = [n.target.cost for n in prog.gm.graph.nodes
+                   if isinstance(getattr(n.target, "cost", None),
+                                 rl.KernelCost)]
+        check(not cost.uncosted, f"C1 path {label} {name}: nodes without a "
+                                 f"cost: {cost.uncosted}")
+        want = kernel_sites if name == "all kernels" else 0
+        check(len(kernels) == want,
+              f"C1 path {label} {name}: {len(kernels)} kernel nodes costed, "
+              f"not {want}")
+        m = measured[name]
+        device_ms = m["device_ms"] or m["event_ms"]
+        row = {"compute_ms": roof.compute_s * 1e3,
+               "memory_ms": roof.memory_s * 1e3,
+               "step_ms": roof.step_s * 1e3, "dominant": roof.dominant,
+               "flops": roof.flops, "flops_by_dtype": roof.flops_by_dtype,
+               "hbm_bytes": roof.hbm_bytes, "kernel_nodes": len(kernels),
+               "kernel_flops": sum(k.flops for k in kernels),
+               "kernel_bytes": sum(k.bytes for k in kernels),
+               "device_ms": m["device_ms"], "event_ms": m["event_ms"],
+               "device_over_step": device_ms / (roof.step_s * 1e3)
+               if roof.step_s else None, "analyze_s": analyze_s}
+        print(f"C1 path {label} roofline, {name}:", json.dumps(row),
+              flush=True)
+        check(device_ms >= roof.compute_s * 1e3,
+              f"C1 path {label} {name}: device {device_ms} ms below the "
+              f"FLOPs' time {roof.compute_s * 1e3} ms")
+        out[name] = row
+    return out
 
 
 #: paths that run the finding of the causal binder
@@ -1899,6 +1957,182 @@ def phase_train(dev) -> dict:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase T: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase C2: a plan chosen by the compiled-artifact cost model
+# ---------------------------------------------------------------------------
+
+#: C2: Qwen3-0.6B's train step at full width and depth in f32 over one
+#: sequence of 4096 tokens (``reduced``: the reference's global batch of
+#: 256 over its 256-chip pod16x16 is one sequence a chip); the reference
+#: example's GA 6 x 2 from seed 0, and 3 real steps of a plan
+C2_SHAPE = dataclasses.replace(TRAIN_4K, global_batch=1)
+C2_GA = (6, 2)
+C2_STEPS = 3
+
+
+def c2_real_steps(dev, model, init: dict, plan, roof: dict,
+                  live_bytes: float) -> dict:
+    """``C2_STEPS`` train steps of ``plan`` on the card from the weights
+    ``init`` (host copies), fresh AdamW moments, at a constant lr: each
+    step's host seconds (synchronized) must reach the plan's FLOPs' time
+    (``roof["compute_s"]``); the peak device memory is printed beside the
+    cost model's ``live_bytes``."""
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.runtime.train import TrainState, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = model.param_shapes().to_empty(device=dev)
+    with torch.no_grad():
+        for k, p in params.named_parameters():
+            p.copy_(init[k])
+    state = TrainState(params, adamw_init(params), None)
+    step = make_train_step(model, plan, OptimizerConfig(),
+                           lambda s: torch.full((), T_LR, device=dev))
+    batch = model.demo_batch(torch.Generator().manual_seed(SEED + 1),
+                             C2_SHAPE.global_batch, C2_SHAPE.seq_len,
+                             device=dev)
+    secs, losses = [], []
+    for _ in range(C2_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - held
+    del state, params, step, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(map(math.isfinite, losses)), f"C2: losses {losses}")
+    for t in secs:
+        check(t >= roof["compute_s"],
+              f"C2: a step took {t} s, below the FLOPs' time "
+              f"{roof['compute_s']} s")
+    s_step = statistics.median(secs[1:])
+    return {"step_seconds": secs, "s_per_step_median_2_3": s_step,
+            "losses": losses, "step_s_model": roof["step_s"],
+            "compute_s_model": roof["compute_s"],
+            "memory_s_model": roof["memory_s"],
+            "measured_over_step_s": s_step / roof["step_s"],
+            "peak_device_bytes": peak, "live_bytes_model": live_bytes,
+            "peak_over_live": peak / live_bytes}
+
+
+def phase_cost_plan(dev) -> dict:
+    """Phase C2: ``Offloader.plan`` of Qwen3-0.6B's config through the
+    module frontend's ``lower_fn``: each chromosome's ExecPlan lowers the
+    train step (``launch.dryrun.lower_cell``: fake tensors on the card,
+    two and three layers traced and extrapolated to 28) and is scored by
+    its roofline (``CostModelFitness``), ∞ where it does not fit the
+    card's memory.  Every chromosome's terms are printed; then the
+    winner, and the all-reference baseline where it differs and fits,
+    run ``C2_STEPS`` real steps each."""
+    from repro_torch.core.frontends import module_frontend as mfe
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.models.plan import ExecPlan
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "C2: TF32 is on")
+    t_start = time.perf_counter()
+    cfg = get_config("qwen3_0_6b")
+    budget = torch.cuda.get_device_properties(dev).total_memory
+    mflops = rl.model_flops_train(cfg.param_count(active_only=True),
+                                  C2_SHAPE.tokens)
+    lower_s, lowered = [], {}
+
+    def lower_fn(plan):
+        t0 = time.perf_counter()
+        lowered[plan] = lower_cell(cfg, C2_SHAPE, plan)[0]
+        lower_s.append(time.perf_counter() - t0)
+        return lowered[plan]
+
+    scratch = Path(tempfile.mkdtemp(prefix="plan-C2-", dir=build.BUILD_DIR))
+    try:
+        pop, gens = C2_GA
+        res = Offloader(OffloadConfig(
+            device=str(dev),
+            ga=GAConfig(population=pop, generations=gens, seed=SEED,
+                        cache_dir=str(scratch)),
+            log=lambda m: print("  plan C2:", m, flush=True),
+            options={"lower_fn": lower_fn, "model_flops": mflops,
+                     "hbm_budget": budget,
+                     "base_plan": ExecPlan(compute_dtype="float32")})
+        ).plan(cfg)
+        plan_s = time.perf_counter() - t_start
+        records = MeasurementCache(str(scratch),
+                                   _journal_fingerprint(scratch)).load()
+    finally:
+        shutil.rmtree(scratch)
+    base = res.details["base_plan"]
+    knobs = ("attn_impl", "norm_impl", "mlp_impl", "qkv_fused", "loss_impl",
+             "remat", "gather_mode")
+
+    def plan_of(bits):
+        return mfe.plan_from_coding(res.graph, res.coding, bits, base)
+
+    def described(bits) -> dict:
+        return {k: getattr(plan_of(bits), k) for k in knobs}
+
+    chromosomes = []
+    for bits, ev in sorted(records.items()):
+        # the journal keeps scalars: the terms come from the artifact
+        roof = rl.analyze(lowered[plan_of(bits)].compile(),
+                          model_flops_global=mflops).summary() \
+            if plan_of(bits) in lowered else {}
+        row = {"bits": "".join(map(str, bits)), "plan": described(bits),
+               "valid": ev.valid, "time_s": ev.time_s,
+               "compute_ms": roof.get("compute_s", float("nan")) * 1e3,
+               "memory_ms": roof.get("memory_s", float("nan")) * 1e3,
+               "step_ms": roof.get("step_s", float("nan")) * 1e3,
+               "dominant": roof.get("dominant"),
+               "live_gb": ev.detail.get("live_bytes", float("nan")) / 1e9,
+               "fits": ev.detail.get("live_bytes", float("inf")) <= budget,
+               "error": ev.detail.get("error")}
+        chromosomes.append(row)
+        print("C2 chromosome:", json.dumps(row), flush=True)
+    check(res.best.valid and res.verification["mode"] == "measured",
+          f"C2: no plan fits: {res.best.detail}")
+    baseline_plan = mfe.plan_from_coding(res.graph, res.coding,
+                                         res.baseline.bits, base)
+    out = {"sites": [s.region for s in res.coding.sites],
+           "claimed": list(res.block.claimed_regions),
+           "hbm_budget_bytes": budget, "model_flops": mflops,
+           "measurements": len(records), "lowerings": len(lower_s),
+           "lower_s": sum(lower_s), "plan_s": plan_s,
+           "winner": {"bits": "".join(map(str, res.best.bits)),
+                      "plan": described(res.best.bits),
+                      "roofline": res.best.detail["roofline"],
+                      "live_bytes": res.best.detail["live_bytes"]},
+           "baseline": {"bits": "".join(map(str, res.baseline.bits)),
+                        "plan": described(res.baseline.bits),
+                        "time_s": res.baseline.time_s,
+                        "detail": res.baseline.detail},
+           "speedup_model": res.speedup}
+    print("C2 plan:", json.dumps(out), flush=True)
+
+    model = build_model(cfg)
+    init = dict(model.init(torch.Generator().manual_seed(SEED),
+                           device="cpu").named_parameters())
+    runs = [("winner", res.best, res.artifact)]
+    if res.baseline.bits != res.best.bits and res.baseline.valid:
+        runs.append(("baseline", res.baseline, baseline_plan))
+    out["real"] = {}
+    for name, ev, plan in runs:
+        out["real"][name] = c2_real_steps(dev, model, init, plan,
+                                          ev.detail["roofline"],
+                                          ev.detail["live_bytes"])
+        print(f"C2 real steps, {name}:", json.dumps(out["real"][name]),
+              flush=True)
+    if len(runs) == 1:
+        print("C2: the baseline is the winner's chromosome; its steps are "
+              "the winner's", flush=True)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase C2: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -2894,6 +3128,13 @@ def main(argv: list) -> int:
     free_models()
     phase_train(dev)
     done("phase T")
+    c2 = phase_cost_plan(dev)
+    done("phase C2")
+    c1_s = sum(r["analyze_s"] for p in plans.values()
+               for r in p.get("roofline", {}).values())
+    print(f"phase C: {c1_s + c2['seconds']:.1f} s (C1 {c1_s:.1f} s: the "
+          f"graph walks of {sum(len(p.get('roofline', {})) for p in plans.values())} "
+          f"programs; C2 {c2['seconds']:.1f} s)", flush=True)
     # each path's planning: wall time, the function-block genes that bind,
     # and what the overlap phase did
     print("planning by path:", json.dumps(plans), flush=True)

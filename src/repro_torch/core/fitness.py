@@ -1,16 +1,22 @@
-"""Port of ``repro/core/fitness.py``: :class:`WallClockFitness` only (the
-cost-model fitness waits for the roofline port).
+"""Port of ``repro/core/fitness.py``: the two measurement backends.
 
-Execute and time (min over repeats after a warm-up run), verify results
-against the reference path (PCAST analogue) -> invalid = time ∞.  The
-warm-up run in :meth:`WallClockFitness.prepare` also absorbs the kernels'
-first-use build (``repro_torch.kernels.build``), so a build is never timed.
-Where the runner's outputs live on a CUDA device, each timed run ends in
-``torch.cuda.synchronize()`` — the counterpart of ``block_until_ready``.
+* :class:`WallClockFitness` — execute and time (min over repeats after a
+  warm-up run), verify results against the reference path (PCAST
+  analogue) -> invalid = time ∞.  The warm-up run in
+  :meth:`WallClockFitness.prepare` also absorbs the kernels' first-use
+  build (``repro_torch.kernels.build``), so a build is never timed.  Where
+  the runner's outputs live on a CUDA device, each timed run ends in
+  ``torch.cuda.synchronize()`` — the counterpart of ``block_until_ready``.
+* :class:`CostModelFitness` — ``lower().compile()`` of the program
+  (:mod:`repro_torch.hlo_analysis`: a trace, no run); the measured
+  artifact is its aten graph: roofline step time on one H100 as the
+  objective, the HBM fit as the validity check (OOM -> time ∞, like a
+  compile error in the paper).
 
-A plain ``bits -> Evaluation`` callable; caching, dedup and persistence
-belong to :mod:`repro_torch.core.evaluator`.  Timings only mean something
-when measured one at a time.
+Both are plain ``bits -> Evaluation`` callables; caching, dedup and
+persistence belong to :mod:`repro_torch.core.evaluator`.
+``CostModelFitness`` holds no mutable state across calls; wall-clock
+timings only mean something when measured one at a time.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Any, Callable, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import roofline as rl
 from repro_torch.core.ga import Evaluation
 from repro_torch.core.verifier import verify
 
@@ -97,3 +104,42 @@ class WallClockFitness:
 
     def __call__(self, bits: tuple) -> Evaluation:
         return self.measure(self.prepare(bits))
+
+
+# ---------------------------------------------------------------------------
+# cost-model fitness (production scale, a trace + roofline)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class CostModelFitness:
+    """bits -> lower/compile -> roofline step time; OOM/lowering error = ∞.
+
+    ``lower`` maps bits to a :class:`repro_torch.hlo_analysis.Lowered`
+    (the caller owns the device and input specs).  ``hbm_budget`` is
+    per-device bytes.
+    """
+
+    lower: Callable[[tuple], Any]
+    n_devices: int
+    model_flops: float = 0.0
+    hbm_budget: float = rl.HBM_BYTES  # one H100: 80 GB
+
+    def __call__(self, bits: tuple) -> Evaluation:
+        try:
+            lowered = self.lower(bits)
+            compiled = lowered.compile()
+            mem = compiled.memory_analysis()
+            roof = rl.analyze(compiled, n_devices=self.n_devices,
+                              model_flops_global=self.model_flops)
+        except Exception as e:  # noqa: BLE001 — errors leave the GA
+            return Evaluation(bits, float("inf"), False,
+                              {"error": f"{type(e).__name__}: {e}"[:300]})
+        live = (mem.argument_size_in_bytes + mem.output_size_in_bytes
+                + mem.temp_size_in_bytes + mem.generated_code_size_in_bytes)
+        detail = {"roofline": roof.summary(), "live_bytes": live}
+        if live > self.hbm_budget:
+            return Evaluation(bits, float("inf"), False,
+                              {**detail, "error": f"OOM: {live/1e9:.2f} GB "
+                                                  f"> {self.hbm_budget/1e9:.0f} GB"})
+        return Evaluation(bits, roof.step_s, True, detail)

@@ -1,5 +1,5 @@
 """Port of ``repro/core/frontends/module_frontend.py``: architecture configs
--> Region IR, on the static-cost path.
+-> Region IR.
 
 The third "source language" (the declarative one, playing Java's role in
 the paper's trio): a model described by an :class:`ArchConfig` lowers to
@@ -10,14 +10,17 @@ sites with more than two shipped implementations (``ExecPlan.SITE_VARIANTS``,
 e.g. the rg-LRU step/assoc/chunked scans) expose the full menu, so a gene
 over the variant alphabet selects *which* implementation runs.
 
-Only the static-cost fitness is ported: a ``lower_fn`` option (the
-reference's compiled cost model) raises until ``CostModelFitness``,
-``roofline.py`` and ``hlo_analysis.py`` are ported.
+Chromosomes are scored by the compiled cost model when the caller gives a
+``lower_fn`` (``plan -> Lowered``, e.g. over
+``repro_torch.launch.dryrun.lower_cell``): the roofline of the program the
+plan lowers to on one H100, ∞ where it does not fit the HBM budget.
+Without one, by the static-cost stub.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch import roofline as rl
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.ir import Region, RegionGraph
 from repro_torch.models.plan import ExecPlan
@@ -112,7 +115,9 @@ def plan_from_coding(graph: RegionGraph, coding, values,
 
 class ModuleFrontend:
     """Model-config frontend for the unified pipeline: sites are ExecPlan
-    knobs; the fitness is the static-cost stub (options: ``base_plan``).
+    knobs; fitness is the compiled cost model when the caller provides a
+    ``lower_fn`` (options: lower_fn, n_devices, model_flops, hbm_budget,
+    base_plan), else the static-cost stub.
 
     The static fallback carries only structural signal for module graphs:
     accelerated ExecPlan *compute* values count as device placements in the
@@ -124,7 +129,8 @@ class ModuleFrontend:
     surrogate's more-offload tiebreak and converge to their non-reference
     values.  It is a fast structural path (graph/coding/pipeline
     round-trips with no model built); the result is tagged
-    ``static-cost``, never a measurement."""
+    ``static-cost``, never a measurement.  For decisions that matter, pass
+    ``lower_fn`` so chromosomes are scored by their lowered programs."""
 
     name = "module"
 
@@ -140,21 +146,46 @@ class ModuleFrontend:
         from repro_torch.core.pattern_db import default_db
 
         opts = config.options
-        if opts.get("lower_fn") is not None:
-            raise NotImplementedError(
-                "module frontend: the compiled cost model (lower_fn) waits "
-                "for CostModelFitness, roofline.py and hlo_analysis.py "
-                "(ROADMAP.md queue 1 item 6)")
         block = block_offload_pass(graph, config.db or default_db(),
                                    confirm=config.confirm)
         base = (opts.get("base_plan") or ExecPlan()).replace(
             **block.plan_updates)
+        exclude = block.claimed_regions
+        lower_fn = opts.get("lower_fn")
+        context = {"base_plan": base}
+
+        if lower_fn is None:
+            return FitnessBundle(
+                fitness_factory=static_cost_fitness_factory(graph),
+                block=block, claimed=exclude,
+                cache_extra=f"arch={cfg.arch_id}|staticcost",
+                measured=False, destinations=VARIANT_ALPHABET,
+                context=context)
+
+        n_devices = int(opts.get("n_devices", 1))
+        model_flops = float(opts.get("model_flops", 0.0))
+        hbm_budget = float(opts.get("hbm_budget", rl.HBM_BYTES))
+
+        def fitness_factory(coding):
+            from repro_torch.core.fitness import CostModelFitness
+            return CostModelFitness(
+                lower=lambda values: lower_fn(
+                    plan_from_coding(graph, coding, values, base)),
+                n_devices=n_devices, model_flops=model_flops,
+                hbm_budget=hbm_budget)
+
+        # step-time estimates of lowered programs are machine-portable —
+        # key the persistent cache by architecture + devices + scale
+        cache_extra = (f"arch={cfg.arch_id}|dev={n_devices}"
+                       f"|flops={model_flops:.3g}|hbm={hbm_budget:.3g}"
+                       f"|base={base}|costmodel")
         return FitnessBundle(
-            fitness_factory=static_cost_fitness_factory(graph),
-            block=block, claimed=block.claimed_regions,
-            cache_extra=f"arch={cfg.arch_id}|staticcost",
-            measured=False, destinations=VARIANT_ALPHABET,
-            context={"base_plan": base})
+            fitness_factory=fitness_factory, block=block, claimed=exclude,
+            cache_extra=cache_extra, measured=True,
+            # variant knobs (SITE_VARIANTS) make the gene an implementation
+            # choice: propose the 3-letter variant alphabet so chromosomes
+            # reach the extra implementations (binary sites clamp)
+            destinations=VARIANT_ALPHABET, context=context)
 
     def apply_plan(self, graph: RegionGraph, coding, values, bundle
                    ) -> ExecPlan:

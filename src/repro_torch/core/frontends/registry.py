@@ -126,7 +126,10 @@ class OffloadConfig:
                                               # (export: example_args, name,
                                               #  registry; python_ast:
                                               #  consts, registry,
-                                              #  block_sites)
+                                              #  block_sites; module:
+                                              #  lower_fn, n_devices,
+                                              #  model_flops, hbm_budget,
+                                              #  base_plan)
 
 
 @dataclass

@@ -297,6 +297,9 @@ class SubstitutionEngine:
             for old, new in zip(site.out_nodes, outs):
                 if old is None:
                     continue
+                # the output keeps its shape and dtype for the cost analyzer
+                if "val" in old.meta:
+                    new.meta["val"] = old.meta["val"]
                 val_map[old].replace_all_uses_with(
                     new, delete_user_cb=lambda user: user not in span)
             for n in reversed(nodes):

@@ -20,6 +20,14 @@ The ``cuda`` variants reject what their kernels do not take (head dims that
 are not multiples of 8 up to 256, dtypes other than f32/bf16, WKV head dims
 other than 16/32/64).
 
+Each ``fused_torch`` and ``cuda`` adapter carries ``adapter.cost``, a
+:class:`repro_torch.roofline.KernelCost` over the site's input avals with
+the kernels' operation and byte counts, so the cost analyzer
+(:mod:`repro_torch.hlo_analysis`) charges a substituted program's kernel
+nodes without calling them.  A causal ``cuda`` attention counts the pairs
+its mask keeps; the ``fused_torch`` rewrite computes every pair with f32
+matmuls.
+
 The block patterns bind merged ``block`` sites: an export window (the
 export frontend's ``annotate_block_sites``), whose operand roles come from
 its FX nodes' dataflow, or a python_ast block, whose operands the frontend
@@ -38,6 +46,8 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import torch
+
+from repro_torch import roofline as rl
 
 __all__ = ["Aval", "CallSite", "KernelRegistry", "Variant",
            "VariantUnavailable", "auto_variant_order", "default_registry"]
@@ -165,13 +175,27 @@ def _cast(x: torch.Tensor, aval: Aval) -> torch.Tensor:
     return x.to(aval.dtype) if x.dtype != aval.dtype else x
 
 
-def _kernel_adapter(fn: Callable, site: CallSite) -> Callable:
+def _costed(fn: Callable, cost: rl.KernelCost) -> Callable:
+    """Declare an adapter's work for the cost analyzer."""
+    fn.cost = cost
+    return fn
+
+
+def _kernel_adapter(fn: Callable, site: CallSite,
+                    cost: rl.KernelCost) -> Callable:
     """Mark an adapter that launches a kernel: it cannot run on meta
     tensors, so it declares its outputs (the site's, which it casts to)
-    for :func:`repro_torch.core.variants.check_adapter`."""
+    for :func:`repro_torch.core.variants.check_adapter`, and its cost."""
     fn.out_avals = tuple(a if u else None
                          for a, u in zip(site.out_avals, site.out_used))
-    return fn
+    return _costed(fn, cost)
+
+
+def _rows(aval: Aval) -> int:
+    n = 1
+    for s in aval.shape[:-1]:
+        n *= s
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +263,16 @@ def _attention_site(site: CallSite):
     return q, k, v, out, roles
 
 
+def _attention_cost(q: Aval, k: Aval, causal: bool) -> rl.KernelCost:
+    """Flash attention's counts over (S, D) or (B, S, H, D) operands."""
+    if q.ndim == 2:
+        return rl.flash_cost(1, q.shape[0], k.shape[0], 1, 1, q.shape[1],
+                             causal, q.dtype)
+    b, sq, hq, d = q.shape
+    return rl.flash_cost(b, sq, k.shape[1], hq, k.shape[2], d, causal,
+                         q.dtype)
+
+
 def _out_tuple(site: CallSite, o: torch.Tensor) -> tuple:
     """The adapter's output tuple: the one used output, None elsewhere."""
     return tuple(o if used else None for used in site.out_used)
@@ -272,7 +306,8 @@ def _bind_attention_fused(site: CallSite):
         else:
             o = attend(q, k, v)
         return _out_tuple(site, _cast(o, out_av))
-    return fn
+    return _costed(fn, _attention_cost(q_av, k_av, causal=False)._replace(
+        dtype="f32", matmul=True))
 
 
 def _bind_attention_cuda(site: CallSite):
@@ -298,7 +333,7 @@ def _bind_attention_cuda(site: CallSite):
         else:
             o = ops.flash_attention(q, k, v, causal=True)
         return _out_tuple(site, _cast(o, out_av))
-    return _kernel_adapter(fn, site)
+    return _kernel_adapter(fn, site, _attention_cost(q_av, k_av, True))
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +372,7 @@ def _rmsnorm_eps(site: CallSite, default: float = 1e-6) -> float:
 
 def _bind_rmsnorm_fused(site: CallSite):
     """One fused expression: f32 statistics, ``(1 + scale)`` weighting."""
-    _, _, out_av, swapped = _rmsnorm_site(site)
+    x_av, s_av, out_av, swapped = _rmsnorm_site(site)
     eps = _rmsnorm_eps(site)
 
     def fn(a, b):
@@ -346,7 +381,8 @@ def _bind_rmsnorm_fused(site: CallSite):
         o = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) \
             * (1.0 + s.float())
         return _out_tuple(site, _cast(o, out_av))
-    return fn
+    return _costed(fn, rl.rmsnorm_cost(_rows(x_av), x_av.shape[-1],
+                                       x_av.dtype, s_av.dtype))
 
 
 def _bind_rmsnorm_cuda(site: CallSite):
@@ -363,7 +399,8 @@ def _bind_rmsnorm_cuda(site: CallSite):
     def fn(a, b):
         x, s = (b, a) if swapped else (a, b)
         return _out_tuple(site, _cast(ops.rmsnorm(x, s, eps=eps), out_av))
-    return _kernel_adapter(fn, site)
+    return _kernel_adapter(fn, site, rl.rmsnorm_cost(
+        _rows(x_av), x_av.shape[-1], x_av.dtype, s_av.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -413,6 +450,12 @@ def _recurrence_fn(site: CallSite, kernel: Callable):
     return fn
 
 
+def _recurrence_cost(site: CallSite, h0: bool) -> rl.KernelCost:
+    la = site.in_avals[1]
+    b = la.shape[1] if la.ndim == 3 else 1
+    return rl.rglru_cost(b, la.shape[0], la.shape[-1], h0)
+
+
 def _bind_recurrence_fused(site: CallSite):
     """The step oracle in f32, ``h0`` folded into ``b[:, 0]``."""
     from repro_torch.kernels import ref
@@ -421,7 +464,8 @@ def _bind_recurrence_fused(site: CallSite):
         b = b.float().clone()          # the scan math is f32 anyway
         b[:, 0] += torch.exp(la[:, 0].float()) * h0
         return ref.rglru_scan_ref(la, b)
-    return _recurrence_fn(site, kernel)
+    return _costed(_recurrence_fn(site, kernel),
+                   _recurrence_cost(site, h0=True))
 
 
 def _bind_recurrence_cuda(site: CallSite):
@@ -432,7 +476,8 @@ def _bind_recurrence_cuda(site: CallSite):
     def kernel(la, b, h0):
         # a zeros initial carry needs no fold into b[:, 0]
         return ops.rglru_scan(la, b, None if zero_init else h0)
-    return _kernel_adapter(_recurrence_fn(site, kernel), site)
+    return _kernel_adapter(_recurrence_fn(site, kernel), site,
+                           _recurrence_cost(site, h0=not zero_init))
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +509,11 @@ def _wkv_site(site: CallSite):
     return site.out_avals
 
 
+def _wkv_cost(site: CallSite) -> rl.KernelCost:
+    s, d = site.in_avals[2].shape
+    return rl.wkv6_cost(1, s, 1, d)
+
+
 def _bind_wkv_fused(site: CallSite):
     """The step oracle in f32."""
     from repro_torch.kernels import ref
@@ -473,7 +523,7 @@ def _bind_wkv_fused(site: CallSite):
     def fn(u, s0, r, k, v, lw):
         ys = ref.wkv6_ref(r[None], k[None], v[None], lw[None], u[None, None])
         return (None, _cast(ys[0], out_avals[1]))
-    return fn
+    return _costed(fn, _wkv_cost(site))
 
 
 def _bind_wkv_cuda(site: CallSite):
@@ -489,7 +539,7 @@ def _bind_wkv_cuda(site: CallSite):
         ys = ops.wkv6(r[None, :, None, :], k[None, :, None, :],
                       v[None, :, None, :], lw[None, :, None, :], u[None])
         return (None, _cast(ys[0, :, 0, :], out_avals[1]))
-    return _kernel_adapter(fn, site)
+    return _kernel_adapter(fn, site, _wkv_cost(site))
 
 
 # ---------------------------------------------------------------------------

@@ -1065,3 +1065,37 @@ def test_overlapped_prepares_plan_the_serial_search_on_card(cuda):
         res = offloader.search(ctx)
         out[workers] = (res.best.bits, sorted(measured))
     assert out[0] == out[4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_lower_cell_traces_fake_cuda_tensors_like_meta_ones_on_card(cuda,
+                                                                    kind):
+    """The dry run's default trace (fake tensors on the card) gives the
+    meta trace's FLOPs, bytes and memory, layer extrapolation included."""
+    import dataclasses
+
+    from repro_torch import hlo_analysis as ha
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.models import REFERENCE_PLAN
+
+    cfg = dataclasses.replace(get_config("qwen3_0_6b").reduced(), n_layers=5)
+    shape = ShapeSpec("s", 64, 2, kind)
+    plan = REFERENCE_PLAN.replace(compute_dtype="float32", remat="dots",
+                                  attn_impl="chunked")
+
+    def totals(low):
+        c = low.compile()
+        m = c.memory_analysis()
+        h = ha.analyze_hlo(c, 1)
+        return (h.flops, h.bytes, m.argument_size_in_bytes,
+                m.output_size_in_bytes, m.temp_size_in_bytes)
+
+    on_card = lower_cell(cfg, shape, plan)[0]
+    assert on_card.repeat is not None
+    vals = [n.meta["val"] for n in on_card.gm.graph.nodes
+            if n.op == "placeholder"]
+    assert {v.device.type for v in vals} == {"cuda"}
+    assert totals(on_card) == totals(lower_cell(cfg, shape, plan, "cpu")[0])

@@ -99,11 +99,23 @@ def test_static_cost_search_matches_reference(arch):
 
 
 def test_detect_frontend_and_lower_fn():
+    """A ``lower_fn`` plans through the compiled cost model (a measured
+    result: each chromosome is its lowered program's roofline)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import lower_cell
+
     cfg = get_config("qwen3_0_6b")
     assert detect_frontend(cfg, OffloadConfig()) == "module"
     assert detect_frontend(torch.nn.Linear(2, 2), OffloadConfig()) == "export"
-    with pytest.raises(NotImplementedError, match="CostModelFitness"):
-        Offloader(OffloadConfig(options={"lower_fn": lambda p: p})).plan(cfg)
+    tiny = dataclasses.replace(cfg.reduced(), n_layers=1)
+    shape = ShapeSpec("t", 16, 2, "train")
+    res = Offloader(OffloadConfig(
+        ga=GAConfig(population=2, generations=1, seed=0),
+        options={"lower_fn": lambda p: lower_cell(tiny, shape, p,
+                                                  "cpu")[0]})).plan(tiny)
+    assert res.frontend == "module"
+    assert res.verification == {"mode": "measured", "verified": True}
+    assert set(res.best.detail) == {"roofline", "live_bytes"}
 
 
 def test_base_plan_option_carries_into_the_artifact():
