@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only K         # the build and phase K alone
+    python3 chip_smoke.py --only V         # the build, path M, serve M, V
 
 
 Phases, in order; any failure exits non-zero before the last line:
@@ -118,7 +119,10 @@ K. phase K, function-block genes in the export frontend (the reference's
    - M: the whole Qwen3-0.6B (28 layers at full width, random weights from
      seed 0 in the reference's distributions) built with ``build_model``,
      its prefill of (2, 2048) tokens -> (last-token logits, decode state)
-     planned through a lambda over ``Model.prefill`` in f32, GA 8 x 4: 28
+     planned through a lambda over ``Model.prefill`` in f32 by the planning
+     service (``PlanService.plan``: one search, on the service's pool
+     thread; its store and the winner's output kept for phase V2), GA 8 x
+     4: 28
      ``softmax_attention`` + 113 ``rmsnorm`` sites (ln1, q-norm, k-norm and
      ln2 of each layer, and the final norm); one forward of the forced
      all-kernel plan must launch flash 28 times and RMSNorm 113 times.
@@ -128,7 +132,13 @@ K. phase K, function-block genes in the export frontend (the reference's
      ``OFFLOAD_PLAN``: 4 requests of 512 prompt tokens and 32 greedy new
      tokens, twice (identical tokens), then under ``REFERENCE_PLAN`` after
      ``swap_plan`` (the tokens of a server built on that plan), with the
-     prefill time, the decode time per token and tokens/s;
+     prefill time, the decode time per token and tokens/s; then phase V3:
+     the config's ``exec_plan`` stored by ``PlanService.plan`` (the module
+     frontend's static cost, GA 4 x 1), ``Server.from_store`` serving the
+     same requests (the tokens of a server built on that plan, its prefill
+     and decode times), and ``swap_plan`` between it and
+     ``REFERENCE_PLAN`` while a client thread generates (every generation
+     one plan's tokens);
    - H: RecurrentGemma-2B at full width and 8 of its 26 layers (cut for
      the run's time, ``PATH_LAYERS``) in the pattern rglru, rglru, local
      attention (random weights from seed 0 in
@@ -203,6 +213,23 @@ K. phase K, function-block genes in the export frontend (the reference's
    charged its registry variant's cost, no node left without one), their
    compute, memory and step ms printed beside the measured device ms,
    which must reach the compute ms;
+V. phase V, the planning service (``repro_torch.service``), after serve
+   H, the launch counters set to 0 before it and read after: V1, the
+   service's lifecycle on path Q's block (bf16, GA 8 x 4): four client
+   threads submit it at once (one search, three coalesced), a fifth
+   submit is a live hit, the endpoint verifies and launches flash and
+   RMSNorm, a restarted service warm-loads (no GA generation, no
+   measurement; bit-equal output), a record tampered to a foreign env
+   re-measures, ``refine_once`` runs while two client threads call the
+   endpoint (every output one deployed plan's; a swap is rolled back),
+   the latency operating point keeps the plan and ``evict_stale(0)``
+   spares it; V4, ``obsreport`` renders V1's trace (its
+   ``service.admit`` spans: cold search, warm load, re-measure); V2, a
+   fresh process (this script with ``--warm-child``) builds the whole
+   Qwen3-0.6B in f32 from path M's seed and warm-loads path M's plan
+   from its store: no search, output bit-equal to path M's winner, each
+   bound kernel launched once a site; its seconds (imports, kernel load,
+   model, prepare, apply, first forward) beside path M's plan wall;
 4. phase T, training (no hand kernel lies on it: the reference trains
    through the jnp twin of the flash kernel, ``_flash``'s custom VJP):
 
@@ -259,8 +286,12 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
+
+#: the clock at the start of the imports (phase V2's child reports them)
+_IMPORT_T0 = time.perf_counter()
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -296,8 +327,14 @@ from repro_torch.models.attention import Attention  # noqa: E402
 from repro_torch.models.layers import RMSNorm  # noqa: E402
 from repro_torch.models.transformer import (INIT_STD, DenseBlock,  # noqa: E402
                                             RecurrentSublayer)
+from repro_torch.launch import obsreport  # noqa: E402
+from repro_torch.models.plan import ExecPlan  # noqa: E402
+from repro_torch.obs import metrics as obs_metrics  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.obs.trace import read_trace  # noqa: E402
 from repro_torch.runtime.serve import Server  # noqa: E402
+from repro_torch.service import (PlanService, PlanStore,  # noqa: E402
+                                 ServiceConfig)
 
 BATCH, SEQ = 2, 2048
 #: path W: one WKV head at RWKV-6-3B's head width
@@ -1174,7 +1211,8 @@ PATTERN_KERNEL = {"softmax_attention": "flash_attention",
 PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"},
                  "M": {"d1024_l32", "d128_l32"}, "H": {"d2560_l32"},
                  "E": {"generic_l32", "d128_l32"}, "F": {"d2560_l32"},
-                 "X": {"generic_l32"}, "K": {"d1024_l32"}}
+                 "X": {"generic_l32"}, "K": {"d1024_l32"},
+                 "V": {"d1024_l32", "d128_l16"}}
 #: RMSNorm launches by variant of one forward of the forced plan, where
 #: a path pins them: path E's ln1, ln2 and final norm at d 2048 take the
 #: generic loop, its q- and k-norms the d = 128 instance; path X's 62
@@ -1186,7 +1224,7 @@ PATH_ROUTES = {"R": {"tma"}, "H": {"tma"}}
 #: the flash path each path's launches take (paths M, H, E and X in f32,
 #: path H at head dim 256: ``scalar``)
 PATH_FLASH = {"Q": "wgmma", "M": "scalar", "H": "scalar", "E": "scalar",
-              "X": "scalar", "K": "scalar"}
+              "X": "scalar", "K": "scalar", "V": "wgmma"}
 
 
 def sub_counts() -> dict:
@@ -1258,7 +1296,10 @@ def check_site_order(label, graph, coding) -> None:
                      f"{want[first:first + 1]}")
 
 
-def phase_path(label, dev, scratch: Path) -> tuple:
+def phase_path(label, dev, scratch: Path, store: Path = None) -> tuple:
+    """Path ``label``; with ``store`` (``SERVICE_PATHS``) planned through a
+    ``PlanService`` on that directory, which keeps the plan and the
+    winner's output (``M_WINNER_OUT``) for phase V2."""
     make, (pop, gens), expected, kernels, iters = PATHS[label]
     torch.cuda.reset_peak_memory_stats()
     target, args, *rule = make(dev)
@@ -1295,6 +1336,16 @@ def phase_path(label, dev, scratch: Path) -> tuple:
         check_site_order(label, ctx.graph, ctx.coding)
         res = offloader.search(ctx, extra_seeds=[
             forced_chromosome(ctx.graph, ctx.coding, site_variant)])
+    elif store is not None:
+        # the search runs on the service's pool thread
+        with PlanService(str(store), config=config) as svc:
+            served = svc.plan(target)
+        check(svc.stats.searches == 1 and not served.warm,
+              f"path {label}: the service did not search: "
+              f"{svc.stats.as_dict()}")
+        print(f"path {label} through the planning service:",
+              json.dumps(svc.stats.as_dict()), flush=True)
+        res = served.search
     else:
         res = offloader.plan(target)
     torch.cuda.synchronize()
@@ -1321,6 +1372,9 @@ def phase_path(label, dev, scratch: Path) -> tuple:
     v = verify(reference, out, rtol=1e-2, atol=1e-2)
     check(pytree.tree_leaves(out)[0].device.type == "cuda" and v.ok,
           f"path {label}: the plan's artifact differs from the program: {v}")
+    if store is not None:
+        torch.save([t.detach().cpu() for t in pytree.tree_leaves(out)],
+                   store / M_WINNER_OUT)
 
     engine = res.details["engine"]
     matched = {s.region: res.graph.by_name(s.region).meta.get("pattern")
@@ -1685,7 +1739,8 @@ def bf16_diagnostic(dev, label: str, make_model, n_sites: int,
 
 
 def serve_phase(dev, label: str, make_model, new_tokens: int,
-                swap: bool, prompt_len: int = SERVE_PROMPT) -> dict:
+                swap: bool, prompt_len: int = SERVE_PROMPT,
+                store: Path = None) -> dict:
     """``Server.generate`` on path ``label``'s model in bf16 under
     ``OFFLOAD_PLAN`` (``make_model`` gives its weights in bf16, or in f32
     for the ``Server`` to cast once, keeping the leaves the reference reads
@@ -1695,7 +1750,9 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
     after ``swap_plan(REFERENCE_PLAN)`` the next call gives the tokens of a
     server built on that plan.  Times: a prefill (``max_new = 1``: prefill
     and one sample), the whole call, and the decode time per token between
-    them; and where one decode step's time goes (its device launches)."""
+    them; and where one decode step's time goes (its device launches).
+    With ``store`` (and ``swap``), phase V3 serves the same requests from a
+    plan stored there (:func:`serve_from_store`)."""
     model, params, _ = make_model(dev, torch.bfloat16)
     cfg = model.cfg
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -1739,6 +1796,9 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
                                         f"swap_plan did not run the new plan")
         out["same_tokens_offload_and_reference_plan"] = \
             bool((first == swapped).all())
+        if store is not None:
+            out["V3"] = serve_from_store(model, params, prompts, new_tokens,
+                                         store, fresh)
     # one decode step at the last position of these requests' caches
     # (repeating it rewrites the same cache slot; a hybrid model's RG-LRU
     # state is read, not written), where its time goes
@@ -2291,7 +2351,8 @@ P_GA = (4, 2)
 #: the kernels each path runs (phase P: its three workloads')
 PATH_KERNELS = {**{label: p[3] for label, p in PATHS.items()},
                 "P": tuple(P_KERNEL.values()), "K": ("flash_attention",
-                                                     "rmsnorm")}
+                                                     "rmsnorm"),
+                "V": PATHS["Q"][3]}
 
 
 def p_workloads() -> dict:
@@ -2904,6 +2965,481 @@ def phase_overlap(dev, scratch: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase V: the planning service
+# ---------------------------------------------------------------------------
+
+#: paths planned through the planning service (``PlanService.plan``) in
+#: place of ``Offloader.plan``; the store is kept for phase V
+SERVICE_PATHS = {"M"}
+#: phase V1: the client threads that submit path Q's program at once
+V_CLIENTS = 4
+#: path M's winner output, saved for phase V2's child to compare with
+M_WINNER_OUT = "m_winner_out.pt"
+
+
+def same_output(a, b) -> bool:
+    """Every leaf of ``a`` bit-equal to its leaf of ``b``."""
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def kernels_bound(artifact) -> dict:
+    """The kernel launches one forward of a substituted program makes: one
+    a site that its report binds to ``cuda``."""
+    return dict(collections.Counter(
+        PATTERN_KERNEL[c.pattern] for c in artifact.report.choices
+        if c.chosen == "cuda"))
+
+
+def search_work() -> tuple:
+    """The process's GA generations and measurements so far (the metrics
+    registry's counters): a warm load adds to neither."""
+    snap = obs_metrics.snapshot()
+    return tuple(sum(s["value"] for s in snap.get(name, {}).get("series", ()))
+                 for name in ("ga.generations", "eval.measurements"))
+
+
+def v1_lifecycle(dev, scratch: Path) -> dict:
+    """Phase V1: the planning service's lifecycle on path Q's program (one
+    full-width Qwen3-0.6B block, bf16, GA 8 x 4 from seed 0, 3 timing
+    repeats), traced (phase V4):
+
+    1. ``V_CLIENTS`` threads submit it at once: one search, the others
+       coalesced, none raises (each submit exports the program on its
+       thread, under the trace lock);
+    2. a further submit is a live hit;
+    3. the endpoint's output verifies against the unsubstituted block (the
+       verifier's 1e-2) and launches flash and RMSNorm, once a bound site;
+    4. a new service on the same directory warm-loads (no GA generation, no
+       measurement) and its output is bit-equal to the cold artifact's;
+    5. the stored record, tampered to a foreign env, re-measures (origin
+       ``env-remeasure``, its persistent journal hits printed), and the
+       next restart warm-loads again;
+    6. ``refine_once`` (1 generation) runs while two client threads call
+       the endpoint: every output is bit-equal to the output of the plan
+       deployed before or after it; if it swapped, ``rollback`` restores
+       the previous bits and output as a new head version;
+    7. ``select_operating_point("latency")`` keeps the single-objective
+       plan; 8. ``evict_stale(0)`` spares the deployed fingerprint."""
+    block, args = path_q(dev)
+    with torch.no_grad():
+        reference = block(*args)
+    store, trace = scratch / "store-q", scratch / "service_trace.jsonl"
+    pop, gens = PATHS["Q"][1]
+    config = OffloadConfig(device=str(dev), trace=str(trace),
+                           ga=GAConfig(population=pop, generations=gens,
+                                       seed=SEED),
+                           options={"example_args": args})
+    svc_cfg = ServiceConfig(refine_generations=1)
+
+    def service():
+        return PlanService(str(store), config=config, service=svc_cfg)
+
+    out: dict = {}
+    with obs_trace.maybe_tracing(str(trace)):
+        # 1-3: concurrent cold submits, a live hit, the endpoint
+        svc = service()
+        barrier = threading.Barrier(V_CLIENTS)
+        futs, errors = [None] * V_CLIENTS, []
+
+        def submit(i):
+            try:
+                barrier.wait(timeout=120)
+                futs[i] = svc.submit(block)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submit, args=(i,))
+                   for i in range(V_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"phase V1: concurrent submits failed: {errors}")
+        plans = [f.result(timeout=600) for f in futs]
+        out["cold_plan_s"] = time.perf_counter() - t0
+        cold = plans[0]
+        check(svc.stats.searches == 1
+              and svc.stats.coalesced == V_CLIENTS - 1
+              and all(p is cold for p in plans),
+              f"phase V1: {V_CLIENTS} concurrent submits gave "
+              f"{svc.stats.as_dict()}")
+        fp = cold.fingerprint
+        check(svc.plan(block) is cold and svc.stats.live_hits == 1,
+              f"phase V1: the fifth submit was not a live hit: "
+              f"{svc.stats.as_dict()}")
+        out["cold"] = {"stats": svc.stats.as_dict(),
+                       "bits": "".join(map(str, cold.record.bits)),
+                       "best_s": cold.record.best_time_s,
+                       "speedup": cold.record.speedup,
+                       "measurements": cold.search.ga.evaluations}
+        call = svc.endpoint(fp)
+        before = (ops.launch_counts(), sub_counts())
+        cold_out = call(*args)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in counts_since(before)[0].items() if n}
+        v = verify(reference, cold_out, rtol=1e-2, atol=1e-2)
+        check(v.ok, f"phase V1: the endpoint's output differs from the "
+                    f"block: {v}")
+        check(launched == kernels_bound(cold.artifact)
+              and {"flash_attention", "rmsnorm"} <= set(launched),
+              f"phase V1: one endpoint call launched {launched}; its plan "
+              f"binds {kernels_bound(cold.artifact)}")
+        out["endpoint"] = {"max_abs": v.max_abs, "launches": launched}
+        svc.close()
+
+        # 4: a restart warm-loads
+        work = search_work()
+        t0 = time.perf_counter()
+        with service() as svc:
+            warm = svc.plan(block)
+        out["warm_plan_s"] = time.perf_counter() - t0
+        check(warm.warm and svc.stats.warm_loads == 1
+              and svc.stats.searches == 0 and search_work() == work,
+              f"phase V1: the restart did not warm-load: "
+              f"{svc.stats.as_dict()}, GA work {work} -> {search_work()}")
+        check(same_output(warm(*args), cold_out),
+              "phase V1: the warm-loaded artifact's output is not the cold "
+              "artifact's")
+
+        # 5: a record from a foreign env re-measures
+        plans_store = PlanStore(str(store))
+        rec = plans_store.load(fp)
+        plans_store.put(dataclasses.replace(
+            rec, env=dict(rec.env, device_kind="tpu-v99", device_count=4096)))
+        t0 = time.perf_counter()
+        with service() as svc:
+            again = svc.plan(block)
+        check(not again.warm and svc.stats.env_mismatches == 1
+              and svc.stats.searches == 1
+              and again.record.meta["origin"] == "env-remeasure",
+              f"phase V1: a foreign env did not re-measure: "
+              f"{svc.stats.as_dict()} {again.record.meta}")
+        out["env_remeasure"] = {
+            "plan_s": time.perf_counter() - t0,
+            "bits": "".join(map(str, again.record.bits)),
+            "best_s": again.record.best_time_s,
+            "measurements": again.search.ga.evaluations,
+            "persistent_hits": again.search.ga.persistent_hits}
+
+        # 6-8: the restarted service refines under load, rolls back,
+        # keeps its operating point and spares its plan from eviction
+        with service() as svc:
+            deployed = svc.plan(block)
+            check(deployed.warm and svc.stats.env_mismatches == 0,
+                  f"phase V1: the restart after the re-measure did not "
+                  f"warm-load: {svc.stats.as_dict()}")
+            call = svc.endpoint(fp)
+            pre_out = call(*args)
+            others, errors, stop = [], [], threading.Event()
+            calls = [0, 0]
+
+            def client(i):
+                try:
+                    while not stop.is_set():
+                        o = call(*args)
+                        calls[i] += 1
+                        if same_output(o, pre_out) or any(
+                                same_output(o, x) for x in others):
+                            continue
+                        others.append(o)
+                        check(len(others) <= 2, "phase V1: outputs of more "
+                              "than two plans under refinement")
+                except BaseException as e:  # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+
+            clients = [threading.Thread(target=client, args=(i,))
+                       for i in range(2)]
+            for t in clients:
+                t.start()
+            t0 = time.perf_counter()
+            try:
+                swapped = svc.refine_once(fp)
+            finally:
+                stop.set()
+                for t in clients:
+                    t.join(timeout=120)
+            refine_s = time.perf_counter() - t0
+            check(not errors and not any(t.is_alive() for t in clients),
+                  f"phase V1: a client failed under refinement: {errors}")
+            post = svc.current(fp)
+            post_out = post(*args)
+            check(all(same_output(o, post_out) for o in others),
+                  "phase V1: a client's output under refinement is neither "
+                  "plan's (a torn output)")
+            head = svc.store.load(fp).version
+            out["refine"] = {"swapped": swapped, "refine_s": refine_s,
+                             "client_calls": calls,
+                             "deployed_best_s": deployed.record.best_time_s,
+                             "cold_best_s": cold.record.best_time_s,
+                             "head_version": head}
+            if swapped:
+                res = post.search
+                out["refine"].update(
+                    winner_s=res.best.time_s,
+                    winner_bits="".join(map(str, res.best.bits)),
+                    measurements=res.ga.evaluations,
+                    persistent_hits=res.ga.persistent_hits)
+                back = svc.rollback(fp)
+                check(back.record.bits == deployed.record.bits
+                      and same_output(svc.endpoint(fp)(*args), pre_out)
+                      and svc.store.load(fp).version == head + 1,
+                      "phase V1: rollback did not restore the previous plan")
+            else:
+                check(same_output(post_out, pre_out),
+                      "phase V1: no swap, yet the plan's output changed")
+            check(svc.select_operating_point(fp, "latency")
+                  is svc.current(fp), "phase V1: the latency operating "
+                  "point of a single-objective plan moved it")
+            evicted = svc.evict_stale(0)
+            check(fp not in evicted and svc.store.load(fp) is not None,
+                  f"phase V1: evict_stale(0) evicted the deployed plan")
+            out["final_stats"] = svc.stats.as_dict()
+    out["trace"] = v4_report(trace)
+    return out
+
+
+def v4_report(trace: Path) -> dict:
+    """Phase V4: ``repro_torch.launch.obsreport`` renders phase V1's
+    trace; its ``service.admit`` spans must include a cold search, a warm
+    load and the re-measure."""
+    spans, metrics = read_trace(str(trace))
+    text = obsreport.render(spans, metrics)
+    print("phase V4, obsreport of phase V1's trace:", flush=True)
+    print(text, flush=True)
+    admits = collections.Counter(s["attrs"].get("path") for s in spans
+                                 if s["name"] == "service.admit")
+    check({"cold-search", "warm-load", "env-remeasure"} <= set(admits),
+          f"phase V4: service.admit spans by path: {dict(admits)}")
+    by_id = {s["id"]: s for s in spans}
+
+    def search_of(span):
+        while span is not None and span["name"] != "plan.search":
+            span = by_id.get(span.get("parent"))
+        return span
+
+    # each search (cold, re-measure, refinement): its winner and the wall
+    # of its fresh timed measurements (the refinement's under two clients)
+    searches = {s["id"]: {"best_time_s": s["attrs"].get("best_time_s"),
+                          "evaluations": s["attrs"].get("evaluations"),
+                          "measure_ms": []}
+                for s in sorted(spans, key=lambda s: s["t0"])
+                if s["name"] == "plan.search"}
+    for s in spans:
+        if s["name"] == "eval.measure":
+            owner = search_of(s)
+            if owner is not None:
+                searches[owner["id"]]["measure_ms"].append(s["dur_s"] * 1e3)
+    for entry in searches.values():
+        ms = entry.pop("measure_ms")
+        entry["fresh_measurements"] = len(ms)
+        entry["measure_ms_median"] = statistics.median(ms) if ms else None
+    return {"spans": len(spans), "service_admit": dict(admits),
+            "lines": text.count("\n") + 1,
+            "searches": list(searches.values())}
+
+
+def v2_warm_child(store: Path) -> dict:
+    """Phase V2: a fresh process (this script with ``--warm-child``)
+    builds the whole Qwen3-0.6B in f32 from path M's seed and plans path
+    M's program through a ``PlanService`` on path M's store: the plan must
+    be a warm load (no search, no measurement), its forward bit-equal to
+    path M's winner and launch each kernel once a bound site."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--warm-child",
+         str(store)], capture_output=True, text=True, timeout=900)
+    wall_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  child: {line}", flush=True)
+    check(proc.returncode == 0 and lines,
+          f"phase V2: the child exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    rep = json.loads(lines[-1])
+    rep["child_wall_s"] = wall_s
+    print("phase V2:", json.dumps(rep), flush=True)
+    check(rep["warm"] and rep["stats"]["searches"] == 0
+          and rep["stats"]["warm_loads"] == 1 and rep["search_work"] == [0, 0],
+          f"phase V2: the child did not warm-load: {rep}")
+    check(rep["rebuilt_s"] == 0.0, "phase V2: the child rebuilt the kernels")
+    check(rep["launches"] == rep["bound"] and rep["bound"],
+          f"phase V2: the child's forward launched {rep['launches']}, its "
+          f"plan binds {rep['bound']}")
+    check(rep["bit_equal"], f"phase V2: the child's output differs from "
+                            f"path M's winner: {rep['max_abs_diff']}")
+    return rep
+
+
+def warm_child(store: Path, dev) -> int:
+    """The child of phase V2 (``--warm-child STORE``); its last line is
+    its own JSON report, not the contract line."""
+    t_main = time.perf_counter()
+    rep: dict = {"imports_s": t_main - _IMPORT_T0}
+    t0 = time.perf_counter()
+    rep["rebuilt_s"] = build.build_all()
+    for name in PATH_KERNELS["M"]:
+        build.library(name)
+    rep["kernel_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    target, args = path_m(dev)
+    torch.cuda.synchronize()
+    rep["model_s"] = time.perf_counter() - t0
+    trace = store / "child_trace.jsonl"
+    config = OffloadConfig(device=str(dev), trace=str(trace),
+                           options={"example_args": args})
+    t0 = time.perf_counter()
+    with PlanService(str(store), config=config) as svc:
+        plan = svc.plan(target)
+    rep["plan_s"] = time.perf_counter() - t0
+    spans, _ = read_trace(str(trace))
+    for name in ("plan.prepare", "plan.apply"):
+        rep[name.split(".")[1] + "_s"] = sum(s["dur_s"] for s in spans
+                                             if s["name"] == name)
+    rep.update(warm=plan.warm, stats=svc.stats.as_dict(),
+               search_work=list(search_work()),
+               fingerprint=plan.fingerprint,
+               bits="".join(map(str, plan.record.bits)))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = plan(*args)
+    torch.cuda.synchronize()
+    rep["first_forward_s"] = time.perf_counter() - t0
+    rep["launches"] = {k: n for k, n in ops.launch_counts().items() if n}
+    rep["bound"] = kernels_bound(plan.artifact)
+    want = torch.load(store / M_WINNER_OUT)
+    got = [t.cpu() for t in pytree.tree_leaves(got)]
+    rep["bit_equal"] = len(got) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+    rep["max_abs_diff"] = max(
+        ((a.double() - b.double()).abs().max().item()
+         for a, b in zip(got, want) if a.shape == b.shape
+         and a.is_floating_point()), default=None)
+    rep["child_s"] = time.perf_counter() - _IMPORT_T0
+    print(json.dumps(rep), flush=True)
+    return 0
+
+
+def serve_from_store(model, params, prompts, new_tokens: int, store: Path,
+                     reference_tokens) -> dict:
+    """Phase V3, in serve M: ``PlanService.plan`` of the Qwen3-0.6B config
+    (the module frontend's static-cost bundle, GA 4 x 1 from seed 0)
+    stores an ``exec_plan`` payload; ``Server.from_store`` on serve M's
+    model serves its requests with the same tokens as a server built on
+    that plan; then ``swap_plan`` alternates that plan and
+    ``REFERENCE_PLAN`` while a client thread generates, and every
+    generation's tokens are one of the two plans' tokens."""
+    t0 = time.perf_counter()
+    with PlanService(str(store), config=OffloadConfig(
+            ga=GAConfig(population=4, generations=1, seed=SEED))) as svc:
+        plan = svc.plan(get_config("qwen3_0_6b"))
+    out = {"plan_s": time.perf_counter() - t0}
+    check(isinstance(plan.artifact, ExecPlan)
+          and "exec_plan" in plan.record.payload,
+          f"phase V3: the config's plan is {type(plan.artifact).__name__}")
+    server = Server.from_store(model, params, PlanStore(str(store)),
+                               plan.fingerprint)
+    check(server.plan == plan.artifact, "phase V3: from_store's plan differs")
+    server.generate(prompts, 2)                 # warm-up
+
+    def timed(max_new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = server.generate(prompts, max_new)
+        return toks, time.perf_counter() - t0
+
+    _, prefill_s = timed(1)
+    stored, total_s = timed(new_tokens)
+    direct = Server(model, params, plan.artifact).generate(prompts,
+                                                           new_tokens)
+    check((stored == direct).all(), "phase V3: Server.from_store's tokens "
+                                    "differ from a server on the plan")
+    out.update(plan="".join(map(str, plan.record.bits)),
+               exec_plan=plan.record.payload["exec_plan"],
+               prefill_ms=prefill_s * 1e3, generate_ms=total_s * 1e3,
+               decode_ms_per_token=(total_s - prefill_s) / (new_tokens - 1)
+               * 1e3,
+               same_tokens_as_reference_plan=bool(
+                   (stored == reference_tokens).all()))
+    expected = [stored, reference_tokens]
+    errors, stop, gens = [], threading.Event(), [0]
+
+    def client():
+        try:
+            while not stop.is_set():
+                toks = server.generate(prompts, new_tokens)
+                gens[0] += 1
+                check(any((toks == e).all() for e in expected),
+                      "phase V3: a generation under swap_plan gave neither "
+                      "plan's tokens")
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    thread = threading.Thread(target=client)
+    thread.start()
+    try:
+        for i in range(4):
+            server.swap_plan(plan.artifact if i % 2 == 0 else REFERENCE_PLAN)
+            time.sleep(0.25)
+        server.swap_plan(plan.artifact)
+    finally:
+        stop.set()
+        thread.join(timeout=300)
+    check(not errors and not thread.is_alive(),
+          f"phase V3: generate under swap_plan failed: {errors}")
+    check((server.generate(prompts, new_tokens) == stored).all(),
+          "phase V3: the last swap did not serve the stored plan")
+    out["generations_under_swaps"] = gens[0]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def m_on_callers_thread(dev) -> dict:
+    """Path M's plan as before the service (``Offloader.plan`` on this
+    thread, the same GA, seed and repeats, a fresh journal): ``--only V``
+    runs it beside path M's plan through the service, on one host."""
+    target, args = path_m(dev)
+    scratch = Path(tempfile.mkdtemp(prefix="plan-M-caller-",
+                                    dir=build.BUILD_DIR))
+    try:
+        pop, gens = PATHS["M"][1]
+        t0 = time.perf_counter()
+        res = Offloader(OffloadConfig(
+            device=str(dev), repeats=PATH_REPEATS["M"],
+            ga=GAConfig(population=pop, generations=gens, seed=SEED,
+                        cache_dir=str(scratch)),
+            options={"example_args": args})).plan(target)
+        torch.cuda.synchronize()
+        out = {"plan_s": time.perf_counter() - t0, "speedup": res.speedup,
+               "measurements": res.ga.evaluations,
+               "s_per_chromosome": res.ga.eval_wall_s
+               / max(res.ga.evaluations, 1),
+               "best_bits": "".join(map(str, res.best.bits))}
+    finally:
+        shutil.rmtree(scratch)
+    print("path M on the caller's thread (Offloader.plan):", json.dumps(out),
+          flush=True)
+    return out
+
+
+def phase_service(dev, scratch: Path, m_store: Path) -> dict:
+    """Phase V: V1 (with V4, its trace report), then V2 (V3 runs in serve
+    M)."""
+    t0 = time.perf_counter()
+    v1 = v1_lifecycle(dev, scratch)
+    v1["seconds"] = time.perf_counter() - t0
+    print("phase V1:", json.dumps(v1), flush=True)
+    t0 = time.perf_counter()
+    v2 = v2_warm_child(m_store)
+    v2["seconds"] = time.perf_counter() - t0
+    return {"V1": v1, "V2": v2}
+
+
 def where_time_goes(fn, args, iters: int) -> dict:
     """One forward of ``fn``: host wall time (synchronized, no profiler)
     beside the time ``torch.profiler`` records for the device's own
@@ -2988,13 +3524,30 @@ def _journal_fingerprint(scratch: Path) -> str:
 
 def main(argv: list) -> int:
     """The full run with no arguments.  ``--only K`` runs the build and
-    phase K alone, and its last line says so (``phase K alone: ok``), not
-    the full run's contract line."""
-    check(argv in ([], ["--only", "K"]), "usage: chip_smoke.py [--only K]")
-    only_k = bool(argv)
+    phase K alone; ``--only V`` runs the build, path M (through the
+    planning service, then on this thread for comparison), serve M (with
+    V3) and phase V; the last line of either says so (``phase K alone: ok``, ``phase V alone: ok``), not the
+    full run's contract line.  ``--warm-child STORE`` is phase V2's
+    child."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if len(argv) == 2 and argv[0] == "--warm-child":
+        return warm_child(Path(argv[1]), torch.device("cuda", 0))
+    check(argv in ([], ["--only", "K"], ["--only", "V"]),
+          "usage: chip_smoke.py [--only K|V]")
+    only = argv[1] if argv else None
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    m_store = Path(tempfile.mkdtemp(prefix="plan-store-M-",
+                                    dir=build.BUILD_DIR))
+    try:
+        return run_all(only, m_store)
+    finally:
+        shutil.rmtree(m_store, ignore_errors=True)
+
+
+def run_all(only, m_store: Path) -> int:
+    """The phases of :func:`main`; path M's plan store is ``m_store``."""
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -3017,7 +3570,7 @@ def main(argv: list) -> int:
             check(not spills, f"{name}: kernels spill: {spills}")
 
     kernels = None
-    if not only_k:
+    if only is None:
         kernels = phase_kernels(dev)
         print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
@@ -3038,9 +3591,10 @@ def main(argv: list) -> int:
     def run_path(label):
         scratch = Path(tempfile.mkdtemp(prefix=f"plan-{label}-",
                                         dir=build.BUILD_DIR))
+        store = m_store if label in SERVICE_PATHS else None
         try:
             launches, by_kernel, plans[label] = phase_path(label, dev,
-                                                           scratch)
+                                                           scratch, store)
             record(label, launches, by_kernel)
         finally:
             shutil.rmtree(scratch)
@@ -3073,9 +3627,31 @@ def main(argv: list) -> int:
         print(f"{what} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
 
-    if only_k:
+    v_s = {}
+
+    def run_v():
+        t0 = time.perf_counter()
+        run_phase("V", functools.partial(phase_service, m_store=m_store))
+        v_s["V1, V2"] = time.perf_counter() - t0
+        print(f"phase V: {sum(v_s.values()):.1f} s (V1 and V2 "
+              f"{v_s['V1, V2']:.1f} s, V3 {v_s['V3']:.1f} s)", flush=True)
+
+    def serve_m():
+        out = serve_phase(dev, "M", qwen3_model, SERVE_NEW, True,
+                          store=m_store)
+        v_s["V3"] = out["V3"]["seconds"]
+        done("serve M")
+
+    if only == "K":
         run_phase("K", phase_blocks, counts_its_plans=True)
         print("phase K alone: ok", flush=True)
+        return 0
+    if only == "V":
+        run_path("M")
+        m_on_callers_thread(dev)
+        serve_m()
+        run_v()
+        print("phase V alone: ok", flush=True)
         return 0
     # numeric Python source through the python_ast frontend
     run_phase("P", phase_python)
@@ -3096,11 +3672,12 @@ def main(argv: list) -> int:
             ("H", recurrentgemma_model, len(PATH_H_SITES))):
         bf16_diagnostic(dev, label, make_model, n_sites)
         done(f"bf16 diagnostic {label}")
-    for label, make_model, new_tokens, swap in (
-            ("M", qwen3_model, SERVE_NEW, True),
-            ("H", recurrentgemma_model, SERVE_NEW_H, False)):
-        serve_phase(dev, label, make_model, new_tokens, swap)
-        done(f"serve {label}")
+    serve_m()
+    serve_phase(dev, "H", recurrentgemma_model, SERVE_NEW_H, False)
+    done("serve H")
+    # the planning service: Q's lifecycle, M's plan warm-loaded in a fresh
+    # process
+    run_v()
     # the whole OLMoE, then the whole RWKV-6: each alone on the card; the
     # Server casts the f32 draw to its plan's bf16 once
     free_models()

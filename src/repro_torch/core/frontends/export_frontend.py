@@ -88,6 +88,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core import similarity as sim
 from repro_torch.core.ir import Region, RegionGraph
+from repro_torch.core.trace_lock import TRACE_LOCK
 
 __all__ = ["ExportFrontend", "annotate_block_sites", "annotate_variants",
            "build_graph", "resolve_device", "target_modules"]
@@ -266,17 +267,19 @@ def _export(root: torch.nn.Module, example_args: tuple, label: str):
     parameter) is not traced into a joint forward and backward graph and
     partitioned, which costs seconds a layer.  What dynamo cached while
     exporting is released after (:class:`_DynamoEntries`), so the program
-    does not outlive its caller's references."""
+    does not outlive its caller's references.  The export and that release
+    run under the process-wide :data:`TRACE_LOCK`."""
     called: list = []
     handle = torch.nn.modules.module.register_module_forward_pre_hook(
         lambda m, _args: called.append(m) if m is not root else None)
-    traced = _DynamoEntries()
-    try:
-        with torch.no_grad():
-            ep = torch.export.export(root, tuple(example_args))
-    finally:
-        handle.remove()
-        traced.release()
+    with TRACE_LOCK:
+        traced = _DynamoEntries()
+        try:
+            with torch.no_grad():
+                ep = torch.export.export(root, tuple(example_args))
+        finally:
+            handle.remove()
+            traced.release()
     # export's own wrappers hold the root, and its graph modules (a scan's
     # body) come from torch; every other call is the program's
     read = sorted({type(m).__name__ for m in called
@@ -583,9 +586,13 @@ class ExportFrontend:
         from repro_torch.core.pattern_db import default_db
 
         example_args = tuple(config.options.get("example_args", ()))
-        _check_devices(fn, example_args, resolve_device(config.device))
-        graph = build_graph(fn, *example_args,
-                            name=config.options.get("name", ""))
+        # torch.export swaps a module's parameters for fake tensors while
+        # it traces, so the device check, which reads them, takes the lock
+        # that another thread's export of the same module holds
+        with TRACE_LOCK:
+            _check_devices(fn, example_args, resolve_device(config.device))
+            graph = build_graph(fn, *example_args,
+                                name=config.options.get("name", ""))
         db = config.db or default_db()
         graph = annotate_variants(graph, db,
                                   registry=config.options.get("registry"))

@@ -42,6 +42,7 @@ from torch._higher_order_ops.scan import scan
 from repro_torch.core import similarity as sim
 from repro_torch.core.ir import Region
 from repro_torch.core.journal import Journal
+from repro_torch.core.trace_lock import TRACE_LOCK
 from repro_torch.obs import metrics as obs_metrics
 
 # ---------------------------------------------------------------------------
@@ -478,7 +479,8 @@ def _scan_region_vector(fn, *example_args) -> dict:
     ops plus the ``scan`` itself — exactly how the export frontend
     vectorizes a scan region, so scan-shaped comparison code matches
     scan-shaped user regions instead of whole-program traces."""
-    ep = torch.export.export(sim._fn_module(fn), tuple(example_args))
+    with TRACE_LOCK:
+        ep = torch.export.export(sim._fn_module(fn), tuple(example_args))
     for n in ep.graph_module.graph.nodes:
         if sim.is_scan(n):
             return sim.export_vector([n])

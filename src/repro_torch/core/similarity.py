@@ -124,8 +124,11 @@ def vector_of_callable(fn: Callable, *example_args) -> dict[str, int]:
     """Export a callable (module or function) and take its vector."""
     import torch
 
+    from repro_torch.core.trace_lock import TRACE_LOCK
+
     mod = fn if isinstance(fn, torch.nn.Module) else _fn_module(fn)
-    ep = torch.export.export(mod, tuple(example_args))
+    with TRACE_LOCK:
+        ep = torch.export.export(mod, tuple(example_args))
     return export_vector(ep.graph_module)
 
 

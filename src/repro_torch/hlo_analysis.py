@@ -60,6 +60,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch import roofline as rl
+from repro_torch.core.trace_lock import TRACE_LOCK
 
 __all__ = ["Compiled", "HloCost", "Lowered", "MemoryStats", "analyze_hlo",
            "lower", "memory_analysis"]
@@ -662,7 +663,8 @@ def lower(fn, *args, scope_root: Optional[torch.nn.Module] = None
     as a non-strict tracing session so that a selective activation
     checkpoint recomputes what its policy does not save, as it does
     eagerly (under a bare proxy mode it would only tag the nodes for a
-    compiler's partitioner)."""
+    compiler's partitioner).  The reset of dynamo's caches and the
+    ``make_fx`` trace run under the process-wide :data:`TRACE_LOCK`."""
     from torch._guards import detect_fake_mode
 
     stack: list = []
@@ -678,7 +680,6 @@ def lower(fn, *args, scope_root: Optional[torch.nn.Module] = None
         if isinstance(e, NotImplementedError) \
                 and "HigherOrderOperator" not in str(e):
             raise
-        torch._dynamo.reset()          # drop what the failed attempt cached
     else:
         rec.graph.output(tuple(rec.node(t) for t in out))
         return Lowered(torch.fx.GraphModule(torch.nn.Module(), rec.graph))
@@ -687,7 +688,9 @@ def lower(fn, *args, scope_root: Optional[torch.nn.Module] = None
 
     session = getattr(torch.compiler, "_non_strict_tracing_context",
                       contextlib.nullcontext)
-    with _module_scopes(scope_root, stack), session():
-        gm = make_fx(lambda *a: pytree.tree_leaves(fn(*a)),
-                     tracing_mode="fake")(*args)
+    with TRACE_LOCK:
+        torch._dynamo.reset()          # drop what the failed attempt cached
+        with _module_scopes(scope_root, stack), session():
+            gm = make_fx(lambda *a: pytree.tree_leaves(fn(*a)),
+                         tracing_mode="fake")(*args)
     return Lowered(gm)

@@ -18,8 +18,9 @@ them at each use (same values) — lives in one immutable ``_Bound`` snapshot
 published by a single reference assignment.  ``generate`` reads the
 snapshot once per call, so an in-flight generation always runs one complete
 plan end to end; a concurrent :meth:`Server.swap_plan` takes effect on the
-*next* call, never mid-sequence.  ``Server.from_store`` waits for the port
-of ``service/store.py``.
+*next* call, never mid-sequence.  ``Server.from_store`` builds a server
+from a plan the planning service persisted (``repro_torch.service``): no
+search and no planner in the loop.
 """
 from __future__ import annotations
 
@@ -109,6 +110,26 @@ class Server:
         # planning service's operating-point policy reads (latency-optimal
         # under load, energy-optimal idle)
         self._req_times: collections.deque = collections.deque(maxlen=256)
+
+    @classmethod
+    def from_store(cls, model: Model, params, store, fingerprint: str,
+                   cfg: Optional[ServeConfig] = None) -> "Server":
+        """Construct a server from a persisted plan: loads the newest
+        :class:`~repro_torch.service.store.PlanRecord` for ``fingerprint``
+        from a :class:`~repro_torch.service.store.PlanStore` and rehydrates
+        its ``ExecPlan`` — no search, no planner in the loop."""
+        rec = store.load(fingerprint)
+        if rec is None:
+            raise LookupError(
+                f"no stored plan for fingerprint {fingerprint!r} — run the "
+                f"planning service (or Offloader.plan) first")
+        plan = store.rehydrate(rec)
+        if not isinstance(plan, ExecPlan):
+            raise TypeError(
+                f"stored plan for {fingerprint!r} rehydrates to "
+                f"{type(plan).__name__}, not an ExecPlan — Server only "
+                f"serves module-frontend plans")
+        return cls(model, params, plan, cfg)
 
     @property
     def plan(self) -> ExecPlan:

@@ -1099,3 +1099,66 @@ def test_lower_cell_traces_fake_cuda_tensors_like_meta_ones_on_card(cuda,
             if n.op == "placeholder"]
     assert {v.device.type for v in vals} == {"cuda"}
     assert totals(on_card) == totals(lower_cell(cfg, shape, plan, "cpu")[0])
+
+
+# ---------------------------------------------------------------------------
+# the planning service on the card
+# ---------------------------------------------------------------------------
+
+
+def _kernels_first(values):
+    """A deterministic fitness that ranks a chromosome by its count of
+    ``gpu_kernel`` genes: the search's winner binds the kernels."""
+    from repro_torch.core.ga import Evaluation
+
+    return Evaluation(tuple(values),
+                      1.0 - 0.1 * sum(int(v) == 2 for v in values), True)
+
+
+@pytest.mark.gpu
+def test_service_endpoint_runs_the_kernels_and_warm_loads_on_card(
+        cuda, tmp_path):
+    """Phase V1's steps 3-4 at a small size: the planning service's
+    endpoint verifies against the unsubstituted program and launches the
+    flash and RMSNorm kernels; a new service on the same directory
+    warm-loads the plan (no search, no measurement) and its artifact's
+    output is bit-equal to the first one's."""
+    from repro_torch.core.frontends.registry import OffloadConfig
+    from repro_torch.core.ga import GAConfig
+    from repro_torch.core.verifier import verify
+    from repro_torch.obs import metrics
+    from repro_torch.service import PlanService
+
+    def measurements():
+        fam = metrics.snapshot().get("eval.measurements", {})
+        return sum(s["value"] for s in fam.get("series", ()))
+
+    model = _AttentionStack(256, 128, cuda)
+    x = torch.randn(512, 256, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda)
+    config = OffloadConfig(
+        fitness_fn=_kernels_first, repeats=1,
+        ga=GAConfig(population=4, generations=3, seed=0),
+        options={"example_args": (x,), "block_sites": False})
+    with PlanService(str(tmp_path), config=config) as svc:
+        plan = svc.plan(model)
+        assert plan.record.bits == (2, 2)
+        call = svc.endpoint(plan.fingerprint)
+        tops.reset_launch_counts()
+        out = call(x)
+        torch.cuda.synchronize()
+        counts = tops.launch_counts()
+    assert (counts["flash_attention"], counts["rmsnorm"]) == (1, 1)
+    with torch.no_grad():
+        want = model(x)
+    assert verify(want, out, rtol=1e-2, atol=1e-2).ok
+    before = measurements()
+    with PlanService(str(tmp_path), config=config) as svc2:
+        warm = svc2.plan(model)
+    assert warm.warm and svc2.stats.warm_loads == 1
+    assert svc2.stats.searches == 0 and measurements() == before
+    tops.reset_launch_counts()
+    again = warm(x)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash_attention"] == 1
+    assert torch.equal(again, out)
