@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only K         # the build and phase K alone
     python3 chip_smoke.py --only V         # the build, path M, serve M, V
+    python3 chip_smoke.py --only D         # the build and phase D alone
 
 
 Phases, in order; any failure exits non-zero before the last line:
@@ -172,14 +173,14 @@ K. phase K, function-block genes in the export frontend (the reference's
      is printed with the per-layer K/V errors.  Then one all-reference
      forward under ``dense_onehot`` (time only), and ``Server.generate``
      in bf16 under ``OFFLOAD_PLAN`` (16 new tokens);
-   - F: RWKV-6-3B at full width (40 heads of 64) and 8 of its 32 layers
-     (cut for the run's time),
+   - F: RWKV-6-3B at full width (40 heads of 64) and 4 of its 32 layers
+     (cut for the run's time; 8 until phase D came),
      alone on the card: its f32 ``chunked`` prefill of (2, 2048) tokens
      planned with GA 4 x 2 (its ``step`` prefill, once a check against
      ``chunked``, went for the run's time: the CPU and card tests hold the
      two forms to each other),
-     seeded like E: only the final norm binds (``d2560_l32``); the 17
-     LayerNorm regions (x, scale, bias) and the 8 multi-head WKV scans
+     seeded like E: only the final norm binds (``d2560_l32``); the 9
+     LayerNorm regions (x, scale, bias) and the 4 multi-head WKV scans
      match and are refused; the forced plan verifies.  Then
      ``Server.generate`` in bf16 under ``OFFLOAD_PLAN`` (chunked prefill,
      RWKV states replaced in decode; 16 new tokens);
@@ -264,6 +265,36 @@ C. phase C2, a plan chosen by the compiled-artifact cost model:
    each must take at least its compute time; s/step and the peak device
    memory are printed beside ``step_s`` and ``live_bytes``.  Then phase
    C's seconds (C1's graph walks and C2);
+D. phase D, sharding and the mesh (after C2), the launch counters set to
+   0 before it and read after; D3's two children start first and trace
+   while D1 and D2 run on the card, their records read last:
+
+   - D1: ``make_host_mesh()`` (NCCL at world size 1, a (1, 1) mesh); the
+     whole Qwen3-0.6B (28 layers, f32, random weights from seed 0) under
+     ``OFFLOAD_PLAN`` (chunked attention) over 1 x 2048 tokens at a
+     constant lr of 1e-3, 2 steps of ``make_train_step`` and 2 of
+     ``jit_train_step`` (DTensor state) from the same init: losses and
+     every parameter within 1e-5; s/step, peak memory, device launches
+     and NCCL kernels of each (the last step profiled); then ``reshard``
+     of the step-2 checkpoint (under ``build/``, deleted after) onto the
+     same mesh: bit-equal, with its bytes and seconds;
+   - D2: path Q's block (bf16) with its first RMSNorm site on
+     ``mesh:data:1:batch`` and the attention and the other RMSNorm sites
+     on ``cuda``: the report says ``local_map over 1xdata``, one forward
+     launches flash once and RMSNorm 3 times, and it verifies; then the
+     GA (4 x 2, seed 0) with the mesh gene in the alphabet: its winner
+     verifies; a ``PlanStore`` round trip of the forced mesh plan
+     rehydrates bit-equal; ``mesh:data:8:batch`` falls back,
+     ``unavailable``, ``modeled cost``;
+   - D3: ``python -m repro_torch.launch.dryrun --arch qwen3_0_6b --shape
+     train_4k --mesh pod16x16`` and ``--mesh pod2x16x16`` (a fake world of
+     256 / 512 ranks, fake tensors on the card's device type; one
+     sequence a data-parallel rank): status ok, every collective's group
+     a divisor of the mesh, a 16-rank group on both and a 2-rank one on
+     the multi-pod mesh only, per-device FLOPs x devices at least 6 N D;
+     per device ``live_bytes``, the collective histogram, and the compute,
+     memory and collective ms, with the lowering seconds; then phase D's
+     seconds;
 5. a ``{"kernels": [...]}`` line (each RMSNorm and RG-LRU entry carries its
    per-shape rows beside the path sums), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -273,6 +304,7 @@ Needs a CUDA device; without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -281,6 +313,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -350,8 +383,8 @@ X_TOKENS, SERVE_PROMPT_X = 448, 4
 #: depth cut for the run's time, widths as published: path H's
 #: RecurrentGemma-2B runs 8 of its 26 layers (the pattern rglru, rglru,
 #: local attention kept), path E's OLMoE-1B-7B 8 of its 16, path F's
-#: RWKV-6-3B 8 of its 32
-PATH_LAYERS = {"recurrentgemma_2b": 8, "olmoe_1b_7b": 8, "rwkv6_3b": 8}
+#: RWKV-6-3B 4 of its 32 (8 until phase D came)
+PATH_LAYERS = {"recurrentgemma_2b": 8, "olmoe_1b_7b": 8, "rwkv6_3b": 4}
 SEED = 0
 REPEATS = 25
 
@@ -1212,7 +1245,8 @@ PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"},
                  "M": {"d1024_l32", "d128_l32"}, "H": {"d2560_l32"},
                  "E": {"generic_l32", "d128_l32"}, "F": {"d2560_l32"},
                  "X": {"generic_l32"}, "K": {"d1024_l32"},
-                 "V": {"d1024_l32", "d128_l16"}}
+                 "V": {"d1024_l32", "d128_l16"},
+                 "D": {"d1024_l32", "d128_l16"}}
 #: RMSNorm launches by variant of one forward of the forced plan, where
 #: a path pins them: path E's ln1, ln2 and final norm at d 2048 take the
 #: generic loop, its q- and k-norms the d = 128 instance; path X's 62
@@ -1224,7 +1258,7 @@ PATH_ROUTES = {"R": {"tma"}, "H": {"tma"}}
 #: the flash path each path's launches take (paths M, H, E and X in f32,
 #: path H at head dim 256: ``scalar``)
 PATH_FLASH = {"Q": "wgmma", "M": "scalar", "H": "scalar", "E": "scalar",
-              "X": "scalar", "K": "scalar", "V": "wgmma"}
+              "X": "scalar", "K": "scalar", "V": "wgmma", "D": "wgmma"}
 
 
 def sub_counts() -> dict:
@@ -2352,7 +2386,7 @@ P_GA = (4, 2)
 PATH_KERNELS = {**{label: p[3] for label, p in PATHS.items()},
                 "P": tuple(P_KERNEL.values()), "K": ("flash_attention",
                                                      "rmsnorm"),
-                "V": PATHS["Q"][3]}
+                "V": PATHS["Q"][3], "D": PATHS["Q"][3]}
 
 
 def p_workloads() -> dict:
@@ -3522,20 +3556,322 @@ def _journal_fingerprint(scratch: Path) -> str:
     return journals[0].stem[len("measurements_"):]
 
 
+# ---------------------------------------------------------------------------
+# phase D: sharding and the mesh
+# ---------------------------------------------------------------------------
+
+#: D1: the whole Qwen3-0.6B in f32, one sequence of 2048 tokens, the
+#: OFFLOAD_PLAN (chunked attention) at a constant lr
+D1_SEQ, D1_STEPS, D1_LR = 2048, 2, 1e-3
+#: D2: the GA over Q's block with the mesh gene in the alphabet
+D2_GA = (4, 2)
+D2_MESH = "mesh:data:1:batch"
+#: D3: the production meshes, each traced in a child process
+D3_MESHES = ("pod16x16", "pod2x16x16")
+
+
+def d3_start(out_dir: Path) -> dict:
+    """D3's children, started together before D1: ``launch.dryrun`` of
+    Qwen3-0.6B's train_4k on each production mesh (a fake world of 256
+    or 512 ranks, fake tensors on the card's device type)."""
+    procs = {}
+    for mesh in D3_MESHES:
+        log = open(out_dir / f"{mesh}.log", "w")
+        procs[mesh] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3_0_6b", "--shape", "train_4k", "--mesh", mesh, "--out",
+             str(out_dir)], stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}),
+            log, time.perf_counter())
+    return procs
+
+
+def d3_finish(procs: dict, out_dir: Path) -> dict:
+    """D3's records, checked: status ok, every group an axis of the mesh
+    (a divisor of its size), a 16-rank group on both, a 2-rank (``pod``)
+    one on the multi-pod mesh, and per-device FLOPs x devices at least the
+    model's 6 N D."""
+    n_active = get_config("qwen3_0_6b").param_count(active_only=True)
+    out = {}
+    for mesh, (proc, log, t0) in procs.items():
+        rc = proc.wait(timeout=600)
+        log.close()
+        wall = time.perf_counter() - t0
+        path = out_dir / f"qwen3_0_6b__train_4k__{mesh}__production.json"
+        check(rc == 0 and path.exists(),
+              f"D3 {mesh}: dryrun exited {rc}: "
+              f"{(out_dir / (mesh + '.log')).read_text()[-3000:]}")
+        rec = json.loads(path.read_text())
+        check(rec["status"] == "ok", f"D3 {mesh}: {rec.get('error')}")
+        n = rec["n_devices"]
+        groups = {int(k.split("@g")[1]) for k in rec["collectives"]}
+        check(groups and all(n % g == 0 for g in groups),
+              f"D3 {mesh}: collective groups {sorted(groups)} of {n}")
+        check(16 in groups, f"D3 {mesh}: no 16-rank collective: "
+                            f"{rec['collectives']}")
+        check((2 in groups) == (mesh == "pod2x16x16"),
+              f"D3 {mesh}: 2-rank collectives {sorted(groups)}")
+        tokens = int(rec["reduced"].split("-> ")[1].split()[0]) * 4096
+        roof = rec["roofline"]
+        ratio = roof["flops"] * n / rl.model_flops_train(n_active, tokens)
+        check(ratio >= 1.0, f"D3 {mesh}: per-device FLOPs x {n} is "
+                            f"{ratio} of 6 N D")
+        out[mesh] = {
+            "live_bytes": rec["memory"]["live_bytes"],
+            "param_bytes": rec["memory"]["param_bytes"],
+            "fits_80gb": rec["memory"]["fits_80gb"],
+            "collectives": rec["collectives"],
+            "compute_ms": roof["compute_s"] * 1e3,
+            "memory_ms": roof["memory_s"] * 1e3,
+            "collective_ms": roof["collective_s"] * 1e3,
+            "flops_over_6nd": ratio, "lower_s": rec["lower_s"],
+            "compile_s": rec["compile_s"], "child_wall_s": wall,
+            "reduced": rec["reduced"], "link_bw_note": rec["link_bw_note"]}
+        print(f"D3 {mesh}:", json.dumps(out[mesh]), flush=True)
+    return out
+
+
+def _train_steps(step, state, batch, label: str) -> tuple:
+    """``D1_STEPS`` steps, each timed; the last profiled for its device
+    launches (kernels whose name says NCCL counted apart)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    losses, secs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(D1_STEPS):
+        last = i == D1_STEPS - 1
+        prof = profile(activities=[ProfilerActivity.CUDA]) if last \
+            else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof:
+            state, metrics = step(state, batch)
+            loss = metrics["loss"]
+            loss = loss.full_tensor() if hasattr(loss, "full_tensor") \
+                else loss
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count]
+    nccl = {e.key[:60]: e.count for e in events if "nccl" in e.key.lower()}
+    res = {"losses": losses, "step_s": secs,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "device_launches": sum(e.count for e in events),
+           "nccl_launches": nccl}
+    print(f"D1 {label}:", json.dumps(res), flush=True)
+    return state, res
+
+
+def d1_host_mesh_train(dev) -> dict:
+    """D1: ``make_host_mesh()`` (NCCL at world size 1, a (1, 1) mesh); the
+    whole Qwen3-0.6B (28 layers, f32, random weights from seed 0) for 2
+    steps of ``jit_train_step`` against 2 steps of ``make_train_step`` from
+    the same init: losses and every updated parameter within 1e-5; then
+    ``reshard`` of the step-2 checkpoint onto the same mesh, bit-equal."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.fault_tolerance import reshard
+    from repro_torch.runtime.train import (init_train_state, jit_train_step,
+                                           make_train_step, state_shardings)
+
+    mesh = make_host_mesh()
+    check(list(mesh.shape) == [1, 1] and dist.get_world_size() == 1,
+          f"D1: host mesh {mesh}")
+    res = {"mesh": [list(mesh.shape), list(mesh.mesh_dim_names)],
+           "backend": str(dist.get_backend())}
+    cfg = get_config("qwen3_0_6b")
+    model = build_model(cfg)
+    plan = OFFLOAD_PLAN.replace(compute_dtype="float32")
+    batch = model.demo_batch(torch.Generator().manual_seed(1), 1, D1_SEQ,
+                             device=dev)
+    lr = lambda s: D1_LR                                      # noqa: E731
+    rules = shd.make_rules(mesh)
+    plain = init_train_state(model, torch.Generator().manual_seed(SEED),
+                             device=dev)
+    plain, res["plain"] = _train_steps(
+        make_train_step(model, plan, OptimizerConfig(), lr), plain, batch,
+        "make_train_step")
+    # the plain run's parameters wait on the host, so that each run's peak
+    # is its own
+    want = {n: p.detach().cpu() for n, p in plain.params.named_parameters()}
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = init_train_state(model, torch.Generator().manual_seed(SEED),
+                               device=dev)
+    shardings = state_shardings(sharded, rules, cfg)
+    sharded, res["sharded"] = _train_steps(
+        jit_train_step(model, plan, OptimizerConfig(), lr, rules, shardings),
+        sharded, batch, "jit_train_step")
+    for a, b in zip(res["plain"]["losses"], res["sharded"]["losses"]):
+        check(abs(a - b) <= 1e-5, f"D1: losses {res['plain']['losses']} "
+                                  f"against {res['sharded']['losses']}")
+    worst = max((want[n] - q.detach().full_tensor().cpu()).abs().max()
+                .item() for n, q in sharded.params.named_parameters())
+    check(worst <= 1e-5, f"D1: parameters differ by {worst}")
+    res["max_param_diff"] = worst
+    del want
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="reshard-", dir=build.BUILD_DIR))
+    try:
+        ckpt = CheckpointManager(str(ckpt_dir), async_save=False)
+        t0 = time.perf_counter()
+        ckpt.save(D1_STEPS, sharded, blocking=True)
+        res["save_s"] = time.perf_counter() - t0
+        want = {n: p.detach().full_tensor().clone()
+                for n, p in sharded.params.named_parameters()}
+        want_mu = {n: v.full_tensor().clone()
+                   for n, v in sharded.opt.mu.items()}
+        t0 = time.perf_counter()
+        _, back = reshard(ckpt, sharded, shardings)
+        res["reshard_s"] = time.perf_counter() - t0
+        same = all(torch.equal(p.detach().full_tensor(), want[n])
+                   for n, p in back.params.named_parameters()) and all(
+            torch.equal(v.full_tensor(), want_mu[n])
+            for n, v in back.opt.mu.items())
+        check(same, "D1: the resharded checkpoint is not bit-equal")
+        res["reshard_bit_equal"] = same
+        res["checkpoint_bytes"] = ckpt.saves[-1].get("bytes")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del sharded, back, want, want_mu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def d2_mesh_destination(dev, scratch: Path) -> dict:
+    """D2: Q's block (bf16) with one RMSNorm site on ``mesh:data:1:batch``
+    and the attention and the other RMSNorm sites on ``cuda``: the site
+    runs through ``local_map`` over 1 x data, flash and RMSNorm launch once
+    a site, and the program verifies; ``Offloader.plan`` with the mesh gene
+    in the alphabet (GA 4 x 2, seed 0) verifies its winner, and a
+    ``PlanStore`` round trip of a plan holding a mesh gene rehydrates
+    bit-equal; ``mesh:data:8:batch`` falls back with its reason."""
+    import dataclasses as dc
+
+    from repro_torch.core.frontends.registry import decoded_pattern
+    from repro_torch.core.genes import VARIANT_ALPHABET
+    from repro_torch.service import record_from_result
+
+    block, args = path_q(dev)
+    alphabet = VARIANT_ALPHABET + (D2_MESH,)
+    cfg = OffloadConfig(
+        destinations=alphabet, repeats=1,
+        ga=GAConfig(population=D2_GA[0], generations=D2_GA[1], seed=SEED,
+                    cache_dir=str(scratch)),
+        options={"example_args": args})
+    off = Offloader(cfg)
+    ctx = off.prepare(block)
+    coding, graph = ctx.coding, ctx.graph
+    engine = ctx.bundle.context["engine"]
+    check(ctx.bundle.mesh_executed, "D2: the export bundle does not "
+                                    "execute mesh genes")
+    bits = list(forced_chromosome(graph, coding))
+    norms = [i for i, s in enumerate(coding.sites)
+             if graph.by_name(s.region).meta.get("pattern") == "rmsnorm"]
+    mesh_at = norms[0]
+    bits[mesh_at] = alphabet.index(D2_MESH)
+    bits = tuple(bits)
+    region = coding.sites[mesh_at].region
+    sub = engine.substitute(decoded_pattern(coding, bits, {}),
+                            destinations=coding.destinations_of(bits))
+    choice = next(c for c in sub.report.choices if c.region == region)
+    check(choice.chosen == D2_MESH and "local_map over 1xdata" in choice.why,
+          f"D2: the mesh site chose {choice.chosen}: {choice.why}")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = sub(*args)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches["flash_attention"] == 1
+          and launches["rmsnorm"] == len(norms) - 1,
+          f"D2: one forward launched {launches}, not flash once and "
+          f"RMSNorm {len(norms) - 1} times")
+    v = engine.verify(sub)
+    check(v.ok, f"D2: the forced mesh program does not verify: {v}")
+    res = {"mesh_site": region, "why": choice.why,
+           "launches": {k: n for k, n in launches.items() if n},
+           "forced_verify": {"max_abs": v.max_abs, "max_rel": v.max_rel}}
+    print("D2 forced:", json.dumps(res), flush=True)
+    t0 = time.perf_counter()
+    plan_res = off.search(ctx)
+    res["ga_s"] = time.perf_counter() - t0
+    check(plan_res.verification["verified"], "D2: the GA's winner does not "
+                                             "verify")
+    res["winner"] = dict(plan_res.destinations)
+    res["winner_mesh_genes"] = sum(d.startswith("mesh:")
+                                   for d in plan_res.destinations.values())
+    store = PlanStore(str(scratch / "store"))
+    rec = dc.replace(record_from_result(plan_res, ctx.fingerprint),
+                     bits=bits)
+    store.put(rec)
+    loaded = store.load(ctx.fingerprint)
+    check(list(loaded.mesh_destinations()) == [region],
+          f"D2: stored mesh genes {loaded.mesh_destinations()}")
+    art = store.rehydrate(loaded, block, config=cfg)
+    with torch.no_grad():
+        again = art(*args)
+    check(all(torch.equal(a, b) for a, b in zip(
+        pytree.tree_leaves(again), pytree.tree_leaves(out))),
+        "D2: the rehydrated mesh plan is not bit-equal")
+    res["store_round_trip_bit_equal"] = True
+    far = engine.substitute({region: "ref"},
+                            destinations={region: "mesh:data:8:batch"})
+    why8 = next(c for c in far.report.choices if c.region == region).why
+    check("unavailable" in why8 and "modeled cost" in why8,
+          f"D2: mesh:data:8:batch at {region}: {why8}")
+    res["why_8"] = why8
+    print("D2:", json.dumps(res), flush=True)
+    return res
+
+
+def phase_mesh(dev, scratch: Path) -> dict:
+    """Phase D: D3's children start first and trace while D1 and D2 run on
+    the card; their records are read last."""
+    t0 = time.perf_counter()
+    procs = d3_start(scratch)
+    try:
+        out = {"D1": d1_host_mesh_train(dev)}
+        print("D1:", json.dumps({k: v for k, v in out["D1"].items()
+                                 if k not in ("plain", "sharded")}),
+              flush=True)
+        done_d1 = time.perf_counter() - t0
+        out["D2"] = d2_mesh_destination(dev, scratch)
+        done_d2 = time.perf_counter() - t0
+        out["D3"] = d3_finish(procs, scratch)
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase D: {out['seconds']:.1f} s (D1 {done_d1:.1f} s, D2 "
+          f"{done_d2 - done_d1:.1f} s, D3 waited "
+          f"{out['seconds'] - done_d2:.1f} s more)", flush=True)
+    return out
+
+
 def main(argv: list) -> int:
     """The full run with no arguments.  ``--only K`` runs the build and
     phase K alone; ``--only V`` runs the build, path M (through the
     planning service, then on this thread for comparison), serve M (with
-    V3) and phase V; the last line of either says so (``phase K alone: ok``, ``phase V alone: ok``), not the
-    full run's contract line.  ``--warm-child STORE`` is phase V2's
-    child."""
+    V3) and phase V; ``--only D`` the build and phase D; the last line of
+    each says so (``phase K alone: ok``, ...), not the full run's contract
+    line.  ``--warm-child STORE`` is phase V2's child."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if len(argv) == 2 and argv[0] == "--warm-child":
         return warm_child(Path(argv[1]), torch.device("cuda", 0))
-    check(argv in ([], ["--only", "K"], ["--only", "V"]),
-          "usage: chip_smoke.py [--only K|V]")
+    check(argv in ([], ["--only", "K"], ["--only", "V"], ["--only", "D"]),
+          "usage: chip_smoke.py [--only K|V|D]")
     only = argv[1] if argv else None
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     m_store = Path(tempfile.mkdtemp(prefix="plan-store-M-",
@@ -3646,6 +3982,10 @@ def run_all(only, m_store: Path) -> int:
         run_phase("K", phase_blocks, counts_its_plans=True)
         print("phase K alone: ok", flush=True)
         return 0
+    if only == "D":
+        run_phase("D", phase_mesh)
+        print("phase D alone: ok", flush=True)
+        return 0
     if only == "V":
         run_path("M")
         m_on_callers_thread(dev)
@@ -3707,6 +4047,9 @@ def run_all(only, m_store: Path) -> int:
     done("phase T")
     c2 = phase_cost_plan(dev)
     done("phase C2")
+    # sharding and the mesh: a (1, 1) host mesh, an executed mesh gene,
+    # the production meshes traced
+    run_phase("D", phase_mesh)
     c1_s = sum(r["analyze_s"] for p in plans.values()
                for r in p.get("roofline", {}).values())
     print(f"phase C: {c1_s + c2['seconds']:.1f} s (C1 {c1_s:.1f} s: the "

@@ -19,8 +19,15 @@ place, and a writer reading them late would see the next step's values.
 ``restore`` rebuilds the tree with each leaf in the template leaf's dtype
 and on its device; a module of the template is restored in place (its
 parameters overwritten) and returned.  Each save records its bytes and
-seconds in ``CheckpointManager.saves``.  ``reshard`` onto another mesh waits
-for the mesh (``ROADMAP.md`` queue 1 item 10).
+seconds in ``CheckpointManager.saves``.
+
+A DTensor leaf is saved whole (``full_tensor``: a collective, so every
+rank saves), so the files do not depend on the mesh; under a process group
+of several ranks only rank 0 writes.  ``restore(template, shardings=...)``
+(``{leaf path: (mesh, placements)}``) places each listed leaf as a DTensor
+on that mesh (a module's parameter is replaced by one): the elastic-rescale
+path, ``runtime.fault_tolerance.reshard``.  Without shardings a restore is
+what it was.
 """
 from __future__ import annotations
 
@@ -72,9 +79,18 @@ def _rebuild(template: Any, leaves: dict, prefix: str = "") -> Any:
     if template is None:
         return None
     if isinstance(template, nn.Module):
+        from torch.distributed.tensor import DTensor
+
         with torch.no_grad():
-            for k, p in template.named_parameters():
-                p.copy_(leaves[join(k)])
+            for k, p in list(template.named_parameters()):
+                new = leaves[join(k)]
+                if isinstance(new, DTensor) or isinstance(p, DTensor):
+                    owner, _, leaf = k.rpartition(".")
+                    mod = template.get_submodule(owner) if owner else template
+                    mod._parameters[leaf] = nn.Parameter(
+                        new, requires_grad=p.requires_grad)
+                else:
+                    p.copy_(new)
         return template
     if _is_namedtuple(template):
         return type(template)(*(_rebuild(v, leaves, join(k))
@@ -89,10 +105,21 @@ def _rebuild(template: Any, leaves: dict, prefix: str = "") -> Any:
 
 
 def _host_copy(leaf: Any):
-    """A host copy of one leaf that later writes to the leaf do not reach."""
+    """A host copy of one leaf that later writes to the leaf do not reach
+    (a DTensor's whole value)."""
     if isinstance(leaf, torch.Tensor):
+        full = getattr(leaf, "full_tensor", None)
+        if full is not None:
+            leaf = full()
         return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0, or no group."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _host_snapshot(tree: Any) -> dict:
@@ -127,7 +154,12 @@ def save_pytree(tree: Any, path: str) -> int:
     return n_bytes
 
 
-def load_pytree(template: Any, path: str) -> Any:
+def load_pytree(template: Any, path: str,
+                shardings: Optional[dict] = None) -> Any:
+    """``template`` rebuilt from the files under ``path``; a leaf whose path
+    ``shardings`` lists is placed as a DTensor by its (mesh, placements)."""
+    from torch.distributed.tensor import distribute_tensor
+
     with open(os.path.join(path, "manifest.json")) as f:
         by_path = {e["path"]: e for e in json.load(f)["leaves"]}
     leaves = {}
@@ -138,7 +170,13 @@ def load_pytree(template: Any, path: str) -> Any:
         if e["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
         if isinstance(leaf, torch.Tensor):
-            t = t.to(device=leaf.device, dtype=leaf.dtype)
+            mesh = getattr(leaf, "device_mesh", None)
+            dev = torch.device(mesh.device_type) if mesh is not None \
+                else leaf.device
+            t = t.to(device=dev, dtype=leaf.dtype)
+        if shardings and p in shardings:
+            mesh, pl = shardings[p]
+            t = distribute_tensor(t.to(mesh.device_type), mesh, pl)
         leaves[p] = t
     return _rebuild(template, leaves)
 
@@ -162,6 +200,8 @@ class CheckpointManager:
         self.wait()
 
         def _do():
+            if not _writes():
+                return
             t1 = time.perf_counter()
             tmp = os.path.join(self.dir, f".tmp_step_{step}")
             final = os.path.join(self.dir, f"step_{step}")
@@ -207,10 +247,11 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None
-                ) -> tuple[int, Any]:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Optional[dict] = None) -> tuple[int, Any]:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint under {self.dir}")
         return step, load_pytree(template, os.path.join(self.dir,
-                                                        f"step_{step}"))
+                                                        f"step_{step}"),
+                                 shardings)

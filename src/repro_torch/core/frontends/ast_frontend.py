@@ -1319,7 +1319,8 @@ class AstFrontend:
         from repro_torch.core.block_offload import block_offload_pass
         from repro_torch.core.fitness import WallClockFitness
         from repro_torch.core.frontends.registry import FitnessBundle
-        from repro_torch.core.genes import VARIANT_ALPHABET
+        from repro_torch.core.genes import (VARIANT_ALPHABET,
+                                            with_mesh_destinations)
         from repro_torch.core.pattern_db import default_db
         from repro_torch.kernels.registry import default_registry
 
@@ -1515,9 +1516,11 @@ class AstFrontend:
             cache_extra=cache_extra, measured=True,
             serial_only=True, overlap_compiles=True,
             # variant sites make the gene an implementation choice, so the
-            # frontend proposes the variant alphabet; plain programs keep
+            # frontend proposes the variant alphabet, plus this host's mesh
+            # destinations (cost-modeled: mesh_executed stays False, the
+            # interpreter never runs a gene on a mesh); plain programs keep
             # the paper's binary interp/jit gene
-            destinations=(VARIANT_ALPHABET
+            destinations=(with_mesh_destinations(VARIANT_ALPHABET)
                           if variant_sites or block_sites else None),
             context={"program": program, "lib_calls": lib_all,
                      "variant_sites": variant_sites,

@@ -617,7 +617,9 @@ class ExportFrontend:
         from repro_torch.core.fitness import WallClockFitness
         from repro_torch.core.frontends.registry import (
             FitnessBundle, decoded_pattern, static_cost_fitness_factory)
-        from repro_torch.core.genes import VARIANT_ALPHABET
+        from repro_torch.core.genes import (VARIANT_ALPHABET,
+                                            probed_device_count,
+                                            with_mesh_destinations)
         from repro_torch.core.pattern_db import (default_db,
                                                  record_pattern_outcome)
         from repro_torch.core.substitution import SubstitutionEngine
@@ -703,11 +705,19 @@ class ExportFrontend:
         return FitnessBundle(
             fitness_factory=factory,
             block=block, claimed=(), base_impl={},
+            # the rank count joins the cache key: a mesh gene executed on
+            # several ranks and the same bits cost-modeled on one are
+            # different experiments
             cache_extra=(f"export={graph.source_name}|measured"
                          f"|args={args_sig}|device={device_name}"
-                         f"|ndev={torch.cuda.device_count()}"),
+                         f"|ndev={probed_device_count()}"),
             serial_only=True, measured=True, overlap_compiles=True,
-            destinations=VARIANT_ALPHABET,
+            # the variant alphabet plus the meshes this host's ranks can
+            # build (no extension on one rank)
+            destinations=with_mesh_destinations(VARIANT_ALPHABET),
+            # the engine executes an available mesh gene (its mesh
+            # adapter), so such genes are measured, not modeled
+            mesh_executed=True,
             impl_resolver=engine.resolved_impl,
             context={"engine": engine, "example_args": example_args})
 

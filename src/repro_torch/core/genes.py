@@ -30,7 +30,7 @@ offloading destinations, extended to placement × parallelism).  The wire
 format IS the destination name (``mesh:data:4:batch``), so alphabets,
 SeedBank records, phenotype keys, and PlanStore payloads — all of which
 carry name strings — round-trip mesh specs with no schema change.  On hosts
-with fewer than ``n`` devices a mesh destination degrades to cost-only:
+with fewer than ``n`` ranks a mesh destination degrades to cost-only:
 reference execution plus a modeled per-shard-transfer + collective cost
 (:func:`repro_torch.core.transfer_planner.modeled_mesh_cost_s`).
 """
@@ -55,14 +55,20 @@ _PROBED_DEVICE_COUNT: Optional[int] = None
 
 
 def probed_device_count() -> int:
-    """How many CUDA devices this process sees (cached, at least 1).
+    """How many ranks a mesh destination can span here: the world size of
+    an initialised default process group, else the CUDA devices this
+    process sees (cached, at least 1; a CPU-only host counts as one).
 
-    Mesh destinations compare their ``n`` against this.  The port has no
-    mesh execution yet, so on one H100 (count 1) every mesh gene stays
-    cost-only; a CPU-only host counts as one device."""
+    Mesh destinations compare their ``n`` against this to decide between
+    genuine execution (``local_map`` over ``n`` ranks, the substitution
+    engine's mesh adapter) and cost-only modeling."""
     global _PROBED_DEVICE_COUNT
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return max(1, dist.get_world_size())
     if _PROBED_DEVICE_COUNT is None:
-        import torch
         _PROBED_DEVICE_COUNT = max(1, int(torch.cuda.device_count()))
     return _PROBED_DEVICE_COUNT
 
@@ -148,8 +154,9 @@ class MeshDestination(Destination):
     doubles as the wire format: ``mesh:{axis}:{n}:{spec}``.
 
     Decoding keeps ``impl_index`` 0 (the reference implementation): the
-    substitution engine replaces the site's span with a shard_map'd run of
-    that same span when the host has >= ``n`` devices; otherwise the
+    substitution engine replaces the site's span with a run of that same
+    span on each rank's shards (``local_map``) when the host has >= ``n``
+    ranks; otherwise the
     destination is cost-only and :func:`modeled_cost_s` charges per-shard
     transfers plus a modeled collective term."""
 
@@ -269,6 +276,39 @@ def get_destination(name: str) -> Destination:
         return dest
     raise KeyError(f"unknown destination {name!r}; registered: "
                    f"{sorted(_DESTINATIONS)}")
+
+
+def destination_names() -> tuple[str, ...]:
+    return tuple(sorted(_DESTINATIONS))
+
+
+#: mesh sizes the frontends propose when the host has the ranks for them.
+MESH_PROPOSAL_SIZES: tuple[int, ...] = (2, 4, 8)
+
+
+def mesh_proposals(axes: Sequence[str] = ("data",),
+                   sizes: Sequence[int] = MESH_PROPOSAL_SIZES,
+                   device_count: Optional[int] = None) -> tuple[str, ...]:
+    """Mesh destination names this host can genuinely execute (n <= ranks).
+
+    Returns () on single-device hosts so alphabets, fingerprints and
+    committed baselines stay byte-stable; explicit mesh names in
+    ``OffloadConfig.destinations`` still work anywhere (executed when the
+    host has the ranks, cost-modeled otherwise)."""
+    ndev = probed_device_count() if device_count is None else device_count
+    return tuple(MeshDestination(axis=axis, n=n).name
+                 for axis in axes for n in sizes if 2 <= n <= ndev)
+
+
+def with_mesh_destinations(base: Sequence[str],
+                           axes: Sequence[str] = ("data",),
+                           sizes: Sequence[int] = MESH_PROPOSAL_SIZES,
+                           device_count: Optional[int] = None
+                           ) -> tuple[str, ...]:
+    """``base`` alphabet extended with this host's executable mesh genes."""
+    base = tuple(base)
+    return base + tuple(m for m in mesh_proposals(axes, sizes, device_count)
+                        if m not in base)
 
 
 # ---------------------------------------------------------------------------
@@ -433,9 +473,10 @@ def modeled_cost_s(graph: RegionGraph, coding: GeneCoding,
     stub device pay that device's modeled latency in the fitness.
 
     Mesh genes charge the mesh cost model unless ``mesh_executed`` — the
-    flag a frontend sets when its measured path genuinely decodes mesh
-    destinations through shard_map (the reference's jaxpr engine on a multi-device
-    host), in which case the measurement already contains the real cost.
+    flag a frontend sets when its measured path genuinely executes mesh
+    destinations (the export engine's mesh adapter, ``local_map`` over the
+    destination's ranks), in which case the measurement already contains
+    the real cost.
     An unavailable mesh (``is_cost_only``) charges the model regardless.
     """
     total = 0.0

@@ -562,7 +562,7 @@ def _with_destination_costs(graph: RegionGraph, coding: GeneCoding,
                             mesh_executed: bool = False) -> Callable:
     """Charge modeled destination time on top of measurements: cost-only
     stubs always, mesh genes unless the frontend's measured path genuinely
-    decodes them to shard_map execution (``mesh_executed``, from
+    executes them on a mesh (``mesh_executed``, from
     :attr:`FitnessBundle.mesh_executed`)."""
     dests = [get_destination(d) for d in coding.destinations]
 

@@ -33,9 +33,13 @@ shapes and dtypes, so every fallback decision is recorded in the
 :class:`SubstitutionReport` before anything runs — a variant whose
 predicate rejects the site degrades to the reference nodes.
 
-Mesh execution of a site (the reference's ``_mesh_adapter``) is not ported:
-a mesh destination decodes to the reference implementation and its
-modeled cost is charged by the pipeline.
+A site whose gene places it on a mesh destination (``mesh:data:4:batch``)
+runs its own reference nodes on each rank's shards inside ``local_map``
+over that many ranks (:meth:`SubstitutionEngine._mesh_adapter`, the
+reference's ``shard_map`` span), its outputs gathered whole; on a host
+with fewer ranks the gene is cost-only and the site takes its decoded
+implementation.  PyTorch is multi-controller: on several ranks every rank
+runs the same substitutions in the same order.
 """
 from __future__ import annotations
 
@@ -192,6 +196,7 @@ class SubstitutionEngine:
         self._sites = self._resolve_sites()
         self._reference: Any = None
         self._resolved: dict = {}      # (region, requested) -> resolution
+        self._mesh_resolved: dict = {}  # (region, mesh name) -> adapter, why
 
     # -- site resolution ----------------------------------------------------
 
@@ -239,6 +244,116 @@ class SubstitutionEngine:
                 registry=self.registry, backend=self.backend)
         return hit
 
+    # -- mesh destinations --------------------------------------------------
+
+    def _mesh_adapter(self, site: SiteBinding, dest
+                      ) -> tuple[Optional[Callable], str]:
+        """-> (the site's span run on a mesh, or None; why).  Memoised: the
+        decision depends only on (site, mesh destination) for the engine's
+        lifetime (the shapes and the ranks are fixed)."""
+        key = (site.region, dest.name)
+        hit = self._mesh_resolved.get(key)
+        if hit is None:
+            hit = self._mesh_resolved[key] = self._mesh_adapter_uncached(
+                site, dest)
+        return hit
+
+    def _mesh_adapter_uncached(self, site: SiteBinding, dest
+                               ) -> tuple[Optional[Callable], str]:
+        """The genuine mesh execution of a site: its own reference nodes
+        interpreted on each rank's shards inside ``local_map`` over the
+        destination's ``n``-rank mesh (``launch.mesh.
+        make_destination_mesh``), the outputs gathered whole.
+
+        The heuristic is the reference's, conservative and shape-checked:
+        the destination's spec names a dimension (batch = leading, feature
+        = trailing), every output must carry the same extent there (a
+        reduction over the sharded dim cannot recombine by concatenation),
+        inputs that carry it are sharded and the rest replicated.  What it
+        cannot place, or what fails when the sharded span runs on meta
+        shards (a node whose shape arguments are the whole extent's),
+        falls back to the normal variant path with the reason reported; a
+        placement that runs but computes wrong partials is caught by the
+        search's verification."""
+        from repro_torch.launch.mesh import make_destination_mesh
+        from repro_torch.runtime.pspec import shard_map
+
+        if site.kind != "span":
+            return None, f"a {site.kind} site is not placed on a mesh"
+        if any(n is None for n in site.out_nodes):
+            return None, "site has dropped outputs"
+        if not site.out_nodes:
+            return None, "site has no outputs"
+        out_vals = [n.meta["val"] for n in site.out_nodes]
+        if not all(isinstance(v, torch.Tensor) for v in out_vals):
+            return None, "site has a non-tensor output"
+        out_shapes = [tuple(v.shape) for v in out_vals]
+        dim = dest.shard_dim
+
+        def dim_of(shape: tuple) -> Optional[int]:
+            d = dim + len(shape) if dim < 0 else dim
+            return d if 0 <= d < len(shape) else None
+
+        d0 = dim_of(out_shapes[0])
+        if d0 is None:
+            return None, "output lacks the sharded dimension"
+        extent = out_shapes[0][d0]
+        if extent == 0 or extent % dest.n != 0:
+            return None, (f"output dim {extent} not divisible by "
+                          f"n={dest.n}")
+        for shape in out_shapes:
+            d = dim_of(shape)
+            if d is None or shape[d] != extent:
+                return None, "outputs disagree on the sharded dimension"
+
+        def spec_for(shape: tuple) -> tuple:
+            d = dim_of(shape)
+            parts: list = [None] * len(shape)
+            if d is not None and shape[d] == extent:
+                parts[d] = dest.axis
+            return tuple(parts)
+
+        in_vals = [n.meta.get("val") for n in site.in_nodes]
+        in_specs = tuple(spec_for(tuple(v.shape))
+                         if isinstance(v, torch.Tensor) else None
+                         for v in in_vals)
+        out_specs = [spec_for(s) for s in out_shapes]
+        if not any(s and any(p is not None for p in s) for s in in_specs):
+            return None, "no input carries the sharded dimension"
+
+        nodes, in_nodes = tuple(site.nodes), tuple(site.in_nodes)
+        out_nodes = tuple(site.out_nodes)
+
+        def span_fn(*ins):
+            # the span's own nodes on this rank's shards
+            env = dict(zip(in_nodes, ins))
+            for node in nodes:
+                args, kwargs = torch.fx.node.map_arg(
+                    (node.args, node.kwargs), lambda a: env[a])
+                env[node] = node.target(*args, **kwargs)
+            return tuple(env[n] for n in out_nodes)
+
+        dev = next(v.device for v in in_vals if isinstance(v, torch.Tensor))
+        try:
+            mesh = make_destination_mesh(dest.n, dest.axis, dev)
+            sharded = shard_map(span_fn, mesh=mesh, in_specs=in_specs,
+                                out_specs=out_specs)
+            with torch.no_grad():
+                got = sharded(*[torch.empty_strided(
+                    v.shape, v.stride(), dtype=v.dtype, device="meta")
+                    if isinstance(v, torch.Tensor) else v for v in in_vals])
+        except Exception as e:  # noqa: BLE001 -- any build-time rejection
+            return None, f"local_map build failed: {type(e).__name__}: {e}"
+        for g, v in zip(got, out_vals):
+            if tuple(g.shape) != tuple(v.shape) or g.dtype != v.dtype:
+                return None, "sharded span changes output shape/dtype"
+
+        def adapter(*ins):
+            return tuple(o.full_tensor() for o in sharded(*ins))
+
+        return adapter, (f"local_map over {dest.n}x{dest.axis} "
+                         f"(spec {dest.spec})")
+
     # -- substitution -------------------------------------------------------
 
     def substitute(self, impl: dict,
@@ -246,14 +361,21 @@ class SubstitutionEngine:
                    ) -> SubstitutedCallable:
         """``impl``: region -> implementation id ("ref", a variant name, or
         the legacy "kernel" auto choice).  Returns the runnable program.
-        A mesh destination (``destinations``) is not executed by this
-        engine: the site resolves its decoded implementation and the report
-        says so.
+
+        ``destinations`` (region -> destination name, from
+        :meth:`GeneCoding.destinations_of`) routes mesh-assigned sites
+        through :meth:`_mesh_adapter`: when the host has the ranks the
+        site's span genuinely runs on the mesh; otherwise, or when the
+        heuristic rejects the shapes, the site takes the normal variant
+        resolution with the reason reported.
 
         Sites are resolved widest-first: a block site that binds computes
         its whole node range, so a member site inside it is claimed and any
         variant requested on it falls back to ``ref`` (reported as such).
         The report lists the sites in graph order."""
+        from repro_torch.core.genes import (get_destination,
+                                            probed_device_count)
+
         choices: dict[str, SubstitutionChoice] = {}
         actions: list[tuple[SiteBinding, Callable]] = []
         accepted: list[tuple[frozenset, str]] = []
@@ -267,12 +389,27 @@ class SubstitutionEngine:
                     site.region, site.pattern, requested, "ref",
                     f"claimed by block {owner}")
                 continue
-            adapter, chosen, why = self._resolve_variant(site, requested)
             dname = (destinations or {}).get(site.region)
             if dname and dname.startswith("mesh:"):
-                why = (f"mesh {dname!r} is not executed by the export "
-                       f"engine: modeled cost charged; {why}")
-                requested = dname
+                mesh_dest = get_destination(dname)
+                if mesh_dest.is_cost_only:
+                    adapter, chosen, why = self._resolve_variant(site,
+                                                                 requested)
+                    why = (f"mesh {mesh_dest.name!r} unavailable "
+                           f"({probed_device_count()} device(s) < "
+                           f"{mesh_dest.n}): modeled cost charged; {why}")
+                else:
+                    adapter, mesh_why = self._mesh_adapter(site, mesh_dest)
+                    if adapter is not None:
+                        chosen, why = mesh_dest.name, mesh_why
+                    else:
+                        adapter, chosen, why = self._resolve_variant(
+                            site, requested)
+                        why = (f"mesh {mesh_dest.name!r} rejected "
+                               f"({mesh_why}); {why}")
+                requested = mesh_dest.name
+            else:
+                adapter, chosen, why = self._resolve_variant(site, requested)
             choices[site.region] = SubstitutionChoice(
                 site.region, site.pattern, requested, chosen, why)
             if adapter is not None:

@@ -27,7 +27,9 @@ run, computes per-device totals with the reference's rules:
     counterpart of ``known_trip_count`` (a ``while_loop`` reads
     ``node.meta["known_trip_count"]``, else counts its body once);
   * collectives (``_c10d_functional``) get ring-model link bytes with their
-    group size;
+    group size: all-gather and reduce-scatter carry it as an argument, the
+    others name their process group, whose size it is (an all-reduce over
+    one axis of a 2-D mesh spans that axis, not the world);
   * a hand-written kernel's node (the substitution engine's adapter) is
     charged the cost its registry variant declares (``adapter.cost``, a
     ``roofline.KernelCost``), FLOPs included — the reference's
@@ -61,6 +63,7 @@ from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch import roofline as rl
 from repro_torch.core.trace_lock import TRACE_LOCK
+from torch.distributed.tensor import DTensor as _DTensor
 
 __all__ = ["Compiled", "HloCost", "Lowered", "MemoryStats", "analyze_hlo",
            "lower", "memory_analysis"]
@@ -202,8 +205,14 @@ class HloCost:
             return {k: lin(a.get(k, 0.0), b.get(k, 0.0))
                     for k in {**a, **b}}
 
-        base = {(op, rb, g, lb): m for op, rb, g, lb, m in self.collectives}
-        more = {(op, rb, g, lb): m for op, rb, g, lb, m in step.collectives}
+        def executions(cols: list) -> dict:
+            # identical collectives add up: one entry an op, many an op kind
+            out: dict = {}
+            for op, rb, g, lb, m in cols:
+                out[(op, rb, g, lb)] = out.get((op, rb, g, lb), 0.0) + m
+            return out
+
+        base, more = executions(self.collectives), executions(step.collectives)
         cols = [(*k, lin(base.get(k, 0.0), more.get(k, 0.0)))
                 for k in {**base, **more}]
         by_comp = {}
@@ -229,15 +238,34 @@ def _ring_bytes(op: str, result_bytes: int, g: int) -> float:
     return rl.CollectiveOp(op, result_bytes, g, "").link_bytes
 
 
+def _group_size(group_name, n_devices: int) -> int:
+    """The size of the process group a functional collective names; the
+    whole world when the name resolves to no group of this process (a
+    graph traced elsewhere)."""
+    import torch.distributed as dist
+
+    if not isinstance(group_name, str) or not dist.is_initialized():
+        return n_devices
+    try:
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        return int(_resolve_process_group(group_name).size())
+    except (KeyError, ValueError, RuntimeError):
+        return n_devices
+
+
 def _collective(node: torch.fx.Node, name: str, n_devices: int
                 ) -> Optional[tuple]:
-    """(op, result bytes, group size) of a functional collective."""
+    """(op, result bytes, group size) of a functional collective, its group
+    size read from the group it names (its last argument): an all-reduce
+    over a 16-rank ``model`` axis of a 256-rank mesh spans 16 ranks, the
+    reference's "true replica-group size"."""
     op = _COLLECTIVES.get(name)
     if op is None:
         return None
-    g = n_devices
     if name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
         g = int(node.args[-2])
+    else:
+        g = _group_size(node.args[-1], n_devices)
     return op, _bytes(_val(node)), g
 
 
@@ -620,10 +648,14 @@ class _Recorder(TorchDispatchMode):
         self.seen.append(t)
 
     def placeholder(self, t, name: str):
+        if isinstance(t, _DTensor):
+            t = t._local_tensor           # the rank's shard is its argument
         if isinstance(t, torch.Tensor):
             self._track(t, self.graph.placeholder(name))
 
     def node(self, x):
+        if isinstance(x, _DTensor):
+            x = x._local_tensor
         if not isinstance(x, torch.Tensor):
             return x
         if id(x) not in self.node_of:      # a tensor made outside the trace
@@ -632,6 +664,10 @@ class _Recorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, _DTensor) for t in types):
+            # a DTensor op: let DTensor run it; the local ops and the
+            # collectives it makes come back here, one rank's program
+            return NotImplemented
         out = func(*args, **kwargs)
         node = self.graph.call_function(
             func, *pytree.tree_map(self.node, (args, kwargs)))
@@ -658,7 +694,11 @@ def lower(fn, *args, scope_root: Optional[torch.nn.Module] = None
     scopes.
 
     A dispatch mode records the ops as they run (a quarter of ``make_fx``'s
-    time); a program with a higher-order op (a ``scan``), which the mode
+    time); an op on DTensors is left to DTensor, whose local ops and
+    collectives it records, so a sharded program's graph is one rank's,
+    with the local shards as its arguments (DTensor's sharding propagation
+    also runs ops, on fake tensors, the first time it meets an op's
+    shapes: trace such a program once before the trace that counts); a program with a higher-order op (a ``scan``), which the mode
     has no rule for, is traced by ``make_fx`` in fake mode,
     as a non-strict tracing session so that a selective activation
     checkpoint recomputes what its policy does not save, as it does
@@ -668,11 +708,13 @@ def lower(fn, *args, scope_root: Optional[torch.nn.Module] = None
     from torch._guards import detect_fake_mode
 
     stack: list = []
+    local = [a._local_tensor if isinstance(a, _DTensor) else a for a in args]
+    mode = detect_fake_mode(local)
     rec = _Recorder(stack)
     for i, a in enumerate(args):
         rec.placeholder(a, f"arg_{i}")
     # fake inputs: their mode makes the tensors the program creates fake too
-    fake = detect_fake_mode(args) or contextlib.nullcontext()
+    fake = mode or contextlib.nullcontext()
     try:
         with _module_scopes(scope_root, stack), fake, rec:
             out = pytree.tree_leaves(fn(*args))

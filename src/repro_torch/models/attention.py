@@ -12,9 +12,10 @@ the ``attend`` dispatcher.
 ``_flash`` ``custom_vjp`` as a ``torch.autograd.Function``: its forward
 saves (q, k, v, out, logsumexp) and its backward recomputes the
 probabilities chunk by chunk, so no (Sq, chunk) score tensor is kept for
-the backward.  The reference's sharding constraints, its ``shard_map`` over
-flattened heads and its padding of B*H to the mesh wait for the mesh
-(``ROADMAP.md`` queue 1 item 10).
+the backward.  Under a mesh's rules it runs ``_Flash`` on each rank's
+(batch, head) rows inside ``local_map``, so attention has no collective
+but the closing gather of its heads; the score tensors of
+``attend_naive`` are pinned by ``_score_axes``, as in the reference.
 
 :class:`Attention` is the submodule the export frontend isolates as the
 attention site.  It takes exactly (q, k, v) after RoPE and qk-norm, with K
@@ -33,10 +34,12 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.plan import ExecPlan
+from repro_torch.runtime.pspec import (axis_all_gather, axis_index,
+                                       constrain, current_rules, local_map)
 
 __all__ = ["Attention", "KVCache", "NEG_INF", "attend", "attend_chunked",
            "attend_decode", "attend_local_banded", "attend_naive",
-           "attn_init", "cache_update", "project_kv", "project_q",
+           "attn_init", "cache_axes", "cache_update", "project_kv", "project_q",
            "project_qkv"]
 
 NEG_INF = -1e30
@@ -131,6 +134,32 @@ def project_qkv(x: torch.Tensor, blk: nn.Module, cfg, plan: ExecPlan,
     return q, k, v
 
 
+def cache_axes(n_kv_heads: int) -> tuple:
+    """Logical axes of a (B, Sc, Hkv, D) KV-cache entry: heads over
+    ``model`` when they divide it, else the cache sequence (what
+    ``runtime.sharding._axes_for_state`` gives, so a prefill's caches need
+    no reshard)."""
+    rules = current_rules()
+    if rules is None:
+        return ("batch", None, "kv_heads", None)
+    if n_kv_heads % rules.axis_sizes.get("model", 1) == 0:
+        return ("batch", None, "kv_heads", None)
+    return ("batch", "kv_seq", None, None)
+
+
+def _score_axes(n_heads: int) -> tuple:
+    """Sharding of (B, H, Sq, ...) score-like tensors: heads over
+    ``model`` when divisible, else sequence-parallel on Sq; the
+    reference's, whose table has no ``heads`` entry (so heads resolve to
+    unsharded)."""
+    rules = current_rules()
+    if rules is None:
+        return ("batch", "heads", None)
+    if n_heads % rules.axis_sizes.get("model", 1) == 0:
+        return ("batch", "heads", None)
+    return ("batch", None, "seq_sp")
+
+
 def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     """(B,S,Hq,D) -> (B,S,Hkv,G,D)."""
     b, s, hq, d = q.shape
@@ -165,12 +194,14 @@ def attend_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype."""
     hq, hd = q.shape[2], q.shape[3]
     group = hq // k.shape[2]
-    qh = q.transpose(1, 2)
+    ax = _score_axes(hq)
+    qh = constrain(q.transpose(1, 2), ax[0], ax[1], ax[2], None)
     kh = _repeat_kv(k, group).transpose(1, 2)
     vh = _repeat_kv(v, group).transpose(1, 2)
     scores = torch.matmul(L.cast(qh, torch.float32),
                           L.cast(kh, torch.float32).transpose(-1, -2))
-    scores = scores * (1.0 / math.sqrt(hd))
+    scores = constrain(scores * (1.0 / math.sqrt(hd)),
+                       ax[0], ax[1], ax[2], None)
     scores = torch.where(_mask(pos_q, pos_k, causal, window), scores, NEG_INF)
     probs = L.cast(torch.softmax(scores, dim=-1), L.cdtype(plan))
     return torch.matmul(probs, L.cast(vh, probs.dtype)).transpose(1, 2)
@@ -271,6 +302,18 @@ def _flash(q, k, v, causal: bool, window: int, ck: int,
     return _flash_fwd(q, k, v, causal, window, ck, out_dtype, sk_valid)[0]
 
 
+def _flash_heads(q, kh, vh, causal: bool, window: int, ck: int,
+                 out_dtype: torch.dtype, sk: int) -> torch.Tensor:
+    """:func:`_flash` over (B, S, H, D) operands, heads flattened to (B*H,
+    S, D) and back."""
+    b, sq, hq, hd = q.shape
+    qf = q.transpose(1, 2).reshape(b * hq, sq, hd)
+    kf = kh.transpose(1, 2).reshape(b * hq, -1, hd)
+    vf = vh.transpose(1, 2).reshape(b * hq, -1, hd)
+    out = _flash(qf, kf, vf, causal, window, ck, out_dtype, sk)
+    return out.reshape(b, hq, sq, hd).transpose(1, 2)
+
+
 def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    pos_q: torch.Tensor, pos_k: torch.Tensor, causal: bool,
                    window: int, plan: ExecPlan) -> torch.Tensor:
@@ -279,7 +322,17 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     full-sequence caller); a ragged last chunk is padded and its padded
     keys masked, as in the reference.  K and V are repeated to the query
     heads before the flattening, so autograd of the repeat sums each
-    group's dk/dv."""
+    group's dk/dv.
+
+    Under a mesh's rules the (B, H) rows split over the whole mesh, as the
+    reference's ``shard_map`` over flattened (B*H) does, with no
+    collective inside attention: in a local body, B by the batch axes and
+    H by ``model`` (each rank its block of ceil(H / model) heads, the last
+    ones padded with nothing to compute, where the reference pads B*H to
+    the mesh); the output heads are all-gathered over ``model``, which
+    the reference's closing ``constrain`` does.  No DTensor reshapes a
+    sharded dim here (torch 2.11's DTensor refuses some of those
+    reshapes' backward)."""
     b, sq, hq, hd = q.shape
     sk = k.shape[1]
     group = hq // k.shape[2]
@@ -289,11 +342,32 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if pad:
         kh = torch.nn.functional.pad(kh, (0, 0, 0, 0, 0, pad))
         vh = torch.nn.functional.pad(vh, (0, 0, 0, 0, 0, pad))
-    qf = q.transpose(1, 2).reshape(b * hq, sq, hd)
-    kf = kh.transpose(1, 2).reshape(b * hq, -1, hd)
-    vf = vh.transpose(1, 2).reshape(b * hq, -1, hd)
-    out = _flash(qf, kf, vf, causal, window, ck, L.cdtype(plan), sk)
-    return out.reshape(b, hq, sq, hd).transpose(1, 2)
+    # anchor the entry and the exit on the TP-natural head sharding
+    hax = _score_axes(hq)[1]
+    q = constrain(q, "batch", None, hax, None)
+    kh = constrain(kh, "batch", None, hax, None)
+    vh = constrain(vh, "batch", None, hax, None)
+    dtype = L.cdtype(plan)
+    rules = current_rules()
+    if rules is None:
+        return _flash_heads(q, kh, vh, causal, window, ck, dtype, sk)
+    m = rules.axis_sizes.get("model", 1)
+    per = -(-hq // m)
+
+    def body(qi, ki, vi):
+        lo = (axis_index("model") if m > 1 else 0) * per
+        hi = min(lo + per, hq)
+        out = _flash_heads(qi[:, :, lo:hi], ki[:, :, lo:hi], vi[:, :, lo:hi],
+                           causal, window, ck, dtype, sk)
+        if hi - lo < per:                      # the padding heads: nothing
+            out = torch.nn.functional.pad(out, (0, 0, 0, per - (hi - lo)))
+        if m > 1:
+            out = axis_all_gather(out, "model", 2)[:, :, :hq]
+        return out
+
+    spec = (rules.resolve("batch", b), None, None, None)
+    out = local_map(body, (spec, spec, spec), spec, q, kh, vh)
+    return constrain(out, "batch", None, hax, None)
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +388,7 @@ def attend_local_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attend_chunked(q, k, v, pos_q, pos_k, True, window, plan)
     n = sq // w
     qc = _group(q, nkv).reshape(b, n, w, nkv, hq // nkv, hd)
+    qc = constrain(qc, "batch", "seq_sp", None, None, None, None)  # SP chunks
     kc = k.reshape(b, n, w, nkv, hd)
     vc = v.reshape(b, n, w, nkv, hd)
     k_prev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)

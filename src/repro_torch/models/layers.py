@@ -9,8 +9,11 @@ Every layer has a ``ref`` implementation and, where the reference has one,
 an offloaded form the :class:`~repro_torch.models.plan.ExecPlan` selects.
 Matrix products run in the plan's compute dtype (:func:`cdtype`), with
 each weight cast at its use as in the reference; norms keep f32 statistics.
-The reference's sharding constraints (``_ff_constrain``, ``constrain``)
-have no single-device counterpart and are left out.
+The reference's sharding constraints (``_ff_constrain``) redistribute
+DTensors under a mesh's rules and are the identity without one; a DTensor
+embedding table is looked up, and the chunked loss computed
+sequence-parallel, by local bodies (:func:`_embed_sharded`,
+:func:`_cross_entropy_sharded`).
 
 Casts to the dtype a tensor already has are skipped: under ``torch.export``
 a no-op ``.float()`` returns the same tensor, and later uses of the input
@@ -28,7 +31,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch._higher_order_ops.scan import scan
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.models.plan import REFERENCE_PLAN, ExecPlan
+from repro_torch.runtime.pspec import (axis_all_gather, axis_index,
+                                       axis_sizes, axis_sum, constrain,
+                                       current_rules, local_map,
+                                       placements_spec)
 
 __all__ = ["LayerNorm", "RMSNorm", "apply_rope", "cast", "cdtype",
            "cross_entropy_chunked", "cross_entropy_full", "dense_init",
@@ -195,13 +204,21 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def _ff_constrain(h: torch.Tensor) -> torch.Tensor:
+    """Pin the (..., ff) hidden to TP-column sharding, so that the (small)
+    ``w_down`` weight is gathered, never the (large) activation, and no
+    ``Partial`` sum is carried into it.  (B,S,ff) for dense layers, (T,ff)
+    for the shared-expert path; the identity without a mesh."""
+    return constrain(h, "batch", *(None,) * (h.dim() - 2), "tensor")
+
+
 def mlp_ref(x: torch.Tensor, p: Mapping[str, torch.Tensor], act: str,
             plan: ExecPlan) -> torch.Tensor:
     """Reference: three separate matmuls, (in, out) weights."""
     dt = cdtype(plan)
-    g = x @ cast(p["w_gate"], dt)
-    u = x @ cast(p["w_up"], dt)
-    return (_act(g, act) * u) @ cast(p["w_down"], dt)
+    g = _ff_constrain(x @ cast(p["w_gate"], dt))
+    u = _ff_constrain(x @ cast(p["w_up"], dt))
+    return _ff_constrain(_act(g, act) * u) @ cast(p["w_down"], dt)
 
 
 def mlp_fused(x: torch.Tensor, p: Mapping[str, torch.Tensor], act: str,
@@ -210,7 +227,8 @@ def mlp_fused(x: torch.Tensor, p: Mapping[str, torch.Tensor], act: str,
     dt = cdtype(plan)
     wgu = cast(torch.cat([p["w_gate"], p["w_up"]], dim=1), dt)
     g, u = torch.chunk(x @ wgu, 2, dim=-1)
-    return (_act(g, act) * u) @ cast(p["w_down"], dt)
+    return _ff_constrain(_act(_ff_constrain(g), act) * _ff_constrain(u)) \
+        @ cast(p["w_down"], dt)
 
 
 def mlp(x: torch.Tensor, p: Mapping[str, torch.Tensor], act: str,
@@ -225,9 +243,46 @@ def mlp(x: torch.Tensor, p: Mapping[str, torch.Tensor], act: str,
 # ---------------------------------------------------------------------------
 
 
+def _axes_of(entry) -> tuple:
+    """The mesh axes of one ``PartitionSpec`` entry."""
+    return () if entry is None else ((entry,) if isinstance(entry, str)
+                                     else tuple(entry))
+
+
+def _embed_sharded(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The lookup of a table that is a DTensor, under the rules' mesh: a
+    local body that gathers the table's feature dim, looks up the tokens
+    that fall in its vocab rows (zeros for the rest) and sums over the
+    vocab axes.  DTensor's own strategy (a masked partial) does not survive
+    a batch-sharded lookup of a vocab- and FSDP-sharded table."""
+    mesh = table.device_mesh
+    tspec = placements_spec(mesh, table.placements, 2)
+    bspec = current_rules().pspec(tuple(tokens.shape),
+                                  ("batch",) + (None,) * (tokens.dim() - 1))
+    sizes = axis_sizes(mesh)
+    v_axes, d_axes = _axes_of(tspec[0]), _axes_of(tspec[1])
+
+    def body(tok, tab):
+        for a in reversed(d_axes):
+            tab = axis_all_gather(tab, a, 1)
+        vl, off = tab.shape[0], 0
+        for a in v_axes:
+            off = off * sizes[a] + axis_index(a)
+        rel = tok.long() - off * vl
+        hit = (rel >= 0) & (rel < vl)
+        out = F.embedding(rel.clamp(0, vl - 1), tab) * hit[..., None]
+        return axis_sum(out, v_axes)
+
+    return local_map(body, (bspec, tspec), bspec + (None,), tokens, table)
+
+
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, plan: ExecPlan,
                  scale: bool) -> torch.Tensor:
-    x = cast(F.embedding(tokens, table), cdtype(plan))
+    if current_rules() is not None and isinstance(table, DTensor):
+        looked = _embed_sharded(tokens, table)
+    else:
+        looked = F.embedding(tokens, table)
+    x = cast(looked, cdtype(plan))
     if scale:   # sqrt(d) rounded to the compute dtype first, as jnp does
         x = x * torch.full((), math.sqrt(table.shape[1]), dtype=x.dtype,
                            device=x.device)
@@ -250,13 +305,81 @@ def cross_entropy_full(logits: torch.Tensor,
     return -torch.gather(lp, -1, labels[..., None].long())[..., 0]
 
 
+def _online_ce(h, blocks, labels, softcap: float) -> torch.Tensor:
+    """Per-token logsumexp minus the label logit over vocab blocks: each
+    ``(rows (parts * width, d), first vocab id of each part (parts,),
+    width)`` of ``blocks`` is ``parts`` runs of ``width`` consecutive vocab
+    rows.  Never the f32 (B,S,V) tensor."""
+    labels = labels.long()
+    m = torch.full(labels.shape, -math.inf, device=h.device)
+    ssum = torch.zeros(labels.shape, device=h.device)
+    lbl_logit = torch.zeros(labels.shape, device=h.device)
+    for rows, col0, width in blocks:
+        lg = cast(h @ cast(rows, h.dtype).T, torch.float32)   # (B,S,n)
+        if softcap > 0:
+            lg = torch.tanh(lg / softcap) * softcap
+        new_m = torch.maximum(m, lg.amax(dim=-1))
+        ssum = ssum * torch.exp(m - new_m) \
+            + torch.exp(lg - new_m[..., None]).sum(dim=-1)
+        m = new_m
+        # column j of the block is vocab id col0[j // width] + j % width
+        rel = labels[..., None] - col0
+        hit = (rel >= 0) & (rel < width)                     # (B,S,parts)
+        part = hit.float().argmax(-1)
+        idx = part * width + torch.gather(
+            rel, -1, part[..., None])[..., 0].clamp(0, width - 1)
+        picked = torch.gather(lg, -1, idx[..., None])[..., 0]
+        lbl_logit = torch.where(hit.any(-1), picked, lbl_logit)
+    return m + torch.log(ssum) - lbl_logit
+
+
+def _cross_entropy_sharded(h, table, labels, plan: ExecPlan,
+                           softcap: float) -> torch.Tensor:
+    """The chunked loss under a mesh, in a local body: the hidden states
+    and labels sequence-parallel over ``model`` (the reference's
+    ``constrain(h, "batch", "seq_sp", None)``), and each step all-gathers
+    one block of every vocab shard's rows (the table's FSDP dim gathered
+    once), so a rank's logits are (its rows, the block) and the label
+    gather stays local.  DTensor's own matmul over these placements
+    searches its strategies for minutes on a three-axis mesh."""
+    rules = current_rules()
+    mesh = table.device_mesh
+    sizes = axis_sizes(mesh)
+    tspec = placements_spec(mesh, table.placements, 2)
+    v_axes, d_axes = _axes_of(tspec[0]), _axes_of(tspec[1])
+    hspec = rules.pspec(tuple(h.shape), ("batch", "seq_sp", None))
+    lspec = rules.pspec(tuple(labels.shape), ("batch", "seq_sp"))
+    n_shards = math.prod(sizes[a] for a in v_axes)
+    width_of = -(-min(plan.loss_vocab_chunk, table.shape[0]) // n_shards)
+
+    def body(h_loc, tab, lab):
+        for a in reversed(d_axes):
+            tab = axis_all_gather(tab, a, 1)
+        vl = tab.shape[0]
+        ranks = torch.arange(n_shards, device=tab.device)
+
+        def blocks():
+            for c0 in range(0, vl, width_of):
+                piece = tab[c0:c0 + width_of]
+                for a in reversed(v_axes):
+                    piece = axis_all_gather(piece, a, 0)
+                yield piece, ranks * vl + c0, min(width_of, vl - c0)
+
+        return _online_ce(h_loc, blocks(), lab, softcap)
+
+    return local_map(body, (hspec, tspec, lspec), lspec, h, table, labels)
+
+
 def cross_entropy_chunked(h: torch.Tensor, table: torch.Tensor,
                           labels: torch.Tensor, plan: ExecPlan,
                           softcap: float) -> torch.Tensor:
     """Memory-lean loss: logsumexp and the label logit over vocab chunks of
     ``plan.loss_vocab_chunk`` rows, never the f32 (B,S,V) tensor.  The last
     chunk may be ragged: it is the table's remaining rows (the reference
-    pads it with columns masked to -inf, which add nothing)."""
+    pads it with columns masked to -inf, which add nothing).  Under a
+    mesh, with a DTensor table, :func:`_cross_entropy_sharded`."""
+    if current_rules() is not None and isinstance(table, DTensor):
+        return _cross_entropy_sharded(h, table, labels, plan, softcap)
     v = table.shape[0]
     chunk = min(plan.loss_vocab_chunk, v)
     labels = labels.long()

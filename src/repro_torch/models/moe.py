@@ -7,11 +7,11 @@ Two region implementations (``ExecPlan.moe_impl``), as in the reference:
   one-hot gate zeroes the rest (``moe_dense``);
 * ``scatter_ep``   -- top-k routing, capacity-limited dispatch into
   per-expert (E, C, d) buffers, batched expert matmuls, weighted combine
-  (``moe_scatter``).  The reference's ``shard_map`` body
-  (``moe_scatter_ep_sharded``) returns ``None`` when no mesh applies and
-  ``moe_block`` then takes ``moe_scatter``; the port has no mesh, so
-  ``moe_block`` takes ``moe_scatter`` (the sharded body waits for
-  ``ROADMAP.md`` queue 1 item 10).
+  (``moe_scatter``).  Under a mesh's rules ``scatter_ep`` takes the
+  expert-parallel body (``moe_scatter_ep_sharded``: local dispatch, two
+  all-to-alls over ``model``, the aux losses averaged over the token
+  axes, inside ``local_map``); it returns ``None`` when no mesh applies
+  and ``moe_block`` then takes ``moe_scatter``, as in the reference.
 
 The router is the submodule :class:`Router`, so the export frontend
 isolates it as a region and a forward hook can read each layer's top-k
@@ -45,7 +45,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.plan import ExecPlan
 
 __all__ = ["MoE", "MoEAux", "Router", "moe_block", "moe_dense", "moe_init",
-           "moe_scatter"]
+           "moe_scatter", "moe_scatter_ep_sharded"]
 
 
 class MoEAux(NamedTuple):
@@ -124,6 +124,50 @@ def moe_dense(x2d: torch.Tensor, p: Mapping, router: Router, cfg,
     return out + _shared(x2d, p, cfg, plan), aux
 
 
+def _dispatch(x: torch.Tensor, idx: torch.Tensor, n_experts: int,
+              cap: int) -> tuple:
+    """Capacity-limited dispatch of ``x`` (T, d) by ``idx`` (T, k): (the
+    (E, cap, d) buffers, each assignment's expert, its within-expert rank,
+    whether it was kept).  Slot c of expert e gathers e's c-th assignment
+    in token order (a stable sort), when it has that many."""
+    t, k = idx.shape
+    n, dev = t * k, x.device
+    e_flat = idx.reshape(-1)                                    # (N,)
+    tok_flat = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
+    order = torch.argsort(e_flat, stable=True)
+    counts = _one_hot(e_flat, n_experts).sum(0).long()          # (E,)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(e_flat)
+    rank[order] = torch.arange(n, device=dev) - starts[e_flat[order]]
+    slot = torch.arange(cap, device=dev)
+    filled = slot[None, :] < counts[:, None]                    # (E, C)
+    src = order[torch.clamp(starts[:, None] + slot[None, :], max=n - 1)]
+    xb = torch.where(filled[..., None], x[tok_flat[src]],
+                     torch.zeros((), dtype=x.dtype, device=dev))
+    return xb, e_flat, rank, rank < cap
+
+
+def _combine(yb: torch.Tensor, e_flat: torch.Tensor, rank: torch.Tensor,
+             keep: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """Each token's kept experts' rows of ``yb`` (E, cap, d), weighted by
+    its gates (T, k) and summed (no atomics: the same bits every run)."""
+    t, k = gates.shape
+    cap, dt = yb.shape[1], yb.dtype
+    gathered = torch.where(keep[:, None],
+                           yb[e_flat, torch.clamp(rank, 0, cap - 1)],
+                           torch.zeros((), dtype=dt, device=yb.device))
+    weighted = gathered * L.cast(gates.reshape(-1), dt)[:, None]
+    return weighted.reshape(t, k, yb.shape[2]).sum(1)
+
+
+def _experts(xb: torch.Tensor, wg, wu, wd, cfg, dt) -> torch.Tensor:
+    """The batched expert FFN: (E, C, d) x (E, d, ff) -> (E, C, d)."""
+    g = torch.einsum("ecd,edf->ecf", xb, L.cast(wg, dt))
+    u = torch.einsum("ecd,edf->ecf", xb, L.cast(wu, dt))
+    h = L._act(g, _expert_act(cfg)) * u
+    return torch.einsum("ecf,efd->ecd", h, L.cast(wd, dt))
+
+
 def moe_scatter(x2d: torch.Tensor, p: Mapping, router: Router, cfg,
                 plan: ExecPlan) -> tuple:
     """Capacity-limited dispatch: each expert takes its first ``cap``
@@ -131,45 +175,99 @@ def moe_scatter(x2d: torch.Tensor, p: Mapping, router: Router, cfg,
     FFN, and each token sums its kept experts' outputs by gate."""
     e = cfg.moe
     dt = L.cdtype(plan)
-    t, d = x2d.shape
+    t = x2d.shape[0]
     gates, idx, aux = router(x2d)
-
-    n = t * e.top_k
     cap = int(max(1, (t * e.top_k / e.n_experts) * e.capacity_factor))
-    dev = x2d.device
-    e_flat = idx.reshape(-1)                                    # (N,)
-    tok_flat = torch.arange(t, device=dev)[:, None].expand(
-        t, e.top_k).reshape(-1)
-    gate_flat = gates.reshape(-1)
-
-    # within-expert rank via a stable sort (dropless up to capacity)
-    order = torch.argsort(e_flat, stable=True)
-    counts = _one_hot(e_flat, e.n_experts).sum(0).long()        # (E,)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.empty_like(e_flat)
-    rank[order] = torch.arange(n, device=dev) - starts[e_flat[order]]
-    keep = rank < cap
-
-    # (E, C, d): slot c of expert e gathers e's c-th assignment
-    slot = torch.arange(cap, device=dev)
-    filled = slot[None, :] < counts[:, None]                    # (E, C)
-    src = order[torch.clamp(starts[:, None] + slot[None, :], max=n - 1)]
-    xb = torch.where(filled[..., None], L.cast(x2d, dt)[tok_flat[src]],
-                     torch.zeros((), dtype=dt, device=dev))
-
-    # batched expert FFN: (E, C, d) x (E, d, ff)
-    g = torch.einsum("ecd,edf->ecf", xb, L.cast(p["w_gate"], dt))
-    u = torch.einsum("ecd,edf->ecf", xb, L.cast(p["w_up"], dt))
-    h = L._act(g, _expert_act(cfg)) * u
-    yb = torch.einsum("ecf,efd->ecd", h, L.cast(p["w_down"], dt))
-
-    # combine: gather back, weight, and sum each token's k rows
-    rank_c = torch.clamp(rank, 0, cap - 1)
-    gathered = torch.where(keep[:, None], yb[e_flat, rank_c],
-                           torch.zeros((), dtype=dt, device=dev))
-    weighted = gathered * L.cast(gate_flat, dt)[:, None]
-    out = weighted.reshape(t, e.top_k, d).sum(1)
+    xb, e_flat, rank, keep = _dispatch(L.cast(x2d, dt), idx, e.n_experts, cap)
+    yb = _experts(xb, p["w_gate"], p["w_up"], p["w_down"], cfg, dt)
+    out = _combine(yb, e_flat, rank, keep, gates)
     return out + _shared(x2d, p, cfg, plan), aux
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism under the mesh: each rank routes its own tokens into
+# (E, C_loc, d) buffers, an all-to-all over ``model`` swaps expert-major and
+# rank-major, the local experts run, a second all-to-all returns, and each
+# rank combines locally.  FSDP'd expert weights are all-gathered explicitly
+# inside (the per-layer gather: the paper's transfer-hoisting knob, made
+# explicit), as in the reference.
+# ---------------------------------------------------------------------------
+
+
+def _moe_ep_body(x_loc, wr, wg, wu, wd, *, cfg, plan: ExecPlan,
+                 t_axes: tuple, fsdp: dict):
+    from repro_torch.runtime.pspec import (axis_all_gather, axis_all_to_all,
+                                           axis_mean)
+
+    e = cfg.moe
+    dt = L.cdtype(plan)
+    tl = x_loc.shape[0]
+    # FSDP gathers: each weight's dim that enters sharded over "data"
+    wr, wg, wu, wd = (axis_all_gather(w, "data", fsdp[i]) if fsdp[i] is not
+                      None else w for i, w in enumerate((wr, wg, wu, wd)))
+    logits = L.cast(x_loc, torch.float32) @ L.cast(wr, torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, e.top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    cap = int(max(1, (tl * e.top_k / e.n_experts) * e.capacity_factor))
+    buf, e_flat, rank, keep = _dispatch(L.cast(x_loc, dt), idx, e.n_experts,
+                                        cap)
+    # expert-major <-> rank-major (the EP all-to-all over "model")
+    xb = axis_all_to_all(buf, "model", 0, 1)                   # (E_loc, m*C, d)
+    yb = axis_all_to_all(_experts(xb, wg, wu, wd, cfg, dt), "model", 1, 0)
+    y = _combine(yb, e_flat, rank, keep, gates)
+    # aux losses: global means, a mean over every token axis
+    density = _one_hot(idx, e.n_experts).mean(dim=(0, 1))
+    lb = e.n_experts * torch.sum(axis_mean(density, t_axes)
+                                 * axis_mean(probs.mean(dim=0), t_axes))
+    z = axis_mean(torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
+                  t_axes)
+    return y, lb, z
+
+
+def moe_scatter_ep_sharded(x2d: torch.Tensor, p: Mapping, router: Router,
+                           cfg, plan: ExecPlan) -> Optional[tuple]:
+    """The expert-parallel path under the active rules' mesh: tokens over
+    every mesh axis that divides them (``model`` among them), experts over
+    ``model``.  Returns None when the mesh does not apply (no rules, no
+    ``model`` or ``data`` axis, experts or tokens that do not divide, or
+    fewer local tokens than experts), as the reference does."""
+    import math
+
+    from repro_torch.runtime.pspec import (current_rules, dividing_axes,
+                                           local_map)
+
+    rules = current_rules()
+    if rules is None:
+        return None
+    sizes = rules.axis_sizes
+    msize = sizes.get("model", 1)
+    if msize <= 1 or "data" not in sizes:
+        return None
+    if cfg.moe.n_experts % msize != 0:
+        return None
+    t = x2d.shape[0]
+    t_axes = dividing_axes(t, (("pod", "data", "model"), ("data", "model")))
+    if "model" not in t_axes:
+        return None
+    if t // math.prod(sizes[a] for a in t_axes) < cfg.moe.n_experts:
+        return None           # a degenerate local dispatch
+    ws = (router.weight, p["w_gate"], p["w_up"], p["w_down"])
+    w_axes = (("fsdp", None), ("experts", "fsdp", None),
+              ("experts", "fsdp", None), ("experts", None, "fsdp"))
+    w_specs = tuple(rules.pspec(tuple(w.shape), a)
+                    for w, a in zip(ws, w_axes))
+    fsdp = tuple(next((d for d, s in enumerate(spec) if s == "data"), None)
+                 for spec in w_specs)
+    tspec = (t_axes if len(t_axes) > 1 else t_axes[0], None)
+
+    def body(x_loc, wr, wg, wu, wd):
+        return _moe_ep_body(x_loc, wr, wg, wu, wd, cfg=cfg, plan=plan,
+                            t_axes=t_axes, fsdp=fsdp)
+
+    y, lb, z = local_map(body, (tspec,) + w_specs, [tspec, (), ()],
+                         x2d, *ws)
+    return y, MoEAux(lb, z)
 
 
 def _shared(x2d: torch.Tensor, p: Mapping, cfg, plan: ExecPlan):
@@ -183,8 +281,15 @@ def moe_block(x: torch.Tensor, p: Mapping, router: Router, cfg,
     """x: (B,S,d) -> (B,S,d), :class:`MoEAux`."""
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
-    fn = moe_scatter if plan.moe_impl == "scatter_ep" else moe_dense
-    y, aux = fn(x2d, p, router, cfg, plan)
+    if plan.moe_impl == "scatter_ep":
+        out = moe_scatter_ep_sharded(x2d, p, router, cfg, plan)
+        if out is not None:
+            y, aux = out
+            y = y + _shared(x2d, p, cfg, plan)
+        else:
+            y, aux = moe_scatter(x2d, p, router, cfg, plan)
+    else:
+        y, aux = moe_dense(x2d, p, router, cfg, plan)
     return y.reshape(b, s, d), aux
 
 

@@ -161,12 +161,10 @@ def _scan_chunked(log_a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     return torch.cat(outs, dim=1), h
 
 
-def rglru_scan(log_a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
-               plan: ExecPlan, recurrence: LinearRecurrence
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, D) coefficients from ``h0`` (B, D; zeros when None) -> (states
-    (B, S, D), last state (B, D)) by the plan's ``rglru_impl``; ``step`` runs
-    ``recurrence`` over time-major views."""
+def _rglru_scan_local(log_a: torch.Tensor, b: torch.Tensor,
+                      h0: Optional[torch.Tensor], plan: ExecPlan,
+                      recurrence: LinearRecurrence) -> tuple:
+    """The plan's ``rglru_impl`` on (B, S, D) coefficients."""
     if plan.rglru_impl == "step":
         hs, h_last = recurrence(log_a.transpose(0, 1), b.transpose(0, 1), h0)
         return hs.transpose(0, 1), h_last
@@ -178,6 +176,34 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
     if plan.rglru_impl == "chunked":
         return _scan_chunked(log_a, b, h0, plan.rglru_chunk)
     raise ValueError(f"unknown rglru_impl {plan.rglru_impl!r}")
+
+
+def rglru_scan(log_a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
+               plan: ExecPlan, recurrence: LinearRecurrence
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, D) coefficients from ``h0`` (B, D; zeros when None) -> (states
+    (B, S, D), last state (B, D)) by the plan's ``rglru_impl``; ``step`` runs
+    ``recurrence`` over time-major views.  Channels are independent: under
+    a mesh's rules the scan runs on each rank's shard inside ``local_map``
+    (B over ``(pod, data)``, channels over ``model``), as the reference's
+    ``shard_map`` does, so nothing reshards mid-scan."""
+    from repro_torch.runtime.pspec import dividing_axes, local_map
+
+    bsz, _, dr = log_a.shape
+    b_axes = dividing_axes(bsz, (("pod", "data"), ("data",)))
+    d_axes = dividing_axes(dr, (("model",),))
+    if not b_axes and not d_axes:
+        return _rglru_scan_local(log_a, b, h0, plan, recurrence)
+    bspec = b_axes if len(b_axes) > 1 else (b_axes[0] if b_axes else None)
+    dspec = d_axes[0] if d_axes else None
+    s3, s2 = (bspec, None, dspec), (bspec, dspec)
+    if h0 is None:
+        return local_map(
+            lambda la, bb: _rglru_scan_local(la, bb, None, plan, recurrence),
+            (s3, s3), [s3, s2], log_a, b)
+    return local_map(
+        lambda la, bb, h: _rglru_scan_local(la, bb, h, plan, recurrence),
+        (s3, s3, s2), [s3, s2], log_a, b, h0)
 
 
 # --- conv1d (causal depthwise) ----------------------------------------------

@@ -18,8 +18,9 @@ Region implementations (``ExecPlan.wkv_impl``), as in the reference:
 
 Either scan runs inside the submodule :class:`WKVRecurrence`, so the
 export frontend isolates it as one ``loop`` region a layer (a prefill does
-not unroll its steps).  The reference's ``shard_map`` over (batch * head)
-reduces to the unsharded body without a mesh, which the port has not.
+not unroll its steps).  Under a mesh's rules the chunked form runs inside
+``local_map`` over (batch * head), as the reference's ``shard_map`` does,
+and the Finch lerp's (5 * R) projection is pinned whole before its split.
 The chunked body keeps the reference's split ``exp(cs_prev) * exp(-cs)``:
 it overflows f32 under strong decay over a chunk, a gap of the reference
 (``ROADMAP.md`` §3) kept as it is.
@@ -34,6 +35,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.plan import ExecPlan
+from repro_torch.runtime.pspec import constrain
 
 __all__ = ["F32_LEAVES", "RWKVState", "WKVRecurrence", "channel_mix",
            "rwkv_init", "time_mix", "wkv_chunked", "wkv_step_scan"]
@@ -99,6 +101,9 @@ def _ddlerp(x: torch.Tensor, sx: torch.Tensor, p: Mapping) -> tuple:
     dx = sx - x
     xxx = x + dx * L.cast(p["mu_base"], dt)
     z = torch.tanh(xxx @ L.cast(p["dd_w1"], dt))
+    # under a mesh the 5 * R dim is pinned whole first: its split into (5,
+    # R) cannot keep a shard over "model" (XLA reshards it implicitly)
+    z = constrain(z, "batch", None, None)
     z = z.reshape(*x.shape[:-1], 5, _DD_R)
     adj = torch.einsum("...fr,frd->...fd", z, L.cast(p["dd_w2"], dt))
     mix = L.cast(p["mu_rkvwg"], dt) + adj                       # (...,5,d)
@@ -175,11 +180,28 @@ def wkv_step_scan(r, k, v, log_w, u, s0, recurrence: WKVRecurrence) -> tuple:
     return ys.transpose(0, 1), s_t
 
 
-def wkv_chunked(r, k, v, log_w, u, s0, chunk: int,
-                recurrence: WKVRecurrence) -> tuple:
-    """The chunked form over flattened (batch * head) operands (the
-    reference's ``wkv_chunked`` without a mesh, ``_wkv_chunked_bh``
-    inside); the step form when ``chunk`` does not divide S."""
+def _wkv_chunked_bh(rf, kf, vf, lwf, uf, s0f, chunk: int,
+                    recurrence: WKVRecurrence) -> tuple:
+    """The chunked form on flattened (BH, S, D) operands (``uf`` (BH, D),
+    ``s0f`` (BH, D, D)), one scan; the step form when ``chunk`` does not
+    divide S.  Returns (y (BH, S, D), final state (BH, D, D))."""
+    bh, s, d = rf.shape
+    c = min(chunk, s)
+    if s % c != 0:
+        xs = tuple(a.transpose(0, 1) for a in (rf, kf, vf, lwf))
+        s_t, ys = recurrence(xs, uf, s0f)
+        return ys.transpose(0, 1), s_t
+    n = s // c
+    xs = tuple(a.reshape(bh, n, c, d).transpose(0, 1)
+               for a in (rf, kf, vf, lwf))             # (n, BH, c, D)
+    s_t, ys = recurrence(xs, uf, s0f, chunked=True)
+    return ys.transpose(0, 1).reshape(bh, s, d), s_t
+
+
+def _wkv_chunked_heads(r, k, v, log_w, u, s0, chunk: int,
+                       recurrence: WKVRecurrence) -> tuple:
+    """:func:`_wkv_chunked_bh` over (B, S, H, D) operands (u (H, D), s0
+    (B, H, D, D)), heads flattened to (B*H) and back."""
     b, s, h, d = r.shape
 
     def flat(a):                                  # (B,S,H,D) -> (BH,S,D)
@@ -188,19 +210,31 @@ def wkv_chunked(r, k, v, log_w, u, s0, chunk: int,
     rf, kf, vf, lwf = map(flat, (r, k, v, log_w))
     uf = u[None].expand(b, h, d).reshape(b * h, d)
     s0f = s0.reshape(b * h, d, d)
-    c = min(chunk, s)
-    if s % c != 0:
-        xs = tuple(a.transpose(0, 1) for a in (rf, kf, vf, lwf))
-        s_t, ys = recurrence(xs, uf, s0f)
-        yf = ys.transpose(0, 1)
-    else:
-        n = s // c
-        xs = tuple(a.reshape(b * h, n, c, d).transpose(0, 1)
-                   for a in (rf, kf, vf, lwf))         # (n, BH, c, D)
-        s_t, ys = recurrence(xs, uf, s0f, chunked=True)
-        yf = ys.transpose(0, 1).reshape(b * h, s, d)
-    y = yf.reshape(b, h, s, d).transpose(1, 2)
-    return y, s_t.reshape(b, h, d, d)
+    yf, s_t = _wkv_chunked_bh(rf, kf, vf, lwf, uf, s0f, chunk, recurrence)
+    return yf.reshape(b, h, s, d).transpose(1, 2), s_t.reshape(b, h, d, d)
+
+
+def wkv_chunked(r, k, v, log_w, u, s0, chunk: int,
+                recurrence: WKVRecurrence) -> tuple:
+    """The chunked form over flattened (batch * head) operands, the
+    reference's ``wkv_chunked``.  Heads are independent: under a mesh's
+    rules the scan runs on each rank's (batch, head) rows inside
+    ``local_map`` (B by the batch axes, H by ``model`` where it divides:
+    the reference's (B*H) rows over the mesh), with no collective and no
+    DTensor reshape of a sharded dim; unsharded without rules."""
+    from repro_torch.runtime.pspec import current_rules, local_map
+
+    rules = current_rules()
+    if rules is None:
+        return _wkv_chunked_heads(r, k, v, log_w, u, s0, chunk, recurrence)
+    b, _, h, _ = r.shape
+    hax = "model" if h % rules.axis_sizes.get("model", 1) == 0 else None
+    bax = rules.resolve("batch", b)
+    s4 = (bax, None, hax, None)
+    st = (bax, hax, None, None)
+    return local_map(
+        lambda *a: _wkv_chunked_heads(*a, chunk, recurrence),
+        (s4,) * 4 + ((hax, None), st), [s4, st], r, k, v, log_w, u, s0)
 
 
 # ---------------------------------------------------------------------------

@@ -33,8 +33,12 @@ writes each KV cache in place (the reference's donated state), returns new
 RG-LRU and RWKV states, and ``cache_len + 1``.  The enc-dec family lives
 in ``whisper.py``.  The plan's ``remat`` checkpoints each layer body
 where the reference's ``_maybe_remat`` does, whenever autograd records
-(:func:`_maybe_remat`); ``gather_mode`` and ``gather_dtype`` shape the
-reference's sharding and wait for the mesh.
+(:func:`_maybe_remat`).  Under a mesh's rules (``runtime/pspec.py``) the
+residual updates, the embeddings, the logits and the KV caches are
+``constrain``-ed as in the reference (the caches by ``cache_axes``, heads
+over ``model`` or else the cache sequence); without rules each is the
+identity.  ``gather_mode`` and ``gather_dtype`` shape the reference's XLA
+gathers and have no counterpart under DTensor.
 
 ``RMSNorm``, ``LayerNorm``, ``Attention``, the MoE's ``Router``, the
 RG-LRU's ``LinearRecurrence`` and RWKV's ``WKVRecurrence`` are
@@ -55,7 +59,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (Attention, KVCache, attend_decode,
-                                          attn_init, cache_update,
+                                          attn_init, cache_axes, cache_update,
                                           project_qkv)
 from repro_torch.models.moe import MoE
 from repro_torch.models.plan import ExecPlan
@@ -63,6 +67,7 @@ from repro_torch.models.rglru import (LinearRecurrence, RGLRUState,
                                       rglru_block, rglru_init)
 from repro_torch.models.rwkv import (RWKVState, WKVRecurrence, channel_mix,
                                      rwkv_init, time_mix)
+from repro_torch.runtime.pspec import axis_rules, constrain, current_rules
 
 __all__ = ["DenseBlock", "INIT_STD", "LMParams", "RWKVBlock",
            "RecurrentSublayer", "check_family", "decode_step",
@@ -97,6 +102,14 @@ def _dots_contexts():
     return contexts
 
 
+def _under_rules(fn, rules, *args, **kwargs):
+    """``fn`` under ``rules``: a checkpoint's recompute runs in the
+    backward, on the autograd engine's thread for the device (the card's
+    own thread), where the caller's thread-local rules are not."""
+    with axis_rules(rules):
+        return fn(*args, **kwargs)
+
+
 def _maybe_remat(fn, plan: ExecPlan):
     """``fn`` checkpointed under ``plan.remat`` while autograd records (the
     reference's ``_maybe_remat``): ``"none"`` keeps every activation,
@@ -105,6 +118,9 @@ def _maybe_remat(fn, plan: ExecPlan):
     as it is."""
     if plan.remat == "none" or not torch.is_grad_enabled():
         return fn
+    rules = current_rules()
+    if rules is not None:
+        fn = functools.partial(_under_rules, fn, rules)
     if plan.remat == "dots":
         return functools.partial(checkpoint, fn, use_reentrant=False,
                                  context_fn=_dots_contexts)
@@ -224,9 +240,10 @@ class DenseBlock(nn.Module):
         q, k, v = project_qkv(self.ln1(x, plan), self, self.cfg, plan,
                               positions)
         o = self.attn(q, k, v, plan).reshape(b, s, -1)
-        x = x + o @ L.cast(self.wo, L.cdtype(plan))
+        x = x + constrain(o @ L.cast(self.wo, L.cdtype(plan)),
+                          "batch", "seq", None)
         y, aux = self._ffn(x, plan)
-        out = (x + y,)
+        out = (x + constrain(y, "batch", "seq", None),)
         if cache_capacity is not None:
             out += (self._prefill_cache(k, v, cache_capacity),)
         if with_aux:
@@ -250,7 +267,8 @@ class DenseBlock(nn.Module):
         if pad:
             k = nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
             v = nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        return KVCache(k, v)
+        cax = cache_axes(self.cfg.n_kv_heads)
+        return KVCache(constrain(k, *cax), constrain(v, *cax))
 
     def decode(self, x1: torch.Tensor, cache: KVCache, cache_len: torch.Tensor,
                plan: ExecPlan) -> torch.Tensor:
@@ -443,7 +461,7 @@ def embed_inputs(params: LMParams, cfg, plan: ExecPlan, tokens: torch.Tensor,
         x = torch.cat([v, x], dim=1)
     if cfg.family == "ssm":
         x = params.embed_norm(x)
-    return x
+    return constrain(x, "batch", "seq", None)
 
 
 def head_table(params: LMParams) -> torch.Tensor:
@@ -453,7 +471,8 @@ def head_table(params: LMParams) -> torch.Tensor:
 def lm_logits(params: LMParams, cfg, plan: ExecPlan,
               hidden: torch.Tensor) -> torch.Tensor:
     h = params.final_norm(hidden, plan)
-    return L.logits_from_hidden(h, head_table(params), plan, cfg.logit_softcap)
+    out = L.logits_from_hidden(h, head_table(params), plan, cfg.logit_softcap)
+    return constrain(out, "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -617,7 +636,7 @@ class RecurrentSublayer(nn.Module):
         plan = L.plan_for(x, plan)
         y, new_state = rglru_block(self.ln1(x, plan), self.rglru, self.cfg,
                                    plan, self.scan, state)
-        x = x + y
+        x = x + constrain(y, "batch", "seq", None)
         p = {"w_gate": self.w_gate, "w_up": self.w_up, "w_down": self.w_down}
         x = x + L.mlp(self.ln2(x, plan), p, self.cfg.mlp_act, plan)
         return (x, new_state) if with_state else x
@@ -665,7 +684,7 @@ class RWKVBlock(nn.Module):
         plan = L.plan_for(x, plan)
         y, wkv, last_tm = time_mix(self.ln1(x), self.tm_cm, self.cfg, plan,
                                    state, self.wkv)
-        x = x + y
+        x = x + constrain(y, "batch", "seq", None)
         y2, last_cm = channel_mix(self.ln2(x), self.tm_cm, self.cfg, plan,
                                   state)
         return x + y2, RWKVState(wkv, last_tm, last_cm)

@@ -28,6 +28,8 @@ the reference stacks over layers::
 ``k``/``v`` are padded to the cache capacity and written in place by a
 decode step; ``xk``/``xv`` (the cross-attention's keys and values over the
 encoder output) are computed once in :func:`prefill` and only read after.
+Under a mesh's rules the inputs, the self-attention updates, the caches
+and the logits are ``constrain``-ed where the reference constrains them.
 """
 from __future__ import annotations
 
@@ -39,10 +41,11 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (Attention, KVCache, attend_decode,
-                                          attn_init, cache_update, project_kv,
-                                          project_q, project_qkv)
+                                          attn_init, cache_axes, cache_update,
+                                          project_kv, project_q, project_qkv)
 from repro_torch.models.plan import ExecPlan
 from repro_torch.models.transformer import _maybe_remat
+from repro_torch.runtime.pspec import constrain
 
 __all__ = ["DecoderBlock", "EncoderBlock", "WhisperParams", "decode_step",
            "decoder_forward", "encode", "init_params", "lm_loss", "prefill",
@@ -90,7 +93,8 @@ class _Block(nn.Module):
         q, k, v = project_qkv(self.ln1(x, plan), self, self.cfg, plan,
                               positions)
         o = self.attn(q, k, v, plan).reshape(b, s, -1)
-        return x + o @ L.cast(self.wo, L.cdtype(plan)), k, v
+        return x + constrain(o @ L.cast(self.wo, L.cdtype(plan)),
+                             "batch", "seq", None), k, v
 
     def _mlp(self, x: torch.Tensor, plan: ExecPlan) -> torch.Tensor:
         p = {"w_gate": self.w_gate, "w_up": self.w_up, "w_down": self.w_down}
@@ -151,7 +155,9 @@ class DecoderBlock(_Block):
         if pad:
             k = nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
             v = nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        return x, {"k": k, "v": v, "xk": kx, "xv": vx}
+        cax = cache_axes(self.cfg.n_kv_heads)
+        return x, {"k": constrain(k, *cax), "v": constrain(v, *cax),
+                   "xk": constrain(kx, *cax), "xv": constrain(vx, *cax)}
 
     def decode(self, x1: torch.Tensor, kv: dict, cache_len: torch.Tensor,
                plan: ExecPlan) -> torch.Tensor:
@@ -225,7 +231,7 @@ def encode(params: WhisperParams, cfg, plan: ExecPlan,
     # land in this root region, never in a norm's
     positions = torch.arange(t_enc, device=frames.device)
     pe = sinusoid_positions(t_enc, cfg.d_model, device=frames.device)
-    x = L.cast(frames, dt) + L.cast(pe, dt)
+    x = constrain(L.cast(frames, dt) + L.cast(pe, dt), "batch", "seq", None)
     for blk in params.enc_blocks:
         x = _maybe_remat(blk, plan)(x, plan, positions)
     return params.enc_final_norm(x, plan)
@@ -244,7 +250,8 @@ def decoder_forward(params: WhisperParams, cfg, plan: ExecPlan,
     positions = torch.arange(s, device=tokens.device)
     enc_pos = torch.arange(enc_out.shape[1], device=tokens.device)
     pe = sinusoid_positions(s, cfg.d_model, device=tokens.device)
-    x = L.embed_tokens(tokens, params.embed, plan, False) + L.cast(pe, dt)
+    x = constrain(L.embed_tokens(tokens, params.embed, plan, False)
+                  + L.cast(pe, dt), "batch", "seq", None)
     caches = []
     for blk in params.blocks:
         body = _maybe_remat(blk, plan)
@@ -275,7 +282,8 @@ def lm_loss(params: WhisperParams, batch: dict, cfg, plan: ExecPlan) -> tuple:
     if plan.loss_impl == "chunked_vocab":
         nll = L.cross_entropy_chunked(hidden, params.embed, safe, plan, 0.0)
     else:
-        logits = L.logits_from_hidden(hidden, params.embed, plan, 0.0)
+        logits = constrain(L.logits_from_hidden(hidden, params.embed, plan,
+                                                0.0), "batch", "seq", "vocab")
         nll = L.cross_entropy_full(logits, safe)
     ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return ce, {"ce": ce, "loss": ce}

@@ -7,8 +7,9 @@ step's loss is not finite, or a step runs slow (a straggler).  The
 from there on the first two, and flags the third from a per-step
 wall-time EWMA (``mean + k*std`` and a multiplicative floor); the caller's
 hook decides what to do.  The loss is read once a step, with ``float``
-(the step's one host synchronisation).  ``reshard`` (restoring onto a
-different mesh) waits for the mesh (``ROADMAP.md`` queue 1 item 10).
+(the step's one host synchronisation).  ``reshard`` restores a
+checkpoint onto another mesh: the files hold whole tensors, so each leaf
+is ``distribute_tensor``-ed under the new placements.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Any, Callable, Optional
 
 from repro_torch.checkpoint.manager import CheckpointManager
 
-__all__ = ["RunReport", "StragglerMonitor", "Supervisor"]
+__all__ = ["RunReport", "StragglerMonitor", "Supervisor", "reshard"]
 
 
 # ---------------------------------------------------------------------------
@@ -133,3 +134,12 @@ class Supervisor:
         self.ckpt.wait()
         return state, RunReport(step - start_step, restarts,
                                 list(self.monitor.flagged), losses, seconds)
+
+
+def reshard(ckpt: CheckpointManager, template: Any, new_shardings: dict,
+            step: Optional[int] = None) -> tuple[int, Any]:
+    """Elastic rescale: restore onto a different mesh.  Checkpoints hold
+    whole tensors, so restoring under the new mesh's shardings
+    (``{leaf path: (mesh, placements)}``, e.g. ``runtime.train.
+    state_shardings``) places every listed leaf anew."""
+    return ckpt.restore(template, step=step, shardings=new_shardings)
