@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only K         # the build and phase K alone
     python3 chip_smoke.py --only V         # the build, path M, serve M, V
     python3 chip_smoke.py --only D         # the build and phase D alone
+    python3 chip_smoke.py --only C         # the build, phases C2 and C3
 
 
 Phases, in order; any failure exits non-zero before the last line:
@@ -263,8 +264,26 @@ C. phase C2, a plan chosen by the compiled-artifact cost model:
    and fit are printed, then the winner's plan against the baseline; the
    winner (and the baseline, where it differs and fits) runs 3 real steps:
    each must take at least its compute time; s/step and the peak device
-   memory are printed beside ``step_s`` and ``live_bytes``.  Then phase
-   C's seconds (C1's graph walks and C2);
+   memory are printed beside ``step_s`` and ``live_bytes``;
+C3. phase C3 (after C2), train steps through a scan: RecurrentGemma-2B
+   (the RG-LRU ``assoc`` scan) and RWKV-6-3B (the WKV ``chunked`` scan)
+   under their production plans.  Its children start before phase T and
+   trace beside T and C2 at the lowest CPU priority: for each model
+   ``chip_smoke.py --c3-trace`` (the dry run's ``train_4k`` record on one
+   card at full depth, one sequence a microbatch of the plan's 2,
+   extrapolated by periods; then C3b's configuration traced); with
+   ``--only C`` also the dry run on ``pod16x16`` (cut from the full run
+   for its time).  C3b: 3
+   real train steps of each model on the card in f32 at 2 x 4096 tokens
+   in 2 microbatches, at ``PATH_LAYERS``' depth (8 of 26 and 4 of 32
+   layers), weights drawn on the card from seed 0: finite losses, s/step
+   (median of steps 2-3), the profiled third step's device time, both
+   at least the traced program's compute term, the peak device memory
+   beside its ``live_bytes``.  C3a: each record ok, with ``live_bytes``,
+   ``fits_80gb``, the compute, memory and collective ms, FLOPs x devices
+   / 6 N D (at least 1) and the lowering seconds; on the mesh (``--only
+   C``) the collectives by group (each a divisor of 256, a 16-rank one
+   among them).  Then phase C's seconds (C1's graph walks, C2 and C3);
 D. phase D, sharding and the mesh (after C2), the launch counters set to
    0 before it and read after; D3's two children start first and trace
    while D1 and D2 run on the card, their records read last:
@@ -340,6 +359,7 @@ from repro_torch import hlo_analysis  # noqa: E402
 from repro_torch import roofline as rl  # noqa: E402
 from repro_torch.configs.base import TRAIN_4K, get_config  # noqa: E402
 from repro_torch.core.evaluator import MeasurementCache  # noqa: E402
+from repro_torch.core.objectives import nvml_power_w  # noqa: E402
 from repro_torch.core.frontends.ast_frontend import PyOffloadArtifact  # noqa: E402
 from repro_torch.core.ga import GAConfig  # noqa: E402
 from repro_torch.core.offload import OffloadConfig, Offloader  # noqa: E402
@@ -2231,6 +2251,214 @@ def phase_cost_plan(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase C3: train steps through a scan, costed and run
+# ---------------------------------------------------------------------------
+
+#: C3: RecurrentGemma-2B (the RG-LRU ``assoc`` scan) and RWKV-6-3B (the WKV
+#: ``chunked`` scan) under their production plans in f32 over 2 x 4096
+#: tokens in the plans' 2 microbatches: the dry run's train_4k records at
+#: full depth on one card, and with ``--only C`` on ``pod16x16`` too (cut
+#: from the full run for its time) (C3a), and 3 real steps at
+#: ``PATH_LAYERS``' depth, traced in the dry run alike (C3b)
+C3_ARCHS = ("recurrentgemma_2b", "rwkv6_3b")
+C3_MESHES = ("h100x1", "pod16x16")
+C3_SHAPE = dataclasses.replace(TRAIN_4K, global_batch=2)
+C3_STEPS = 3
+
+
+def c3_plan(arch: str):
+    from repro_torch.launch.plans import production_plan
+
+    return production_plan(get_config(arch), TRAIN_4K).replace(
+        compute_dtype="float32")
+
+
+def c3_start(out_dir: Path, meshes: tuple) -> dict:
+    """C3's children, started beside the GPU phases at the lowest CPU
+    priority: for each model this script with ``--c3-trace`` (the one-card
+    record, then C3b's trace) and, for each other mesh of ``meshes``, the
+    dry run there (a fake world of its ranks)."""
+    procs = {}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for arch in C3_ARCHS:
+        for mesh in meshes:
+            cmd = (["nice", "-n", "19", sys.executable,
+                    str(ROOT / "chip_smoke.py"), "--c3-trace", arch,
+                    str(out_dir)] if mesh == "h100x1"
+                   else ["nice", "-n", "19", sys.executable, "-m",
+                         "repro_torch.launch.dryrun", "--arch", arch,
+                         "--shape", "train_4k", "--mesh", mesh, "--out",
+                         str(out_dir)])
+            log = open(out_dir / f"{arch}__{mesh}.log", "w")
+            procs[arch, mesh] = (subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, env=env), log,
+                time.perf_counter())
+    return procs
+
+
+def c3_trace_child(arch: str, out_dir: Path) -> int:
+    """``--c3-trace ARCH OUT``: the dry run's train_4k record of ``arch``
+    on one card (full depth, the production plan, one sequence a
+    microbatch), then C3b's configuration traced (``PATH_LAYERS``' depth,
+    f32, ``C3_SHAPE``), its roofline and ``live_bytes`` written to
+    ``OUT/ARCH__C3b.json``."""
+    from repro_torch.launch.dryrun import lower_cell, run_cell
+
+    torch.set_num_threads(1)           # a trace: one core beside the card's
+    run_cell(arch, "train_4k", out_dir=out_dir)
+    t0 = time.perf_counter()
+    low, n_dev, mf = lower_cell(path_config(arch), C3_SHAPE, c3_plan(arch))
+    lower_s = time.perf_counter() - t0
+    compiled = low.compile()
+    mem = compiled.memory_analysis()
+    roof = rl.analyze(compiled, n_devices=n_dev, model_flops_global=mf)
+    live = (mem.argument_size_in_bytes + mem.output_size_in_bytes
+            + mem.temp_size_in_bytes + mem.generated_code_size_in_bytes)
+    (out_dir / f"{arch}__C3b.json").write_text(json.dumps({
+        "roofline": roof.summary(), "live_bytes": live,
+        "lower_s": lower_s}))
+    return 0
+
+
+def c3_finish(procs: dict, out_dir: Path) -> dict:
+    """C3a's records, checked: status ok, per-device FLOPs x devices at
+    least the model's 6 N D, and on the mesh every collective group a
+    divisor of its size with a 16-rank one."""
+    out = {}
+    for (arch, mesh), (proc, log, t0) in procs.items():
+        rc = proc.wait(timeout=900)
+        log.close()
+        wall = time.perf_counter() - t0
+        path = out_dir / f"{arch}__train_4k__{mesh}__production.json"
+        check(rc == 0 and path.exists(),
+              f"C3a {arch} {mesh}: exited {rc}: "
+              f"{(out_dir / f'{arch}__{mesh}.log').read_text()[-3000:]}")
+        rec = json.loads(path.read_text())
+        check(rec["status"] == "ok", f"C3a {arch} {mesh}: {rec.get('error')}")
+        n = rec["n_devices"]
+        cfg = get_config(arch)
+        tokens = int(rec["reduced"].split("-> ")[1].split()[0]) \
+            * TRAIN_4K.seq_len
+        roof = rec["roofline"]
+        ratio = roof["flops"] * n / rl.model_flops_train(
+            cfg.param_count(active_only=True), tokens)
+        check(ratio >= 1.0, f"C3a {arch} {mesh}: FLOPs x {n} is {ratio} "
+                            f"of 6 N D")
+        row = {"status": rec["status"],
+               "live_bytes": rec["memory"]["live_bytes"],
+               "fits_80gb": rec["memory"]["fits_80gb"],
+               "compute_ms": roof["compute_s"] * 1e3,
+               "memory_ms": roof["memory_s"] * 1e3,
+               "collective_ms": roof["collective_s"] * 1e3,
+               "flops_over_6nd": ratio, "lower_s": rec["lower_s"],
+               "compile_s": rec["compile_s"], "child_wall_s": wall,
+               "reduced": rec["reduced"]}
+        if mesh != "h100x1":
+            groups = {int(k.split("@g")[1]) for k in rec["collectives"]}
+            check(16 in groups and all(n % g == 0 for g in groups),
+                  f"C3a {arch} {mesh}: collective groups {sorted(groups)}")
+            row["collectives"] = rec["collectives"]
+            row["param_bytes"] = rec["memory"]["param_bytes"]
+        out[f"{arch} {mesh}"] = row
+        print(f"C3a {arch} {mesh}:", json.dumps(row), flush=True)
+    return out
+
+
+def c3_real_steps(dev, arch: str, traced: dict) -> dict:
+    """``C3_STEPS`` train steps of ``arch`` at ``PATH_LAYERS``' depth under
+    its production plan in f32 over ``C3_SHAPE``, from weights drawn on
+    the card (seed 0) at a constant lr: each step's host seconds
+    (synchronized) and the profiled last step's device time must reach the
+    traced program's FLOPs' time; the losses must be finite; the peak
+    device memory is printed beside the trace's ``live_bytes``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.runtime.train import TrainState, make_train_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "C3b: TF32 is on")
+    free_models()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = build_model(path_config(arch))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(SEED), device=dev)
+    state = TrainState(params, adamw_init(params), None)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plan = c3_plan(arch)
+    step = make_train_step(model, plan, OptimizerConfig(),
+                           lambda s: torch.full((), T_LR, device=dev))
+    batch = model.demo_batch(torch.Generator().manual_seed(SEED + 1),
+                             C3_SHAPE.global_batch, C3_SHAPE.seq_len,
+                             device=dev)
+    secs, losses = [], []
+    for i in range(C3_STEPS):
+        prof = profile(activities=[ProfilerActivity.CUDA]) \
+            if i == C3_STEPS - 1 else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof:
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    device_s = sum(e.self_device_time_total for e in events) / 1e6
+    peak = torch.cuda.max_memory_allocated() - held
+    del state, params, step, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    roof = traced["roofline"]
+    check(all(map(math.isfinite, losses)), f"C3b {arch}: losses {losses}")
+    for t in secs + [device_s]:
+        check(t >= roof["compute_s"],
+              f"C3b {arch}: {t} s, below the FLOPs' time "
+              f"{roof['compute_s']} s")
+    s_step = statistics.median(secs[1:])
+    out = {"layers": model.cfg.n_layers, "plan": {
+               k: getattr(plan, k) for k in ("rglru_impl", "wkv_impl",
+                                             "remat", "microbatch",
+                                             "attn_impl", "loss_impl")},
+           "init_s": init_s, "step_seconds": secs,
+           "s_per_step_median_2_3": s_step, "losses": losses,
+           "device_s_last_step": device_s,
+           "device_idle_share_last_step": 1 - device_s / secs[-1],
+           "device_launches_last_step": sum(e.count for e in events),
+           "compute_s_model": roof["compute_s"],
+           "memory_s_model": roof["memory_s"], "step_s_model": roof["step_s"],
+           "device_over_compute": device_s / roof["compute_s"],
+           "peak_device_bytes": peak, "live_bytes_model": traced["live_bytes"],
+           "peak_over_live": peak / traced["live_bytes"],
+           "lower_s": traced["lower_s"],
+           "reduced": f"{model.cfg.n_layers} of {get_config(arch).n_layers} "
+                      f"layers (PATH_LAYERS); global batch 256 -> 2"}
+    print(f"C3b {arch}:", json.dumps(out), flush=True)
+    return out
+
+
+def phase_scan_train(dev, procs: dict, out_dir: Path) -> dict:
+    """Phase C3 (after C2): C3b's real steps of each model, then C3a's
+    records (C3's children were started by :func:`c3_start` beside the GPU
+    phases before it)."""
+    t_start = time.perf_counter()
+    out = {"C3b": {}}
+    for arch in C3_ARCHS:
+        rc = procs[arch, "h100x1"][0].wait(timeout=900)
+        check(rc == 0, f"C3 {arch}: the trace child exited {rc}: "
+              f"{(out_dir / f'{arch}__h100x1.log').read_text()[-3000:]}")
+        traced = json.loads((out_dir / f"{arch}__C3b.json").read_text())
+        out["C3b"][arch] = c3_real_steps(dev, arch, traced)
+    out["C3a"] = c3_finish(procs, out_dir)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase C3: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase P: numeric Python programs through the python_ast frontend
 # ---------------------------------------------------------------------------
 
@@ -3862,34 +4090,53 @@ def main(argv: list) -> int:
     """The full run with no arguments.  ``--only K`` runs the build and
     phase K alone; ``--only V`` runs the build, path M (through the
     planning service, then on this thread for comparison), serve M (with
-    V3) and phase V; ``--only D`` the build and phase D; the last line of
+    V3) and phase V; ``--only D`` the build and phase D; ``--only C`` the build,
+    phase C2 and phase C3 (its children started first); the last line of
     each says so (``phase K alone: ok``, ...), not the full run's contract
-    line.  ``--warm-child STORE`` is phase V2's child."""
+    line.  ``--warm-child STORE`` is phase V2's child, ``--c3-trace ARCH
+    OUT`` one of phase C3's."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if len(argv) == 2 and argv[0] == "--warm-child":
         return warm_child(Path(argv[1]), torch.device("cuda", 0))
-    check(argv in ([], ["--only", "K"], ["--only", "V"], ["--only", "D"]),
-          "usage: chip_smoke.py [--only K|V|D]")
+    if len(argv) == 3 and argv[0] == "--c3-trace":
+        return c3_trace_child(argv[1], Path(argv[2]))
+    check(argv in ([], ["--only", "K"], ["--only", "V"], ["--only", "D"],
+                   ["--only", "C"]),
+          "usage: chip_smoke.py [--only K|V|D|C]")
     only = argv[1] if argv else None
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     m_store = Path(tempfile.mkdtemp(prefix="plan-store-M-",
                                     dir=build.BUILD_DIR))
+    c3_dir = Path(tempfile.mkdtemp(prefix="dryrun-C3-", dir=build.BUILD_DIR))
+    children = []
     try:
-        return run_all(only, m_store)
+        return run_all(only, m_store, c3_dir, children)
     finally:
+        # a phase that failed leaves C3's children tracing: stop them
+        # before their directory goes
+        for proc, log in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
         shutil.rmtree(m_store, ignore_errors=True)
+        shutil.rmtree(c3_dir, ignore_errors=True)
 
 
-def run_all(only, m_store: Path) -> int:
-    """The phases of :func:`main`; path M's plan store is ``m_store``."""
+def run_all(only, m_store: Path, c3_dir: Path, children: list) -> int:
+    """The phases of :func:`main`; path M's plan store is ``m_store``,
+    phase C3's children write under ``c3_dir`` and are listed in
+    ``children`` as (process, log) for :func:`main` to stop."""
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(f"NVML board power: {nvml_power_w()} W (repro_torch.core."
+          f"objectives.nvml_power_w)", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     t0 = time.perf_counter()
@@ -3986,6 +4233,14 @@ def run_all(only, m_store: Path) -> int:
         run_phase("D", phase_mesh)
         print("phase D alone: ok", flush=True)
         return 0
+    if only == "C":
+        c3_procs = c3_start(c3_dir, C3_MESHES)
+        children.extend((p, log) for p, log, _ in c3_procs.values())
+        phase_cost_plan(dev)
+        done("phase C2")
+        phase_scan_train(dev, c3_procs, c3_dir)
+        print("phase C alone: ok", flush=True)
+        return 0
     if only == "V":
         run_path("M")
         m_on_callers_thread(dev)
@@ -4043,18 +4298,25 @@ def run_all(only, m_store: Path) -> int:
                 SERVE_NEW, True, prompt_len=SERVE_PROMPT_X)
     done("serve X")
     free_models()
+    # phase C3's dry-run children trace beside phases T and C2
+    c3_procs = c3_start(c3_dir, ("h100x1",))
+    children.extend((p, log) for p, log, _ in c3_procs.values())
     phase_train(dev)
     done("phase T")
     c2 = phase_cost_plan(dev)
     done("phase C2")
+    c3 = phase_scan_train(dev, c3_procs, c3_dir)
+    done("phase C3")
     # sharding and the mesh: a (1, 1) host mesh, an executed mesh gene,
     # the production meshes traced
     run_phase("D", phase_mesh)
     c1_s = sum(r["analyze_s"] for p in plans.values()
                for r in p.get("roofline", {}).values())
-    print(f"phase C: {c1_s + c2['seconds']:.1f} s (C1 {c1_s:.1f} s: the "
-          f"graph walks of {sum(len(p.get('roofline', {})) for p in plans.values())} "
-          f"programs; C2 {c2['seconds']:.1f} s)", flush=True)
+    print(f"phase C: {c1_s + c2['seconds'] + c3['seconds']:.1f} s (C1 "
+          f"{c1_s:.1f} s: the graph walks of "
+          f"{sum(len(p.get('roofline', {})) for p in plans.values())} "
+          f"programs; C2 {c2['seconds']:.1f} s; C3 {c3['seconds']:.1f} s)",
+          flush=True)
     # each path's planning: wall time, the function-block genes that bind,
     # and what the overlap phase did
     print("planning by path:", json.dumps(plans), flush=True)

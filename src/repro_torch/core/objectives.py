@@ -1,5 +1,6 @@
 """Port of ``repro/core/objectives.py`` (framework-free copy; the NVML
-probe is unchanged).
+probe also reads NVML's own ``libnvidia-ml.so.1`` through ``ctypes``
+where ``pynvml`` is absent).
 
 Objective models for multi-objective offload search (arXiv:2110.11520 +
 arXiv:2011.12431 direction): latency × energy × transfer bytes.
@@ -31,6 +32,7 @@ and only the latency axis relies on what was persisted.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Callable, Optional, Sequence
 
@@ -52,17 +54,59 @@ _nvml_watts: Optional[float] = None
 _nvml_probed = False
 
 
+def _load_nvml():
+    """NVML's C library, or None on a host without it."""
+    try:
+        return ctypes.CDLL("libnvidia-ml.so.1")
+    except OSError:
+        return None
+
+
+def _nvml_ctypes_watts(lib) -> Optional[float]:
+    """Board power of device 0 in watts read through ``lib`` (NVML's C
+    API: ``nvmlInit_v2``, ``nvmlDeviceGetHandleByIndex_v2``,
+    ``nvmlDeviceGetPowerUsage`` in milliwatts), or None when a call fails
+    (each returns 0 on success)."""
+    lib.nvmlInit_v2.argtypes = []
+    lib.nvmlInit_v2.restype = ctypes.c_int
+    lib.nvmlDeviceGetHandleByIndex_v2.argtypes = [
+        ctypes.c_uint, ctypes.POINTER(ctypes.c_void_p)]
+    lib.nvmlDeviceGetHandleByIndex_v2.restype = ctypes.c_int
+    lib.nvmlDeviceGetPowerUsage.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint)]
+    lib.nvmlDeviceGetPowerUsage.restype = ctypes.c_int
+    lib.nvmlShutdown.argtypes = []
+    lib.nvmlShutdown.restype = ctypes.c_int
+    if lib.nvmlInit_v2() != 0:
+        return None
+    try:
+        handle, milliwatts = ctypes.c_void_p(), ctypes.c_uint()
+        if lib.nvmlDeviceGetHandleByIndex_v2(0, ctypes.pointer(handle)) \
+                or lib.nvmlDeviceGetPowerUsage(handle,
+                                               ctypes.pointer(milliwatts)):
+            return None
+        return milliwatts.value / 1000.0
+    finally:
+        lib.nvmlShutdown()
+
+
 def nvml_power_w() -> Optional[float]:
     """Current GPU board power draw in watts via NVML, or None when no NVML
-    stack (or no GPU) is available.  The import is gated — the container
-    may not ship ``pynvml``, and a CPU-only host has nothing to read — so
+    stack (or no GPU) is available.  Probed once a process: through
+    ``pynvml`` where it is installed, else through NVML's
+    ``libnvidia-ml.so.1`` by ``ctypes``; a CPU-only host has neither, so
     the modeled per-destination priors are the portable default."""
     global _nvml_watts, _nvml_probed
     if _nvml_probed:
         return _nvml_watts
     _nvml_probed = True
-    try:  # pragma: no cover — exercised only on NVML-equipped hosts
+    try:
         import pynvml
+    except ImportError:
+        lib = _load_nvml()
+        _nvml_watts = None if lib is None else _nvml_ctypes_watts(lib)
+        return _nvml_watts
+    try:  # pragma: no cover — exercised only on hosts with pynvml
         pynvml.nvmlInit()
         handle = pynvml.nvmlDeviceGetHandleByIndex(0)
         _nvml_watts = pynvml.nvmlDeviceGetPowerUsage(handle) / 1000.0

@@ -3,7 +3,7 @@ over aten graphs.
 
 The port's counterpart of post-partitioning HLO text is the aten graph: an
 FX ``GraphModule`` whose nodes carry ``meta["val"]`` (an exported program's,
-or a ``make_fx`` trace of a train step made by :func:`lower`).  The module
+or the trace of a train step that :func:`lower` records).  The module
 keeps the reference's path so the mirror holds.  A static walk, never a
 run, computes per-device totals with the reference's rules:
 
@@ -56,7 +56,10 @@ from typing import Any, Optional
 
 import torch
 import torch.fx
+from torch._higher_order_ops.scan import scan_op
+from torch._higher_order_ops.utils import materialize_as_graph
 from torch.fx import traceback as fx_traceback
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
@@ -638,6 +641,7 @@ class _Recorder(TorchDispatchMode):
     def __init__(self, stack: list):
         super().__init__()
         self.graph = torch.fx.Graph()
+        self.root = torch.nn.Module()       # holds the scan bodies
         self.stack = stack
         self.node_of: dict = {}
         self.seen: list = []
@@ -662,8 +666,42 @@ class _Recorder(TorchDispatchMode):
             self.placeholder(x, f"const_{len(self.seen)}")
         return self.node_of[id(x)]
 
+    def scan(self, combine_fn, init, xs, consts) -> list:
+        """Record one ``scan`` node: its body a subgraph (``combine_fn``
+        itself when autograd's forward or backward scan passes a graph,
+        else the callable traced on the first slices), its outputs made
+        from one run of the body: the carries as they come, each ys leaf
+        stacked over the trip count."""
+        first = [x[0] for x in xs]
+        if isinstance(combine_fn, torch.fx.GraphModule):
+            body = combine_fn
+        else:
+            with TRACE_LOCK:
+                body = materialize_as_graph(combine_fn,
+                                            (*init, *first, *consts))
+        step = body(*init, *first, *consts)
+        trip = xs[0].shape[0]
+        out = [torch.empty_like(t) for t in step[:len(init)]] \
+            + [t.new_empty((trip, *t.shape)) for t in step[len(init):]]
+        name = f"scan_body_{len(self.root._modules)}"
+        self.root.add_module(name, body)
+        node = self.graph.call_function(scan_op, (
+            self.graph.get_attr(name), [self.node(t) for t in init],
+            [self.node(x) for x in xs], tuple(self.node(c) for c in consts)))
+        if self.stack:
+            node.meta["nn_module_stack"] = dict(self.stack)
+        node.meta["val"] = out
+        for i, t in enumerate(out):
+            self._track(t, self.graph.call_function(operator.getitem,
+                                                    (node, i)))
+        return out
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if get_proxy_mode() is not None:
+            # torch tracing a scan's body or its joint graph: not the
+            # program's ops
+            return func(*args, **kwargs)
         if any(issubclass(t, _DTensor) for t in types):
             # a DTensor op: let DTensor run it; the local ops and the
             # collectives it makes come back here, one rank's program
@@ -685,6 +723,16 @@ class _Recorder(TorchDispatchMode):
         return out
 
 
+@scan_op.py_impl(_Recorder)
+def _record_scan(rec: _Recorder, combine_fn, init, xs, consts):
+    """The recorder's rule for ``scan``.  A scan that needs gradients
+    reaches it twice through autograd: the forward scan of the partitioned
+    body, then in the backward the reversed scan of its gradient body; one
+    without, once with the body as written.  The rule runs with the
+    recorder popped, so the body's own run records nothing."""
+    return rec.scan(combine_fn, init, xs, consts)
+
+
 def lower(fn, *args, scope_root: Optional[torch.nn.Module] = None
           ) -> Lowered:
     """Trace ``fn(*args)`` into an aten graph: meta or fake tensors in, no
@@ -698,13 +746,10 @@ def lower(fn, *args, scope_root: Optional[torch.nn.Module] = None
     collectives it records, so a sharded program's graph is one rank's,
     with the local shards as its arguments (DTensor's sharding propagation
     also runs ops, on fake tensors, the first time it meets an op's
-    shapes: trace such a program once before the trace that counts); a program with a higher-order op (a ``scan``), which the mode
-    has no rule for, is traced by ``make_fx`` in fake mode,
-    as a non-strict tracing session so that a selective activation
-    checkpoint recomputes what its policy does not save, as it does
-    eagerly (under a bare proxy mode it would only tag the nodes for a
-    compiler's partitioner).  The reset of dynamo's caches and the
-    ``make_fx`` trace run under the process-wide :data:`TRACE_LOCK`."""
+    shapes: trace such a program once before the trace that counts).  A
+    ``scan`` is one node of the recorder's (:func:`_record_scan`), its
+    body a subgraph; another higher-order op, which the mode has no rule
+    for, raises ``NotImplementedError``."""
     from torch._guards import detect_fake_mode
 
     stack: list = []
@@ -715,24 +760,7 @@ def lower(fn, *args, scope_root: Optional[torch.nn.Module] = None
         rec.placeholder(a, f"arg_{i}")
     # fake inputs: their mode makes the tensors the program creates fake too
     fake = mode or contextlib.nullcontext()
-    try:
-        with _module_scopes(scope_root, stack), fake, rec:
-            out = pytree.tree_leaves(fn(*args))
-    except (NotImplementedError, torch._dynamo.exc.TorchDynamoException) as e:
-        if isinstance(e, NotImplementedError) \
-                and "HigherOrderOperator" not in str(e):
-            raise
-    else:
-        rec.graph.output(tuple(rec.node(t) for t in out))
-        return Lowered(torch.fx.GraphModule(torch.nn.Module(), rec.graph))
-
-    from torch.fx.experimental.proxy_tensor import make_fx
-
-    session = getattr(torch.compiler, "_non_strict_tracing_context",
-                      contextlib.nullcontext)
-    with TRACE_LOCK:
-        torch._dynamo.reset()          # drop what the failed attempt cached
-        with _module_scopes(scope_root, stack), session():
-            gm = make_fx(lambda *a: pytree.tree_leaves(fn(*a)),
-                         tracing_mode="fake")(*args)
-    return Lowered(gm)
+    with _module_scopes(scope_root, stack), fake, rec:
+        out = pytree.tree_leaves(fn(*args))
+    rec.graph.output(tuple(rec.node(t) for t in out))
+    return Lowered(torch.fx.GraphModule(rec.root, rec.graph))

@@ -2,7 +2,7 @@
 shape) for one H100 or for the reference's production meshes, and record
 the artifact's memory analysis, cost analysis and roofline terms.
 
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_0_6b --shape train_4k [--batch 1] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_0_6b --shape train_4k [--batch N] [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--plan tuned]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_0_6b --shape train_4k --mesh pod16x16 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_0_6b --shape train_4k --both-meshes
@@ -13,12 +13,17 @@ traces the train step, prefill or decode into an aten graph
 (:func:`repro_torch.hlo_analysis.lower`).  A stack of identical layers is
 traced at two and three periods of it and extrapolated to the model's
 depth (the reference scans over its layers and multiplies one body).  A
-train step through a ``scan`` (RG-LRU ``step``, RWKV-6) does not trace:
-the scan's autograd compiles its body under a fake mode of its own, and
-the cell records the error.
+train step through a ``scan`` (RG-LRU ``step``, RWKV-6's WKV) traces as
+it runs: ``layers.remat_safe_scan`` calls the ``scan`` operator itself
+with the tensors its body reads lifted into its inputs, so the graph holds
+the forward scan and autograd's backward scan, each body costed times
+its trip count.
 
 ``--mesh h100x1`` (the default): one card holds ``--batch`` sequences of
-the cell's global batch (default 1), and the record's ``reduced`` says so.
+the cell's global batch.  The default is the plan's ``microbatch`` count,
+one sequence a microbatch; a ``--batch`` that the plan's microbatches do
+not split raises before anything is traced.  The record's ``reduced``
+says so.
 
 ``--mesh pod16x16`` / ``pod2x16x16``: the reference's 256- and 512-rank
 production meshes (``launch/mesh.py``).  The process starts a process
@@ -30,8 +35,9 @@ parameters, the AdamW moments and the batch are DTensors placed by
 shards, and the step is traced under ``axis_rules``: the graph is rank
 0's program, its local ops and the collectives DTensor and the local
 bodies make, each collective with its group size.  Every data-parallel
-rank holds ``--batch`` sequences (the global batch is that times the
-``pod`` x ``data`` ranks), as ``reduced`` says.  The record is per
+rank holds ``--batch`` sequences (by default the plan's ``microbatch``
+count; the global batch is that times the ``pod`` x ``data`` ranks), as
+``reduced`` says.  The record is per
 device: ``memory.live_bytes`` and ``fits_80gb``, the collective histogram
 by op and group size, and the compute, memory and collective terms.  The
 collective term prices every axis at ``roofline.LINK_BW``, NVLink 4's 450
@@ -319,18 +325,27 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, plan: ExecPlan,
 
 
 def run_cell(arch: str, shape_name: str, plan_kind: str = "production",
-             out_dir=DEFAULT_OUT, verbose: bool = True, batch: int = 1,
-             device=None, mesh_name: str = MESH,
-             reduced: bool = False) -> dict:
+             out_dir=DEFAULT_OUT, verbose: bool = True,
+             batch: Optional[int] = None, device=None,
+             mesh_name: str = MESH, reduced: bool = False) -> dict:
     """Lower and analyse one cell on ``mesh_name`` (``h100x1``, or a
     production mesh, whose fake world this process then holds) and write
     its record; ``reduced`` takes the architecture's ``reduced()``
-    config."""
+    config.  ``batch`` sequences sit on the card (a data-parallel rank of
+    a mesh); None takes the plan's ``microbatch`` count.  Raises a
+    ``ValueError`` when the plan's microbatches do not split ``batch``."""
     setup_logging()          # idempotent — run_cell is also a library entry
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     full = SHAPES_BY_NAME[shape_name]
+    plan = (tuned_plan if plan_kind == "tuned" else production_plan)(
+        cfg, full)
+    if batch is None:
+        batch = plan.microbatch
+    elif batch % plan.microbatch:
+        raise ValueError(f"--batch {batch} does not split into the plan's "
+                         f"{plan.microbatch} microbatches")
     mesh = None
     if mesh_name == MESH:
         shape = dataclasses.replace(full, global_batch=batch)
@@ -346,6 +361,9 @@ def run_cell(arch: str, shape_name: str, plan_kind: str = "production",
         reduced_note = (f"global batch {full.global_batch} -> "
                         f"{batch * n_dp} ({batch} a data-parallel rank, "
                         f"{n_dp} ranks)")
+    if plan.microbatch > 1:
+        reduced_note = (f"{reduced_note} in {plan.microbatch} microbatches "
+                        f"of the plan")
     if reduced:
         reduced_note = f"{reduced_note}; the reduced() config"
     rec: dict = {
@@ -363,8 +381,6 @@ def run_cell(arch: str, shape_name: str, plan_kind: str = "production",
                      rec["skip_reason"])
         return rec
     try:
-        plan = (tuned_plan if plan_kind == "tuned" else production_plan)(
-            cfg, full)
         t0 = time.time()
         if mesh_name != MESH:
             mesh = make_production_mesh(
@@ -437,8 +453,10 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--plan", default="production",
                     choices=["production", "tuned"])
-    ap.add_argument("--batch", type=int, default=1,
-                    help="sequences of the global batch on the card")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="sequences of the global batch on the card (a "
+                         "data-parallel rank); default: the plan's "
+                         "microbatch count")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a card) or cpu")
     ap.add_argument("--mesh", default=MESH,

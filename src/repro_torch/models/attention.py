@@ -35,7 +35,8 @@ from torch import nn
 from repro_torch.models import layers as L
 from repro_torch.models.plan import ExecPlan
 from repro_torch.runtime.pspec import (axis_all_gather, axis_index,
-                                       constrain, current_rules, local_map)
+                                       constrain, current_rules, local_map,
+                                       model_divides)
 
 __all__ = ["Attention", "KVCache", "NEG_INF", "attend", "attend_chunked",
            "attend_decode", "attend_local_banded", "attend_naive",
@@ -380,12 +381,31 @@ def attend_local_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         plan: ExecPlan) -> torch.Tensor:
     """Each query chunk of ``window`` attends its own and the previous KV
     chunk only: exact for causal local attention (query p sees (p - w,
-    p]); ragged lengths take the chunked path."""
+    p]); ragged lengths take the chunked path.  Under a mesh's rules the
+    band runs in ``local_map`` on each rank's batch rows, every chunk
+    whole and the heads split over ``model`` where it divides the KV heads
+    (:func:`model_divides`), whole where it does not (each rank then
+    attends every head): DTensor cannot view a sequence split into chunks
+    that do not divide ``seq_sp`` (2 of 2048 at RecurrentGemma-2B's 4096
+    tokens over 16 ranks), and where they do, its strategy search over the
+    chunked einsums on the three-axis mesh ran past 15 minutes."""
     b, sq, hq, hd = q.shape
-    nkv = k.shape[2]
     w = window
     if sq % w != 0 or k.shape[1] != sq:
         return attend_chunked(q, k, v, pos_q, pos_k, True, window, plan)
+    rules = current_rules()
+    if rules is not None:
+        spec = (rules.resolve("batch", b), None,
+                "model" if model_divides(k.shape[2]) else None, None)
+        return local_map(
+            lambda qq, kk, vv: _banded(qq, kk, vv, pos_q, pos_k, w, plan),
+            (spec, spec, spec), spec, q, k, v)
+    return _banded(q, k, v, pos_q, pos_k, w, plan)
+
+
+def _banded(q, k, v, pos_q, pos_k, w: int, plan: ExecPlan) -> torch.Tensor:
+    b, sq, hq, hd = q.shape
+    nkv = k.shape[2]
     n = sq // w
     qc = _group(q, nkv).reshape(b, n, w, nkv, hq // nkv, hd)
     qc = constrain(qc, "batch", "seq_sp", None, None, None, None)  # SP chunks

@@ -22,17 +22,29 @@ region.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import copy
 import math
 from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch._higher_order_ops.scan import scan
+from torch._higher_order_ops.partitioner import HopGraphMinCutPartitioner
+from torch._higher_order_ops.scan import ScanAutogradOp, scan_op
+from torch._subclasses.fake_tensor import is_fake
 
 from torch.distributed.tensor import DTensor
+from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import _get_current_dispatch_mode as \
+    _current_dispatch_mode
+from torch.utils._python_dispatch import _pop_mode_temporarily
+from torch.utils.checkpoint import _CachedTorchDispatchMode as _sac_cached_mode
+from torch.utils.checkpoint import _CachingTorchDispatchMode as _sac_caching_mode
 
+from repro_torch.core.trace_lock import TRACE_LOCK
 from repro_torch.models.plan import REFERENCE_PLAN, ExecPlan
 from repro_torch.runtime.pspec import (axis_all_gather, axis_index,
                                        axis_sizes, axis_sum, constrain,
@@ -406,17 +418,129 @@ def _same(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def remat_safe_scan(combine_fn, init, xs) -> tuple:
-    """``torch._higher_order_ops.scan`` that also runs inside an activation
-    checkpoint.  Under autograd a scan traces its joint forward and
-    backward; the saved-tensor hooks of an enclosing checkpoint
-    (``transformer._maybe_remat``) would reach into that trace and recompute
-    the layer on its fake tensors, which fails.  So while autograd records,
-    the scan saves its tensors as they are (identity hooks above the
-    checkpoint's): its residuals are kept, and the rest of the layer is
-    recomputed as the policy says.  Without grad (a forward, an export) it
-    is the plain ``scan``."""
-    hooks = torch.autograd.graph.saved_tensors_hooks(_same, _same) \
-        if torch.is_grad_enabled() else contextlib.nullcontext()
-    with hooks:
-        return scan(combine_fn, init, xs)
+#: the dispatch modes of a selective activation checkpoint
+_SAC_MODES = (_sac_caching_mode, _sac_cached_mode)
+
+
+@contextlib.contextmanager
+def _without_selective_checkpoint():
+    """The selective checkpoint's dispatch modes popped while a scan runs:
+    the scan is neither saved nor tagged by the policy, so it is recomputed
+    whole with its layer (its residuals are kept by the hooks above), and
+    its joint graph is traced untagged (a tagged one fails torch 2.11's
+    min-cut partition)."""
+    with contextlib.ExitStack() as popped:
+        while isinstance(_current_dispatch_mode(), _SAC_MODES):
+            popped.enter_context(_pop_mode_temporarily())
+        yield
+
+
+#: the partitioned joint graphs of the scan bodies met with gradients, by
+#: :func:`_partition_key`: partitioning traces a body's forward and
+#: backward (~0.5 s a call on the host, a train step repeating it per
+#: layer, microbatch and recompute); each call runs on a copy, since the
+#: scan's autograd rewrites the graphs it is given
+_PARTITIONED: collections.OrderedDict = collections.OrderedDict()
+_PARTITIONED_MAX = 64
+
+
+def _partition_key(combine_fn, operands: list) -> tuple:
+    """The body's code and closure values and each operand's metadata
+    (fake or real, shape, strides, dtype, device, requires_grad)."""
+    cells = tuple(c.cell_contents for c in
+                  getattr(combine_fn, "__closure__", None) or ())
+    return (getattr(combine_fn, "__code__", combine_fn), cells) + tuple(
+        (is_fake(t), tuple(t.shape), t.stride(), t.dtype, t.device,
+         t.requires_grad) for t in operands)
+
+
+def _scan_autograd(combine_fn, body, init: list, xs: list, consts: tuple,
+                   y_spec: list) -> list:
+    """``scan_op`` under autograd, with the body's partitioned joint graph
+    traced once for each :func:`_partition_key` (what the operator's
+    autograd rule does on every call); ``y_spec`` gets the body's ys
+    structure, which a cached graph keeps beside it.  The cache is read and
+    written under ``TRACE_LOCK``, as threads that trace share it."""
+    key = _partition_key(combine_fn, [*init, *xs, *consts])
+    with TRACE_LOCK:
+        entry = _PARTITIONED.get(key)
+        if entry is None:
+            with disable_proxy_modes_tracing():
+                graph = HopGraphMinCutPartitioner.create_partitioned_graph(
+                    body, (*init, *[x[0] for x in xs], *consts),
+                    always_recompute_complex_exprs=True)
+            entry = _PARTITIONED[key] = (graph, y_spec[0])
+            while len(_PARTITIONED) > _PARTITIONED_MAX:
+                _PARTITIONED.popitem(last=False)
+        graph = copy.deepcopy(entry[0])
+    y_spec[:] = entry[1:]
+    return ScanAutogradOp.apply(graph, len(init), len(xs), len(consts),
+                                *init, *xs, *consts)
+
+
+def remat_safe_scan(combine_fn, init, xs, consts: tuple = ()) -> tuple:
+    """The models' one scan: ``combine_fn(carry, x, *consts) -> (carry,
+    y)`` over dim 0 of ``xs`` from ``init`` -> (final carry, stacked ys),
+    as ``torch._higher_order_ops.scan``'s ``scan``.
+
+    The higher-order op is called itself, with the tensors the body reads
+    besides its carry and slice passed as ``consts`` (its
+    ``additional_inputs``): the public ``scan`` compiles the call through
+    dynamo, whose fake mode of its own clashes with a ``make_fx`` trace,
+    and a tensor the body closes over never reaches the trace as an input
+    (a parameter that requires grad stays a real or meta tensor inside a
+    fake one).  So one program runs eagerly, under ``torch.export`` (one
+    ``scan`` node, ``consts`` its lifted inputs, as dynamo lifts a
+    closure's) and under the dry run's trace, whose train step holds the
+    forward scan and autograd's reversed backward scan.  A body whose
+    closure holds a tensor, or a value that cannot key a dict, is refused.
+
+    It also runs inside an activation checkpoint.  Under autograd the scan
+    traces its joint forward and backward; the saved-tensor hooks of an
+    enclosing checkpoint (``transformer._maybe_remat``) would reach into
+    that trace and recompute the layer on its fake tensors, which fails.
+    So while autograd records, the scan saves its tensors as they are
+    (identity hooks above the checkpoint's): its residuals are kept, and
+    the rest of the layer is recomputed as the policy says.  Under autograd
+    its partitioned joint graph is traced once a body and operand metadata
+    (:func:`_scan_autograd`)."""
+    cells = [c.cell_contents for c in
+             getattr(combine_fn, "__closure__", None) or ()]
+    if any(isinstance(c, torch.Tensor) for c in cells):
+        raise ValueError("a scan body closes over a tensor: pass it in "
+                         "consts")
+    try:
+        hash(tuple(cells))
+    except TypeError:
+        raise ValueError("a scan body closes over a value that cannot be "
+                         "hashed: pass it in consts or bind it hashable") \
+            from None
+    flat_init, init_spec = pytree.tree_flatten(init)
+    flat_xs, xs_spec = pytree.tree_flatten(xs)
+    n_init, n_xs = len(flat_init), len(flat_xs)
+    y_spec = []
+
+    def body(*args):
+        carry = pytree.tree_unflatten(list(args[:n_init]), init_spec)
+        x = pytree.tree_unflatten(list(args[n_init:n_init + n_xs]), xs_spec)
+        carry, y = combine_fn(carry, x, *args[n_init + n_xs:])
+        flat_y, spec = pytree.tree_flatten(y)
+        y_spec[:] = [spec]
+        return [*pytree.tree_leaves(carry), *flat_y]
+
+    operands = [*flat_init, *flat_xs, *consts]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        # an initial carry that needs no gradient is left out of the scan's
+        # joint graph by torch 2.11, which then drops the carry's gradient
+        # between steps: ask for its gradient (torch 2.13 does so itself)
+        flat_init = [t.detach().requires_grad_()
+                     if t.is_floating_point() and not t.requires_grad else t
+                     for t in flat_init]
+        with torch.autograd.graph.saved_tensors_hooks(_same, _same), \
+                _without_selective_checkpoint():
+            out = _scan_autograd(combine_fn, body, flat_init, flat_xs,
+                                 tuple(consts), y_spec)
+    else:
+        out = scan_op(body, flat_init, flat_xs, tuple(consts))
+    return (pytree.tree_unflatten(list(out[:n_init]), init_spec),
+            pytree.tree_unflatten(list(out[n_init:]), y_spec[0]))

@@ -35,7 +35,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.plan import ExecPlan
-from repro_torch.runtime.pspec import constrain
+from repro_torch.runtime.pspec import constrain, model_divides
 
 __all__ = ["F32_LEAVES", "RWKVState", "WKVRecurrence", "channel_mix",
            "rwkv_init", "time_mix", "wkv_chunked", "wkv_step_scan"]
@@ -115,18 +115,16 @@ def _ddlerp(x: torch.Tensor, sx: torch.Tensor, p: Mapping) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def _wkv_step(u: torch.Tensor):
+def _wkv_step(s, rkvw, u):
     """The step body over (B, H, D) slices (or flattened (BH, D) ones);
     ``u`` (H, D) (or (BH, D)), broadcast against the leading dims."""
-    def step(s, rkvw):
-        rt, kt, vt, lwt = rkvw
-        kv = kt[..., :, None] * vt[..., None, :]
-        y = (rt[..., None, :] @ (s + u[..., None] * kv))[..., 0, :]
-        return torch.exp(lwt)[..., None] * s + kv, y
-    return step
+    rt, kt, vt, lwt = rkvw
+    kv = kt[..., :, None] * vt[..., None, :]
+    y = (rt[..., None, :] @ (s + u[..., None] * kv))[..., 0, :]
+    return torch.exp(lwt)[..., None] * s + kv, y
 
 
-def _wkv_chunk(u: torch.Tensor):
+def _wkv_chunk(s_in, rkvw, u):
     """The chunk body over (BH, c, D) blocks; ``u`` (BH, D).  With cs the
     inclusive cumsum of log_w within the chunk:
 
@@ -135,28 +133,26 @@ def _wkv_chunk(u: torch.Tensor):
     * bonus: y_t += (r_t . u . k_t) v_t;
     * S_out = exp(cs_C) S_in + sum_s exp(cs_C - cs_s) k_s v_s.
     """
-    def body(s_in, rkvw):
-        rt, kt, vt, lwt = rkvw
-        c = rt.shape[1]
-        cs = torch.cumsum(lwt, dim=1)
-        cs_prev = cs - lwt
-        r_dec = rt * torch.exp(cs_prev)
-        y_inter = r_dec @ s_in
-        k_dec = kt * torch.exp(-cs)
-        scores = r_dec @ k_dec.transpose(1, 2)
-        tri = torch.ones(c, c, dtype=torch.bool, device=rt.device).tril(-1)
-        scores = torch.where(tri[None], scores,
-                             torch.zeros((), dtype=scores.dtype,
-                                         device=scores.device))
-        y_intra = scores @ vt
-        y_diag = torch.sum(rt * u[:, None] * kt, dim=-1, keepdim=True) * vt
-        y = y_inter + y_intra + y_diag
-        cs_last = cs[:, -1:]
-        k_tail = kt * torch.exp(cs_last - cs)
-        s_new = torch.exp(cs_last[:, 0])[..., None] * s_in \
-            + k_tail.transpose(1, 2) @ vt
-        return s_new, y
-    return body
+    rt, kt, vt, lwt = rkvw
+    c = rt.shape[1]
+    cs = torch.cumsum(lwt, dim=1)
+    cs_prev = cs - lwt
+    r_dec = rt * torch.exp(cs_prev)
+    y_inter = r_dec @ s_in
+    k_dec = kt * torch.exp(-cs)
+    scores = r_dec @ k_dec.transpose(1, 2)
+    tri = torch.ones(c, c, dtype=torch.bool, device=rt.device).tril(-1)
+    scores = torch.where(tri[None], scores,
+                         torch.zeros((), dtype=scores.dtype,
+                                     device=scores.device))
+    y_intra = scores @ vt
+    y_diag = torch.sum(rt * u[:, None] * kt, dim=-1, keepdim=True) * vt
+    y = y_inter + y_intra + y_diag
+    cs_last = cs[:, -1:]
+    k_tail = kt * torch.exp(cs_last - cs)
+    s_new = torch.exp(cs_last[:, 0])[..., None] * s_in \
+        + k_tail.transpose(1, 2) @ vt
+    return s_new, y
 
 
 class WKVRecurrence(nn.Module):
@@ -168,16 +164,24 @@ class WKVRecurrence(nn.Module):
 
     def forward(self, xs: tuple, u: torch.Tensor, s0: torch.Tensor,
                 chunked: bool = False) -> tuple:
-        return L.remat_safe_scan((_wkv_chunk if chunked else _wkv_step)(u),
-                                 s0, xs)
+        return L.remat_safe_scan(_wkv_chunk if chunked else _wkv_step,
+                                 s0, xs, (u,))
+
+
+def _wkv_step_heads(r, k, v, log_w, u, s0,
+                    recurrence: WKVRecurrence) -> tuple:
+    xs = tuple(a.transpose(0, 1) for a in (r, k, v, log_w))
+    s_t, ys = recurrence(xs, u, s0)
+    return ys.transpose(0, 1), s_t
 
 
 def wkv_step_scan(r, k, v, log_w, u, s0, recurrence: WKVRecurrence) -> tuple:
     """The sequential oracle.  r, k, v, log_w (B, S, H, D); u (H, D); s0
-    (B, H, D, D) -> (y (B, S, H, D), final state (B, H, D, D))."""
-    xs = tuple(a.transpose(0, 1) for a in (r, k, v, log_w))
-    s_t, ys = recurrence(xs, u, s0)
-    return ys.transpose(0, 1), s_t
+    (B, H, D, D) -> (y (B, S, H, D), final state (B, H, D, D)).  Under a
+    mesh's rules on each rank's (batch, head) rows, as
+    :func:`wkv_chunked`."""
+    return _on_local_heads(
+        lambda *a: _wkv_step_heads(*a, recurrence), r, k, v, log_w, u, s0)
 
 
 def _wkv_chunked_bh(rf, kf, vf, lwf, uf, s0f, chunk: int,
@@ -222,19 +226,27 @@ def wkv_chunked(r, k, v, log_w, u, s0, chunk: int,
     ``local_map`` (B by the batch axes, H by ``model`` where it divides:
     the reference's (B*H) rows over the mesh), with no collective and no
     DTensor reshape of a sharded dim; unsharded without rules."""
+    return _on_local_heads(
+        lambda *a: _wkv_chunked_heads(*a, chunk, recurrence),
+        r, k, v, log_w, u, s0)
+
+
+def _on_local_heads(fn, r, k, v, log_w, u, s0) -> tuple:
+    """``fn(r, k, v, log_w, u, s0)`` -> (y, final state); under a mesh's
+    rules inside ``local_map`` (B by the batch axes, H by ``model`` where
+    it divides), itself without rules."""
     from repro_torch.runtime.pspec import current_rules, local_map
 
     rules = current_rules()
     if rules is None:
-        return _wkv_chunked_heads(r, k, v, log_w, u, s0, chunk, recurrence)
+        return fn(r, k, v, log_w, u, s0)
     b, _, h, _ = r.shape
-    hax = "model" if h % rules.axis_sizes.get("model", 1) == 0 else None
+    hax = "model" if model_divides(h) else None
     bax = rules.resolve("batch", b)
     s4 = (bax, None, hax, None)
     st = (bax, hax, None, None)
-    return local_map(
-        lambda *a: _wkv_chunked_heads(*a, chunk, recurrence),
-        (s4,) * 4 + ((hax, None), st), [s4, st], r, k, v, log_w, u, s0)
+    return local_map(fn, (s4,) * 4 + ((hax, None), st), [s4, st],
+                     r, k, v, log_w, u, s0)
 
 
 # ---------------------------------------------------------------------------
@@ -244,13 +256,31 @@ def wkv_chunked(r, k, v, log_w, u, s0, chunk: int,
 
 def _groupnorm_heads(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      nh: int, eps: float = 64e-5) -> torch.Tensor:
-    b, s, d = y.shape
-    f32 = torch.float32
-    yh = L.cast(y.reshape(b, s, nh, d // nh), f32)
-    mu = torch.mean(yh, dim=-1, keepdim=True)
-    var = torch.var(yh, dim=-1, keepdim=True, correction=0)
-    yh = (yh - mu) * torch.rsqrt(var + eps)
-    return yh.reshape(b, s, d) * L.cast(scale, f32) + L.cast(bias, f32)
+    """The per-head group norm of (B, S, d); under a mesh's rules whose
+    ``model`` axis does not divide the heads, in ``local_map`` on each
+    rank's batch rows (:func:`_channels_whole`)."""
+    from repro_torch.runtime.pspec import current_rules, local_map
+
+    def norm(yy, sc, bi):
+        b, s, d = yy.shape
+        f32 = torch.float32
+        yh = L.cast(yy.reshape(b, s, nh, d // nh), f32)
+        mu = torch.mean(yh, dim=-1, keepdim=True)
+        var = torch.var(yh, dim=-1, keepdim=True, correction=0)
+        yh = (yh - mu) * torch.rsqrt(var + eps)
+        return yh.reshape(b, s, d) * L.cast(sc, f32) + L.cast(bi, f32)
+
+    if model_divides(nh):
+        return norm(y, scale, bias)
+    spec = (current_rules().resolve("batch", y.shape[0]), None, None)
+    return local_map(norm, (spec, (None,), (None,)), spec, y, scale, bias)
+
+
+def _channels_whole(t: torch.Tensor, nh: int) -> torch.Tensor:
+    """``t`` (B, S, d) with its channels replicated under a mesh's rules
+    whose ``model`` axis does not divide the ``nh`` heads (40 of 64 at
+    RWKV-6-3B's width over 16 ranks; :func:`model_divides`)."""
+    return t if model_divides(nh) else constrain(t, "batch", None, None)
 
 
 def time_mix(x: torch.Tensor, p: Mapping, cfg, plan: ExecPlan,
@@ -264,7 +294,8 @@ def time_mix(x: torch.Tensor, p: Mapping, cfg, plan: ExecPlan,
     xr, xk, xv, xw, xg = _ddlerp(x, sx, p)
 
     def heads(a, w):
-        return L.cast((a @ L.cast(w, dt)).reshape(b, s, nh, hd), f32)
+        return L.cast(_channels_whole(a @ L.cast(w, dt), nh).reshape(
+            b, s, nh, hd), f32)
 
     rr, kk, vv = heads(xr, p["wr"]), heads(xk, p["wk"]), heads(xv, p["wv"])
     g = F.silu(xg @ L.cast(p["wg"], dt))
@@ -272,7 +303,7 @@ def time_mix(x: torch.Tensor, p: Mapping, cfg, plan: ExecPlan,
         L.cast(torch.tanh(xw @ L.cast(p["w_lora_a"], dt)), f32)
         @ L.cast(p["w_lora_b"], f32))
     log_w = -torch.exp(torch.clamp(w_pre, -8.0, 2.0))   # <= 0, bounded
-    log_w = log_w.reshape(b, s, nh, hd)
+    log_w = _channels_whole(log_w, nh).reshape(b, s, nh, hd)
     u = L.cast(p["u"], f32)
     s0 = state.wkv if state is not None else torch.zeros(
         b, nh, hd, hd, dtype=f32, device=x.device)

@@ -67,7 +67,8 @@ from repro_torch.models.rglru import (LinearRecurrence, RGLRUState,
                                       rglru_block, rglru_init)
 from repro_torch.models.rwkv import (RWKVState, WKVRecurrence, channel_mix,
                                      rwkv_init, time_mix)
-from repro_torch.runtime.pspec import axis_rules, constrain, current_rules
+from repro_torch.runtime.pspec import (axis_rules, constrain, current_rules,
+                                       model_divides)
 
 __all__ = ["DenseBlock", "INIT_STD", "LMParams", "RWKVBlock",
            "RecurrentSublayer", "check_family", "decode_step",
@@ -92,14 +93,11 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 def _dots_contexts():
-    """The selective-checkpoint contexts of the ``dots`` policy.  They are
-    told they may see higher-order operators: a ``scan`` (the RG-LRU
-    ``step`` and RWKV scans) then reaches the policy as one op and is
-    recomputed whole, where the stock contexts raise."""
-    contexts = create_selective_checkpoint_contexts(_save_dots)
-    for mode in contexts:
-        mode.supports_higher_order_operators = True
-    return contexts
+    """The selective-checkpoint contexts of the ``dots`` policy.  A
+    ``scan`` (the RG-LRU ``step`` and RWKV scans) never reaches them:
+    ``layers.remat_safe_scan`` pops them while it runs, and the scan is
+    recomputed whole."""
+    return create_selective_checkpoint_contexts(_save_dots)
 
 
 def _under_rules(fn, rules, *args, **kwargs):
@@ -125,6 +123,22 @@ def _maybe_remat(fn, plan: ExecPlan):
         return functools.partial(checkpoint, fn, use_reentrant=False,
                                  context_fn=_dots_contexts)
     return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, H * D).  Under a mesh's rules with heads that
+    ``model`` does not divide (10 at RecurrentGemma-2B's width over 16
+    ranks), the merge runs in ``local_map`` on each rank's batch rows: its
+    backward would view the output projection's gradient, sharded over
+    ``model``, into those heads (:func:`model_divides`)."""
+    from repro_torch.runtime.pspec import local_map
+
+    b, s, h, _ = o.shape
+    if model_divides(h):
+        return o.reshape(b, s, -1)
+    bspec = current_rules().resolve("batch", b)
+    return local_map(lambda t: t.flatten(2), ((bspec, None, None, None),),
+                     (bspec, None, None), o)
 
 
 def check_family(cfg) -> None:
@@ -239,7 +253,7 @@ class DenseBlock(nn.Module):
             positions = torch.arange(s, device=x.device)
         q, k, v = project_qkv(self.ln1(x, plan), self, self.cfg, plan,
                               positions)
-        o = self.attn(q, k, v, plan).reshape(b, s, -1)
+        o = _merge_heads(self.attn(q, k, v, plan))
         x = x + constrain(o @ L.cast(self.wo, L.cdtype(plan)),
                           "batch", "seq", None)
         y, aux = self._ffn(x, plan)

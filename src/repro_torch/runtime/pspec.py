@@ -55,7 +55,7 @@ import torch.distributed._functional_collectives as funcol
 
 __all__ = ["AxisVal", "ShardingRules", "axis_all_gather", "axis_all_to_all",
            "axis_index", "axis_max", "axis_mean", "axis_rules", "axis_sizes", "axis_sum",
-           "constrain", "current_rules", "dividing_axes", "local_map", "mesh_body", "placements_spec", "shard_map", "spec_placements"]
+           "constrain", "current_rules", "dividing_axes", "local_map", "mesh_body", "model_divides", "placements_spec", "shard_map", "spec_placements"]
 
 AxisVal = Union[None, str, tuple]
 
@@ -187,6 +187,16 @@ def constrain(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     if tuple(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def model_divides(n: int) -> bool:
+    """Whether the active rules' ``model`` axis divides ``n`` heads (True
+    without rules).  Where it does not, a channel shard over ``model``
+    cannot be viewed into those heads by DTensor (XLA reshards it
+    implicitly), and the models pin the channels whole or split in
+    ``local_map`` instead."""
+    rules = current_rules()
+    return rules is None or n % rules.axis_sizes.get("model", 1) == 0
 
 
 def dividing_axes(dim: int, candidates=(("pod", "data", "model"),

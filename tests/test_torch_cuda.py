@@ -872,6 +872,55 @@ def test_train_step_on_card_matches_cpu(cuda, arch, over):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
+def test_rglru_step_train_step_on_card_matches_assoc_on_cpu(cuda, remat):
+    """The RG-LRU ``step`` train step (the lifted ``scan`` and autograd's
+    backward scan) on the card against the ``assoc`` step (plain ops, no
+    scan) on the CPU, which shares no scan code with it: loss and gradient
+    norm within 1e-5 relative, each first moment (the gradient) within 1e-4
+    of its norm.  A scan that drops the carry's gradient between steps
+    misses by far more."""
+    _, got_state, got = _train_step_on(
+        cuda, "recurrentgemma_2b", {"rglru_impl": "step", "remat": remat})
+    _, want_state, want = _train_step_on(
+        "cpu", "recurrentgemma_2b", {"rglru_impl": "assoc", "remat": remat})
+    for k in ("loss", "grad_norm"):
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-5), k
+    for k, wm in want_state.opt.mu.items():
+        m = got_state.opt.mu[k].cpu()
+        assert float((m - wm).norm()) <= 1e-4 * float(wm.norm()) + 1e-9, k
+
+
+@pytest.mark.gpu
+def test_lifted_scan_gradients_equal_an_unrolled_loop_on_card(cuda):
+    """``layers.remat_safe_scan`` from an initial carry that needs no
+    gradient, on this machine's torch: the gradients in xs and the lifted
+    input equal those of the same body unrolled."""
+    from repro_torch.models.layers import remat_safe_scan
+
+    g = torch.Generator().manual_seed(3)
+    la = (-torch.rand(6, 2, 5, generator=g)).to(cuda).requires_grad_()
+    b = torch.randn(6, 2, 5, generator=g).to(cuda).requires_grad_()
+    u = torch.randn(2, 5, generator=g).to(cuda).requires_grad_()
+    h0 = torch.zeros(2, 5, device=cuda)
+
+    def step(h, x, u):
+        h = torch.exp(x[0]) * h + x[1] * u
+        return h, h.clone()
+
+    h_last, hs = remat_safe_scan(step, h0, (la, b), (u,))
+    got = torch.autograd.grad((hs ** 2).sum() + h_last.sum(), [la, b, u])
+    h, ys = h0, []
+    for t in range(6):
+        h, y = step(h, (la[t], b[t]), u)
+        ys.append(y)
+    want = torch.autograd.grad((torch.stack(ys) ** 2).sum() + h.sum(),
+                               [la, b, u])
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
 def test_scan_export_releases_the_program_on_card(cuda):
     """The export frontend's release of what dynamo cached, on this
     machine's torch: a reduced hybrid model's parameters on the card die
