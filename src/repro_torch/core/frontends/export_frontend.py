@@ -78,6 +78,7 @@ import dis
 import functools
 import inspect
 import operator
+import threading
 import time
 import types
 from typing import Any, Callable
@@ -256,6 +257,30 @@ class _DynamoEntries:
             del self._backends[key]
 
 
+#: one call of an exported program's input guards at a time
+#: (:class:`_SerialGuards`)
+_GUARDS_LOCK = threading.RLock()
+
+
+class _SerialGuards(torch.nn.Module):
+    """An exported program's ``_guards_fn`` called under
+    :data:`_GUARDS_LOCK`.  torch 2.11 runs the guards inside one
+    ``torch._dynamo.config`` patch whose saved settings belong to the patch,
+    not to the calling thread, so two threads inside it at once fail
+    (``AssertionError: prior should be empty when entering ConfigPatch``)
+    or restore each other's settings.  A program and every substitution of
+    it share one guards module, and the planner's overlapped prepares and a
+    served endpoint's clients call them from several threads."""
+
+    def __init__(self, guards: torch.nn.Module):
+        super().__init__()
+        self.guards = guards
+
+    def forward(self, *args):
+        with _GUARDS_LOCK:
+            return self.guards(*args)
+
+
 def _export(root: torch.nn.Module, example_args: tuple, label: str):
     """``torch.export`` of ``root``, refusing a program that calls modules
     when none of its nodes records a module scope: its modules were not
@@ -268,7 +293,8 @@ def _export(root: torch.nn.Module, example_args: tuple, label: str):
     partitioned, which costs seconds a layer.  What dynamo cached while
     exporting is released after (:class:`_DynamoEntries`), so the program
     does not outlive its caller's references.  The export and that release
-    run under the process-wide :data:`TRACE_LOCK`."""
+    run under the process-wide :data:`TRACE_LOCK`, and the program's input
+    guards run one call at a time (:class:`_SerialGuards`)."""
     called: list = []
     handle = torch.nn.modules.module.register_module_forward_pre_hook(
         lambda m, _args: called.append(m) if m is not root else None)
@@ -287,6 +313,8 @@ def _export(root: torch.nn.Module, example_args: tuple, label: str):
                    and (not type(m).__module__.startswith("torch.")
                         or type(m).__module__.startswith("torch.nn."))})
     gm = ep.module()
+    if isinstance(getattr(gm, "_guards_fn", None), torch.nn.Module):
+        gm._guards_fn = _SerialGuards(gm._guards_fn)
     if read and not any(_scope(n)[0] for n in gm.graph.nodes
                         if n.op == "call_function"):
         raise ValueError(

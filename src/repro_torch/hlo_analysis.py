@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import operator
+import threading
 from dataclasses import dataclass, field, replace
 from typing import Any, Optional
 
@@ -630,6 +631,50 @@ def _module_scopes(root: Optional[torch.nn.Module], stack: list):
         sync()
 
 
+_META_RUN = threading.local()
+_META_RUN_LOCK = threading.Lock()
+
+
+def _meta_run_depth() -> int:
+    return getattr(_META_RUN, "depth", 0)
+
+
+#: the ``ShardingPropagator`` methods whose ops are DTensor's own: the
+#: sharding propagation of an op it has not met (shard sizes and offsets),
+#: and the run of the op on whole-shape fake tensors that reads its
+#: output's global shape
+_PROPAGATION = ("propagate_op_sharding_non_cached",
+                "_propagate_tensor_meta_non_cached", "_propagate_tensor_meta")
+
+
+def _unrecord_dtensor_meta_runs() -> None:
+    """Mark DTensor's sharding propagation, which runs ops of its own the
+    first time it meets an op's shapes and placements (``_PROPAGATION``;
+    torch 2.11 and 2.13 have them).  Those ops are no part of a rank's
+    program, but a dispatch mode sees them; the recorder skips what runs
+    while this thread is inside one.  Installed once a process; the
+    wrappers only count their calls on the thread."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    def mark(orig):
+        def marked(self, *args, **kwargs):
+            _META_RUN.depth = _meta_run_depth() + 1
+            try:
+                return orig(self, *args, **kwargs)
+            finally:
+                _META_RUN.depth -= 1
+
+        marked._meta_run_marked = True
+        return marked
+
+    with _META_RUN_LOCK:
+        for name in _PROPAGATION:
+            orig = getattr(ShardingPropagator, name, None)
+            if orig is not None and not getattr(orig, "_meta_run_marked",
+                                                False):
+                setattr(ShardingPropagator, name, mark(orig))
+
+
 class _Recorder(TorchDispatchMode):
     """Records every aten op dispatched under it into an FX graph, each
     node's output as its ``meta["val"]`` (the tensors themselves: meta or
@@ -698,9 +743,9 @@ class _Recorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if get_proxy_mode() is not None:
-            # torch tracing a scan's body or its joint graph: not the
-            # program's ops
+        if get_proxy_mode() is not None or _meta_run_depth():
+            # torch tracing a scan's body or its joint graph, or DTensor's
+            # own sharding propagation: not the program's ops
             return func(*args, **kwargs)
         if any(issubclass(t, _DTensor) for t in types):
             # a DTensor op: let DTensor run it; the local ops and the
@@ -745,14 +790,16 @@ def lower(fn, *args, scope_root: Optional[torch.nn.Module] = None
     time); an op on DTensors is left to DTensor, whose local ops and
     collectives it records, so a sharded program's graph is one rank's,
     with the local shards as its arguments (DTensor's sharding propagation
-    also runs ops, on fake tensors, the first time it meets an op's
-    shapes: trace such a program once before the trace that counts).  A
+    also runs ops, some on whole-shape fake tensors, the first time it
+    meets an op's shapes; the recorder leaves those out,
+    :func:`_unrecord_dtensor_meta_runs`).  A
     ``scan`` is one node of the recorder's (:func:`_record_scan`), its
     body a subgraph; another higher-order op, which the mode has no rule
     for, raises ``NotImplementedError``."""
     from torch._guards import detect_fake_mode
 
     stack: list = []
+    _unrecord_dtensor_meta_runs()
     local = [a._local_tensor if isinstance(a, _DTensor) else a for a in args]
     mode = detect_fake_mode(local)
     rec = _Recorder(stack)

@@ -294,11 +294,6 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, plan: ExecPlan,
                                 rules=make_rules(mesh))
         n_dev = mesh.size()
     depths = _depths(cfg)
-    if mesh is not None:
-        # a first trace fills DTensor's sharding-propagation caches, whose
-        # misses run ops of their own; the traces that count hit them
-        one(cfg if depths is None
-            else dataclasses.replace(cfg, n_layers=depths[0]))
     if depths is None:
         lowered = one(cfg)
     else:

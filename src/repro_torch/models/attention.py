@@ -34,7 +34,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.plan import ExecPlan
-from repro_torch.runtime.pspec import (axis_all_gather, axis_index,
+from repro_torch.runtime.pspec import (axis_gather_whole, axis_index,
                                        constrain, current_rules, local_map,
                                        model_divides)
 
@@ -363,11 +363,13 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if hi - lo < per:                      # the padding heads: nothing
             out = torch.nn.functional.pad(out, (0, 0, 0, per - (hi - lo)))
         if m > 1:
-            out = axis_all_gather(out, "model", 2)[:, :, :hq]
+            out = axis_gather_whole(out, "model", 2)[:, :, :hq]
         return out
 
     spec = (rules.resolve("batch", b), None, None, None)
-    out = local_map(body, (spec, spec, spec), spec, q, kh, vh)
+    # q, k and v, whole over model, each serve the rank's heads only
+    out = local_map(body, (spec, spec, spec), spec, q, kh, vh,
+                    grad_sums=(("model",),) * 3)
     return constrain(out, "batch", None, hax, None)
 
 
@@ -382,28 +384,60 @@ def attend_local_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Each query chunk of ``window`` attends its own and the previous KV
     chunk only: exact for causal local attention (query p sees (p - w,
     p]); ragged lengths take the chunked path.  Under a mesh's rules the
-    band runs in ``local_map`` on each rank's batch rows, every chunk
-    whole and the heads split over ``model`` where it divides the KV heads
-    (:func:`model_divides`), whole where it does not (each rank then
-    attends every head): DTensor cannot view a sequence split into chunks
-    that do not divide ``seq_sp`` (2 of 2048 at RecurrentGemma-2B's 4096
-    tokens over 16 ranks), and where they do, its strategy search over the
-    chunked einsums on the three-axis mesh ran past 15 minutes."""
+    band runs in ``local_map`` on each rank's batch rows, split over
+    ``model`` as the reference's program splits it:
+
+    * by heads where ``model`` divides the KV heads (the same share of the
+      work as the reference's split of the chunks);
+    * else by chunks where the rules put the chunk axis on ``seq_sp`` (the
+      reference's ``constrain`` of its chunks; its rule drops a mesh axis
+      that does not divide them): each rank takes its n / model chunks
+      with the KV chunk before them, and the output is gathered over
+      ``model``;
+    * else every chunk and head whole on each rank (2 chunks over 16 ranks
+      at RecurrentGemma-2B's 4096 tokens: the reference's rank computes
+      them all too).
+
+    DTensor cannot view a sequence split into chunks that do not divide
+    ``seq_sp``, and where they do, its strategy search over the chunked
+    einsums on the three-axis mesh ran past 15 minutes: hence the body."""
     b, sq, hq, hd = q.shape
     w = window
     if sq % w != 0 or k.shape[1] != sq:
         return attend_chunked(q, k, v, pos_q, pos_k, True, window, plan)
     rules = current_rules()
-    if rules is not None:
-        spec = (rules.resolve("batch", b), None,
-                "model" if model_divides(k.shape[2]) else None, None)
+    if rules is None:
+        return _banded(q, k, v, pos_q, pos_k, w, plan)
+    bax = rules.resolve("batch", b)
+    heads = model_divides(k.shape[2])
+    sp = None if heads else rules.resolve("seq_sp", sq // w)
+    if not isinstance(sp, str) or rules.axis_sizes[sp] == 1:
+        spec = (bax, None, "model" if heads else None, None)
         return local_map(
             lambda qq, kk, vv: _banded(qq, kk, vv, pos_q, pos_k, w, plan),
             (spec, spec, spec), spec, q, k, v)
-    return _banded(q, k, v, pos_q, pos_k, w, plan)
+    span = sq // rules.axis_sizes[sp]          # this rank's chunks' tokens
+
+    def body(qq, kk, vv):
+        lo = axis_index(sp) * span
+        prev = None
+        if lo:
+            prev = (kk[:, lo - w:lo], vv[:, lo - w:lo], pos_k[lo - w:lo])
+        out = _banded(qq[:, lo:lo + span], kk[:, lo:lo + span],
+                      vv[:, lo:lo + span], pos_q[lo:lo + span],
+                      pos_k[lo:lo + span], w, plan, prev)
+        return axis_gather_whole(out, sp, 1)
+
+    spec = (bax, None, None, None)
+    # q, k and v, whole over ``sp``, each serve the rank's chunks only
+    return local_map(body, (spec, spec, spec), spec, q, k, v,
+                     grad_sums=((sp,),) * 3)
 
 
-def _banded(q, k, v, pos_q, pos_k, w: int, plan: ExecPlan) -> torch.Tensor:
+def _banded(q, k, v, pos_q, pos_k, w: int, plan: ExecPlan,
+            prev: Optional[tuple] = None) -> torch.Tensor:
+    """The band over whole chunks of ``w``; ``prev`` (k, v, positions) is
+    the KV chunk before the first (none: zeros at masked positions)."""
     b, sq, hq, hd = q.shape
     nkv = k.shape[2]
     n = sq // w
@@ -411,14 +445,19 @@ def _banded(q, k, v, pos_q, pos_k, w: int, plan: ExecPlan) -> torch.Tensor:
     qc = constrain(qc, "batch", "seq_sp", None, None, None, None)  # SP chunks
     kc = k.reshape(b, n, w, nkv, hd)
     vc = v.reshape(b, n, w, nkv, hd)
-    k_prev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
-    v_prev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    if prev is None:
+        k0, v0 = torch.zeros_like(kc[:, :1]), torch.zeros_like(vc[:, :1])
+    else:
+        k0, v0 = (t.reshape(b, 1, w, nkv, hd) for t in prev[:2])
+    k_prev = torch.cat([k0, kc[:, :-1]], dim=1)
+    v_prev = torch.cat([v0, vc[:, :-1]], dim=1)
     kk = torch.cat([k_prev, kc], dim=2)  # (B,n,2w,Hkv,D)
     vv = torch.cat([v_prev, vc], dim=2)
     pq = pos_q.reshape(n, w)
     pk = pos_k.reshape(n, w)
-    pk_prev = torch.cat([torch.full_like(pk[:1], torch.iinfo(torch.int32).max),
-                         pk[:-1]], dim=0)
+    p0 = (torch.full_like(pk[:1], torch.iinfo(torch.int32).max)
+          if prev is None else prev[2].reshape(1, w))
+    pk_prev = torch.cat([p0, pk[:-1]], dim=0)
     pkk = torch.cat([pk_prev, pk], dim=1)  # (n, 2w)
     s = torch.einsum("bnqhgd,bnkhd->bnhgqk", L.cast(qc, torch.float32),
                      L.cast(kk, torch.float32)) * (1.0 / math.sqrt(hd))

@@ -47,9 +47,9 @@ from torch.utils.checkpoint import _CachingTorchDispatchMode as _sac_caching_mod
 from repro_torch.core.trace_lock import TRACE_LOCK
 from repro_torch.models.plan import REFERENCE_PLAN, ExecPlan
 from repro_torch.runtime.pspec import (axis_all_gather, axis_index,
-                                       axis_sizes, axis_sum, constrain,
-                                       current_rules, local_map,
-                                       placements_spec)
+                                       axis_names, axis_sizes, axis_sum,
+                                       constrain, current_rules, dense,
+                                       local_map, placements_spec)
 
 __all__ = ["LayerNorm", "RMSNorm", "apply_rope", "cast", "cdtype",
            "cross_entropy_chunked", "cross_entropy_full", "dense_init",
@@ -226,21 +226,37 @@ def _ff_constrain(h: torch.Tensor) -> torch.Tensor:
 
 def mlp_ref(x: torch.Tensor, p: Mapping[str, torch.Tensor], act: str,
             plan: ExecPlan) -> torch.Tensor:
-    """Reference: three separate matmuls, (in, out) weights."""
+    """Reference: three separate matmuls, (in, out) weights.  Under a
+    mesh's rules each is laid out as the reference's partitioner lays it
+    out (:func:`~repro_torch.runtime.pspec.dense`): the hidden's columns
+    over ``model``, where the reference pins them."""
     dt = cdtype(plan)
-    g = _ff_constrain(x @ cast(p["w_gate"], dt))
-    u = _ff_constrain(x @ cast(p["w_up"], dt))
-    return _ff_constrain(_act(g, act) * u) @ cast(p["w_down"], dt)
+    g = _ff_constrain(dense(x, cast(p["w_gate"], dt), cols=True))
+    u = _ff_constrain(dense(x, cast(p["w_up"], dt), cols=True))
+    return dense(_ff_constrain(_act(g, act) * u), cast(p["w_down"], dt),
+                 rows=True)
 
 
 def mlp_fused(x: torch.Tensor, p: Mapping[str, torch.Tensor], act: str,
               plan: ExecPlan) -> torch.Tensor:
-    """Fused: gate and up as one matmul."""
+    """Fused: gate and up as one matmul.  Under a mesh's rules with a
+    ``model`` axis, :func:`mlp_ref`'s layout: the concatenation of two
+    weights whose columns are sharded over ``model`` is gathered whole
+    (each rank would compute every hidden column), and one matmul of each
+    rank's column blocks is the two matmuls' work."""
+    if _on_model_axis():
+        return mlp_ref(x, p, act, plan)
     dt = cdtype(plan)
     wgu = cast(torch.cat([p["w_gate"], p["w_up"]], dim=1), dt)
     g, u = torch.chunk(x @ wgu, 2, dim=-1)
     return _ff_constrain(_act(_ff_constrain(g), act) * _ff_constrain(u)) \
         @ cast(p["w_down"], dt)
+
+
+def _on_model_axis() -> bool:
+    """Whether the active rules have a ``model`` axis of several ranks."""
+    rules = current_rules()
+    return rules is not None and rules.axis_sizes.get("model", 1) > 1
 
 
 def mlp(x: torch.Tensor, p: Mapping[str, torch.Tensor], act: str,
@@ -255,12 +271,6 @@ def mlp(x: torch.Tensor, p: Mapping[str, torch.Tensor], act: str,
 # ---------------------------------------------------------------------------
 
 
-def _axes_of(entry) -> tuple:
-    """The mesh axes of one ``PartitionSpec`` entry."""
-    return () if entry is None else ((entry,) if isinstance(entry, str)
-                                     else tuple(entry))
-
-
 def _embed_sharded(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """The lookup of a table that is a DTensor, under the rules' mesh: a
     local body that gathers the table's feature dim, looks up the tokens
@@ -272,7 +282,7 @@ def _embed_sharded(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     bspec = current_rules().pspec(tuple(tokens.shape),
                                   ("batch",) + (None,) * (tokens.dim() - 1))
     sizes = axis_sizes(mesh)
-    v_axes, d_axes = _axes_of(tspec[0]), _axes_of(tspec[1])
+    v_axes, d_axes = axis_names(tspec[0]), axis_names(tspec[1])
 
     def body(tok, tab):
         for a in reversed(d_axes):
@@ -358,7 +368,7 @@ def _cross_entropy_sharded(h, table, labels, plan: ExecPlan,
     mesh = table.device_mesh
     sizes = axis_sizes(mesh)
     tspec = placements_spec(mesh, table.placements, 2)
-    v_axes, d_axes = _axes_of(tspec[0]), _axes_of(tspec[1])
+    v_axes, d_axes = axis_names(tspec[0]), axis_names(tspec[1])
     hspec = rules.pspec(tuple(h.shape), ("batch", "seq_sp", None))
     lspec = rules.pspec(tuple(labels.shape), ("batch", "seq_sp"))
     n_shards = math.prod(sizes[a] for a in v_axes)

@@ -234,8 +234,8 @@ def moe_scatter_ep_sharded(x2d: torch.Tensor, p: Mapping, router: Router,
     fewer local tokens than experts), as the reference does."""
     import math
 
-    from repro_torch.runtime.pspec import (current_rules, dividing_axes,
-                                           local_map)
+    from repro_torch.runtime.pspec import (axis_names, current_rules,
+                                           dividing_axes, local_map)
 
     rules = current_rules()
     if rules is None:
@@ -265,8 +265,14 @@ def moe_scatter_ep_sharded(x2d: torch.Tensor, p: Mapping, router: Router,
         return _moe_ep_body(x_loc, wr, wg, wu, wd, cfg=cfg, plan=plan,
                             t_axes=t_axes, fsdp=fsdp)
 
+    # a weight whole over a token axis serves the rank's tokens only (its
+    # shard over "data" is gathered in the body, whose backward sums it)
+    sums = (None,) + tuple(
+        tuple(a for a in t_axes
+              if a not in {n for e in spec for n in axis_names(e)})
+        for spec in w_specs)
     y, lb, z = local_map(body, (tspec,) + w_specs, [tspec, (), ()],
-                         x2d, *ws)
+                         x2d, *ws, grad_sums=sums)
     return y, MoEAux(lb, z)
 
 

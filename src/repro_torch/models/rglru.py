@@ -77,13 +77,14 @@ F32_LEAVES = ("w_conv", "b_conv", "b_a", "b_x", "lam")
 def _gates(x: torch.Tensor, p: Mapping, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """Block-diagonal gate projections.  x: (..., d_rnn).  Under a mesh's
     rules they run in ``local_map`` on each rank's batch rows, the heads
-    split over ``model`` where it divides them (:func:`model_divides`) and
-    whole where it does not: a channel shard over ``model`` need not split
-    into the heads (10 of 256 over 16 ranks at RecurrentGemma-2B's width),
-    which a DTensor view cannot do (XLA reshards it implicitly), so there
-    each rank projects every head."""
+    split over ``model`` as the reference's partitioner splits them: where
+    ``model`` divides the heads and the operands come split there (``w_a``
+    by the rules, or ``x``'s channels by the scan that consumes the gates),
+    else every head whole on each rank (3 heads over 2 ranks, or 10 over 16
+    at RecurrentGemma-2B's width: the reference's rank computes them all
+    too, ``tests/test_torch_mesh_parity.py``)."""
     from repro_torch.runtime.pspec import (dividing_axes, local_map,
-                                           model_divides)
+                                           model_divides, sharded_over)
 
     def project(xx, w_a, w_x):
         shape = xx.shape
@@ -92,12 +93,15 @@ def _gates(x: torch.Tensor, p: Mapping, cfg) -> tuple[torch.Tensor, torch.Tensor
                 torch.einsum("...hd,hde->...he", xh, w_x).reshape(shape))
 
     b_axes = dividing_axes(x.shape[0], (("pod", "data"), ("data",)))
-    hax = "model" if model_divides(cfg.n_heads) else None
+    split = model_divides(cfg.n_heads) and (
+        sharded_over(x, -1, "model") or sharded_over(p["w_a"], 0, "model"))
+    hax = "model" if split else None
     sx = (b_axes if len(b_axes) > 1 else (b_axes[0] if b_axes else None),
           *(None,) * (x.dim() - 2), hax)
     w = (hax, None, None)
     r, i = local_map(project, (sx, w, w), [sx, sx], x,
-                     cast(p["w_a"], x.dtype), cast(p["w_x"], x.dtype))
+                     cast(p["w_a"], x.dtype), cast(p["w_x"], x.dtype),
+                     grad_sums=(None, b_axes, b_axes))
     f32 = torch.float32
     r = torch.sigmoid(cast(r, f32) + cast(p["b_a"], f32))
     i = torch.sigmoid(cast(i, f32) + cast(p["b_x"], f32))
@@ -251,16 +255,23 @@ def rglru_block(x: torch.Tensor, p: Mapping, cfg, plan: ExecPlan,
     """x: (B,S,d_model) -> ((B,S,d_model), the new state for a decode
     continuation), from ``state`` (zero when None).  ``p`` holds the
     reference's ``rglru`` parameters; the compute dtype is the plan's."""
+    from repro_torch.runtime.pspec import dense, dividing_axes
+
     dt = cdtype(plan)
     width = cfg.conv1d_width
-    branch = F.gelu(x @ cast(p["w_branch"], dt), approximate="tanh")
-    u_raw = x @ cast(p["w_in"], dt)
+    # where the scan splits its channels over ``model``, the two input
+    # projections split their columns there (the reference's shard_map
+    # in_specs drive its partitioner so)
+    cols = bool(dividing_axes(p["w_in"].shape[-1], (("model",),)))
+    branch = F.gelu(dense(x, cast(p["w_branch"], dt), cols=cols),
+                    approximate="tanh")
+    u_raw = dense(x, cast(p["w_in"], dt), cols=cols)
     prefix = state.conv if state is not None else None
     u = conv1d_causal(u_raw, p["w_conv"], p["b_conv"], prefix)
     log_a, b = _coeffs(u, p, cfg)
     hs, h_last = rglru_scan(log_a, b, state.h if state is not None else None,
                             plan, recurrence)
-    y = (cast(hs, dt) * branch) @ cast(p["w_out"], dt)
+    y = dense(cast(hs, dt) * branch, cast(p["w_out"], dt))
     if prefix is None:
         prefix = torch.zeros(x.shape[0], width - 1, u_raw.shape[2],
                              dtype=dt, device=x.device)

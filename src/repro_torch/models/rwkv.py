@@ -20,7 +20,9 @@ Either scan runs inside the submodule :class:`WKVRecurrence`, so the
 export frontend isolates it as one ``loop`` region a layer (a prefill does
 not unroll its steps).  Under a mesh's rules the chunked form runs inside
 ``local_map`` over (batch * head), as the reference's ``shard_map`` does,
-and the Finch lerp's (5 * R) projection is pinned whole before its split.
+and the lerp and the projections run on each rank's batch rows, split
+over ``model`` where the reference's partitioner splits them
+(:func:`repro_torch.runtime.pspec.dense`).
 The chunked body keeps the reference's split ``exp(cs_prev) * exp(-cs)``:
 it overflows f32 under strong decay over a chunk, a gap of the reference
 (``ROADMAP.md`` §3) kept as it is.
@@ -35,7 +37,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.plan import ExecPlan
-from repro_torch.runtime.pspec import constrain, model_divides
+from repro_torch.runtime.pspec import axis_names, dense, model_divides
 
 __all__ = ["F32_LEAVES", "RWKVState", "WKVRecurrence", "channel_mix",
            "rwkv_init", "time_mix", "wkv_chunked", "wkv_step_scan"]
@@ -95,19 +97,63 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
     return torch.cat([L.cast(first, x.dtype), x[:, :-1]], dim=1)
 
 
+def _lerp(x: torch.Tensor, dx: torch.Tensor, mu_base: torch.Tensor,
+          w1: torch.Tensor, w2: torch.Tensor, mu: torch.Tensor,
+          split: bool) -> tuple:
+    """The five mixed inputs ``x + dx * mix``, ``mix`` (..., 5, d) the lerp
+    weights ``mu`` plus the low-rank adjustment of ``x + dx * mu_base``
+    (``tanh(. @ w1)`` split into (5, R) and contracted with ``w2`` (5, R,
+    d)).  ``split``: ``w2`` holds this rank's R / model slice, ``w1`` all
+    of it: the rank computes its R columns of both products and the
+    adjustment is summed over ``model``."""
+    from repro_torch.runtime.pspec import axis_index, axis_sum, grad_sum
+
+    xxx = x + dx * mu_base
+    r = w2.shape[1]                           # this rank's share of R
+    if split:
+        xxx = grad_sum(xxx, "model")          # feeds this rank's R only
+        lo = axis_index("model") * r
+        w1 = w1.reshape(w1.shape[0], 5, -1)[:, :, lo:lo + r].reshape(
+            w1.shape[0], 5 * r)
+    z = torch.tanh(xxx @ w1).reshape(*x.shape[:-1], 5, r)
+    adj = torch.einsum("...fr,frd->...fd", z, w2)
+    if split:
+        adj = axis_sum(adj, "model")
+    mix = mu + adj                                              # (...,5,d)
+    return tuple(x + dx * mix[..., i, :] for i in range(5))
+
+
 def _ddlerp(x: torch.Tensor, sx: torch.Tensor, p: Mapping) -> tuple:
-    """Finch data-dependent lerp: the 5 mixed inputs for r, k, v, w, g."""
+    """Finch data-dependent lerp: the 5 mixed inputs for r, k, v, w, g.
+    Under a mesh's rules the lerp runs in ``local_map`` on the rank's own
+    batch rows, channels whole, so no tensor of it (nor of its backward:
+    the lerp weights' gradients are summed over the ranks) has the whole
+    batch's extent.  Where the rules shard ``dd_w2``'s rank dim over
+    ``model``, each rank computes R / model columns of the two low-rank
+    products, as the reference's partitioner splits them (``dd_w1``'s
+    shard over ``model`` does not fall on R's boundaries, so it comes
+    whole and each rank takes its R columns)."""
+    from repro_torch.runtime.pspec import current_rules, local_map, sharded_over
+
     dt = x.dtype
     dx = sx - x
-    xxx = x + dx * L.cast(p["mu_base"], dt)
-    z = torch.tanh(xxx @ L.cast(p["dd_w1"], dt))
-    # under a mesh the 5 * R dim is pinned whole first: its split into (5,
-    # R) cannot keep a shard over "model" (XLA reshards it implicitly)
-    z = constrain(z, "batch", None, None)
-    z = z.reshape(*x.shape[:-1], 5, _DD_R)
-    adj = torch.einsum("...fr,frd->...fd", z, L.cast(p["dd_w2"], dt))
-    mix = L.cast(p["mu_rkvwg"], dt) + adj                       # (...,5,d)
-    return tuple(x + dx * mix[..., i, :] for i in range(5))
+    args = (x, dx, L.cast(p["mu_base"], dt), L.cast(p["dd_w1"], dt),
+            L.cast(p["dd_w2"], dt), L.cast(p["mu_rkvwg"], dt))
+    rules = current_rules()
+    if rules is None:
+        return _lerp(*args, False)
+    split = sharded_over(p["dd_w2"], 1, "model")
+    bax = rules.resolve("batch", x.shape[0])
+    act = (bax,) + (None,) * (x.dim() - 1)
+    specs = (act, act, (None,), (None, None),
+             (None, "model" if split else None, None), (None, None))
+    b_names = axis_names(bax)
+    # the weights, whole over the batch axes, serve the rank's rows only;
+    # w1, whole over model, its R columns only
+    sums = (None, None, b_names, b_names + (("model",) if split else ()),
+            b_names, b_names)
+    return local_map(lambda *a: _lerp(*a, split), specs, [act] * 5, *args,
+                     grad_sums=sums)
 
 
 # ---------------------------------------------------------------------------
@@ -245,8 +291,10 @@ def _on_local_heads(fn, r, k, v, log_w, u, s0) -> tuple:
     bax = rules.resolve("batch", b)
     s4 = (bax, None, hax, None)
     st = (bax, hax, None, None)
+    b_names = axis_names(bax)
     return local_map(fn, (s4,) * 4 + ((hax, None), st), [s4, st],
-                     r, k, v, log_w, u, s0)
+                     r, k, v, log_w, u, s0,
+                     grad_sums=(None,) * 4 + (b_names, None))
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +306,7 @@ def _groupnorm_heads(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      nh: int, eps: float = 64e-5) -> torch.Tensor:
     """The per-head group norm of (B, S, d); under a mesh's rules whose
     ``model`` axis does not divide the heads, in ``local_map`` on each
-    rank's batch rows (:func:`_channels_whole`)."""
+    rank's batch rows, every head whole."""
     from repro_torch.runtime.pspec import current_rules, local_map
 
     def norm(yy, sc, bi):
@@ -272,15 +320,11 @@ def _groupnorm_heads(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
     if model_divides(nh):
         return norm(y, scale, bias)
-    spec = (current_rules().resolve("batch", y.shape[0]), None, None)
-    return local_map(norm, (spec, (None,), (None,)), spec, y, scale, bias)
-
-
-def _channels_whole(t: torch.Tensor, nh: int) -> torch.Tensor:
-    """``t`` (B, S, d) with its channels replicated under a mesh's rules
-    whose ``model`` axis does not divide the ``nh`` heads (40 of 64 at
-    RWKV-6-3B's width over 16 ranks; :func:`model_divides`)."""
-    return t if model_divides(nh) else constrain(t, "batch", None, None)
+    bax = current_rules().resolve("batch", y.shape[0])
+    b_names = axis_names(bax)
+    spec = (bax, None, None)
+    return local_map(norm, (spec, (None,), (None,)), spec, y, scale, bias,
+                     grad_sums=(None, b_names, b_names))
 
 
 def time_mix(x: torch.Tensor, p: Mapping, cfg, plan: ExecPlan,
@@ -293,17 +337,22 @@ def time_mix(x: torch.Tensor, p: Mapping, cfg, plan: ExecPlan,
     sx = _token_shift(x, state.shift_tm if state is not None else None)
     xr, xk, xv, xw, xg = _ddlerp(x, sx, p)
 
+    # where the WKV splits the heads over ``model``, the projections that
+    # feed it split their columns there, as the reference's shard_map
+    # in_specs make its partitioner do
+    split = model_divides(nh)
+
     def heads(a, w):
-        return L.cast(_channels_whole(a @ L.cast(w, dt), nh).reshape(
+        return L.cast(dense(a, L.cast(w, dt), cols=split).reshape(
             b, s, nh, hd), f32)
 
     rr, kk, vv = heads(xr, p["wr"]), heads(xk, p["wk"]), heads(xv, p["wv"])
-    g = F.silu(xg @ L.cast(p["wg"], dt))
-    w_pre = L.cast(p["w0"], f32) + (
-        L.cast(torch.tanh(xw @ L.cast(p["w_lora_a"], dt)), f32)
-        @ L.cast(p["w_lora_b"], f32))
+    g = F.silu(dense(xg, L.cast(p["wg"], dt), cols=split))
+    lora = L.cast(torch.tanh(dense(xw, L.cast(p["w_lora_a"], dt))), f32)
+    w_pre = L.cast(p["w0"], f32) + dense(lora, L.cast(p["w_lora_b"], f32),
+                                         cols=split)
     log_w = -torch.exp(torch.clamp(w_pre, -8.0, 2.0))   # <= 0, bounded
-    log_w = _channels_whole(log_w, nh).reshape(b, s, nh, hd)
+    log_w = log_w.reshape(b, s, nh, hd)
     u = L.cast(p["u"], f32)
     s0 = state.wkv if state is not None else torch.zeros(
         b, nh, hd, hd, dtype=f32, device=x.device)
@@ -314,7 +363,7 @@ def time_mix(x: torch.Tensor, p: Mapping, cfg, plan: ExecPlan,
         y, s_t = wkv_step_scan(rr, kk, vv, log_w, u, s0, recurrence)
     y = _groupnorm_heads(y.reshape(b, s, d), p["ln_x_scale"], p["ln_x_bias"],
                          nh)
-    out = (L.cast(y, dt) * g) @ L.cast(p["wo"], dt)
+    out = dense(L.cast(y, dt) * g, L.cast(p["wo"], dt))
     return out, s_t, x[:, -1]
 
 

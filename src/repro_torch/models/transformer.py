@@ -68,7 +68,7 @@ from repro_torch.models.rglru import (LinearRecurrence, RGLRUState,
 from repro_torch.models.rwkv import (RWKVState, WKVRecurrence, channel_mix,
                                      rwkv_init, time_mix)
 from repro_torch.runtime.pspec import (axis_rules, constrain, current_rules,
-                                       model_divides)
+                                       dense, model_divides)
 
 __all__ = ["DenseBlock", "INIT_STD", "LMParams", "RWKVBlock",
            "RecurrentSublayer", "check_family", "decode_step",
@@ -130,7 +130,9 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
     ``model`` does not divide (10 at RecurrentGemma-2B's width over 16
     ranks), the merge runs in ``local_map`` on each rank's batch rows: its
     backward would view the output projection's gradient, sharded over
-    ``model``, into those heads (:func:`model_divides`)."""
+    ``model``, into those heads (:func:`model_divides`).  The output
+    projection after it (:func:`~repro_torch.runtime.pspec.dense`) then
+    takes every column of the rank's rows, as the reference's rank does."""
     from repro_torch.runtime.pspec import local_map
 
     b, s, h, _ = o.shape
@@ -139,6 +141,13 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
     bspec = current_rules().resolve("batch", b)
     return local_map(lambda t: t.flatten(2), ((bspec, None, None, None),),
                      (bspec, None, None), o)
+
+
+def _attn_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The attention sublayer's update: heads (B, S, H, D) merged and
+    projected by ``wo``, on the batch rows (the reference's
+    ``_attn_sublayer_full`` after ``attend``)."""
+    return constrain(dense(_merge_heads(o), wo), "batch", "seq", None)
 
 
 def check_family(cfg) -> None:
@@ -253,9 +262,8 @@ class DenseBlock(nn.Module):
             positions = torch.arange(s, device=x.device)
         q, k, v = project_qkv(self.ln1(x, plan), self, self.cfg, plan,
                               positions)
-        o = _merge_heads(self.attn(q, k, v, plan))
-        x = x + constrain(o @ L.cast(self.wo, L.cdtype(plan)),
-                          "batch", "seq", None)
+        x = x + _attn_out(self.attn(q, k, v, plan),
+                          L.cast(self.wo, L.cdtype(plan)))
         y, aux = self._ffn(x, plan)
         out = (x + constrain(y, "batch", "seq", None),)
         if cache_capacity is not None:

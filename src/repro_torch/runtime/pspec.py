@@ -54,8 +54,11 @@ from torch.distributed.tensor.experimental import local_map as _torch_local_map
 import torch.distributed._functional_collectives as funcol
 
 __all__ = ["AxisVal", "ShardingRules", "axis_all_gather", "axis_all_to_all",
-           "axis_index", "axis_max", "axis_mean", "axis_rules", "axis_sizes", "axis_sum",
-           "constrain", "current_rules", "dividing_axes", "local_map", "mesh_body", "model_divides", "placements_spec", "shard_map", "spec_placements"]
+           "axis_gather_whole", "axis_index", "axis_max", "axis_mean",
+           "axis_names", "axis_rules", "axis_sizes", "axis_sum", "constrain",
+           "current_rules", "dense", "dividing_axes", "grad_sum", "local_map",
+           "mesh_body", "model_divides", "placements_spec", "shard_map",
+           "sharded_over", "spec_placements"]
 
 AxisVal = Union[None, str, tuple]
 
@@ -242,8 +245,38 @@ def mesh_body(mesh: DeviceMesh):
         _STATE.local_mesh = prev
 
 
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the named
+    axes' ranks (:func:`grad_sum`)."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.groups = [_group(a) for a in axes]    # the backward runs outside
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        for grp in ctx.groups:
+            g = funcol.wait_tensor(funcol.all_reduce(g.contiguous(), "sum",
+                                                     grp))
+        return g, None
+
+
+def grad_sum(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """``x`` itself, its gradient summed over ``axes``' ranks: inside a
+    local body, a value each rank of those axes holds whole but uses for
+    its own share of the work only (its rows of a batch, its columns, its
+    chunks), so each rank's gradient of it is a part of the whole one."""
+    axes = tuple(a for a in ((axes,) if isinstance(axes, str) else axes)
+                 if _axis_size(a) > 1)
+    if not axes or not (isinstance(x, torch.Tensor) and x.requires_grad):
+        return x
+    return _SumGrad.apply(x, axes)
+
+
 def shard_map(fn: Callable, *, mesh: DeviceMesh, in_specs: Sequence,
-              out_specs: Any) -> Callable:
+              out_specs: Any, grad_sums: Optional[Sequence] = None
+              ) -> Callable:
     """``fn`` run on each rank's shards of its inputs over ``mesh``: the
     reference's ``shard_map``.  ``in_specs`` has one ``PartitionSpec``
     tuple per (flat) input, ``None`` for a non-tensor; ``out_specs`` is one
@@ -252,7 +285,10 @@ def shard_map(fn: Callable, *, mesh: DeviceMesh, in_specs: Sequence,
     taken as replicated (each rank holds the whole), so its sharding is a
     local slice; the outputs are DTensors.  Inside ``fn`` the mesh's axes
     are named by :func:`axis_all_gather` and its kin, and no rules are
-    active."""
+    active.  An input's gradient takes its placements: a replicated one is
+    each rank's own, whole.  ``grad_sums`` (one entry per flat input: axis
+    names, or None) sums an input's gradient over axes it is replicated on
+    but the body's work on it is split over (:func:`grad_sum`)."""
     multi = isinstance(out_specs, list)
     # one output's placements are a list; several are a tuple of them
     out_pl = (tuple(list(spec_placements(mesh, s)) for s in out_specs)
@@ -260,6 +296,11 @@ def shard_map(fn: Callable, *, mesh: DeviceMesh, in_specs: Sequence,
 
     def body(*local):
         with mesh_body(mesh):
+            if grad_sums is not None:
+                flat, tree = pytree.tree_flatten(local)
+                flat = [grad_sum(t, ax) if ax else t
+                        for t, ax in zip(flat, grad_sums)]
+                local = pytree.tree_unflatten(flat, tree)
             return fn(*local)
 
     def run(*args):
@@ -277,14 +318,83 @@ def shard_map(fn: Callable, *, mesh: DeviceMesh, in_specs: Sequence,
     return run
 
 
-def local_map(fn: Callable, in_specs: Sequence, out_specs: Any, *args):
+def local_map(fn: Callable, in_specs: Sequence, out_specs: Any, *args,
+              grad_sums: Optional[Sequence] = None):
     """:func:`shard_map` of ``fn`` under the active rules' mesh, applied to
     ``args``; ``fn(*args)`` itself without rules."""
     rules = current_rules()
     if rules is None:
         return fn(*args)
     return shard_map(fn, mesh=rules.mesh, in_specs=in_specs,
-                     out_specs=out_specs)(*args)
+                     out_specs=out_specs, grad_sums=grad_sums)(*args)
+
+
+def axis_names(entry: AxisVal) -> tuple:
+    """The mesh axes of one ``PartitionSpec`` entry (or a resolved logical
+    axis): ``()``, ``(name,)`` or the tuple itself."""
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def sharded_over(t: torch.Tensor, dim: int, axis: str) -> bool:
+    """Whether DTensor ``t``'s dim ``dim`` is sharded over mesh axis
+    ``axis`` (False for a plain tensor)."""
+    return isinstance(t, DTensor) and axis in axis_names(placements_spec(
+        t.device_mesh, t.placements, t.dim())[dim])
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, *, cols: bool = False,
+          rows: bool = False) -> torch.Tensor:
+    """``x @ w`` (x (B, ..., K), w (..., K, N)) laid out under the active
+    rules as the reference's XLA partitioner lays out a projection: rows
+    on the rank's batch shard, and over ``model``
+
+    * the output columns where ``w``'s columns are sharded over it, or
+      where ``cols`` asks for them (the consumer splits its channels over
+      ``model``: the reference's constraint or ``shard_map`` in_specs) and
+      ``w``'s rows are not sharded;
+    * the contraction, summed over ``model``, where ``w``'s rows are
+      sharded (over ``model``, or over the batch axes: XLA moves that shard
+      onto ``model`` rather than gathering the weight), or where ``rows``
+      says the reference pins ``x``'s channels over ``model``;
+    * nothing otherwise: each rank computes every column of its rows.
+
+    A weight's shard over the batch axes is gathered (FSDP).  DTensor's own
+    strategy would split a replicated weight's rows over ``model`` for
+    free, a split the reference's program lacks, and picks its layout by a
+    cost that moves with the sizes and the torch version; the body in
+    :func:`local_map` fixes the layout.  ``x @ w`` itself without rules or
+    with a ``model`` axis of one rank."""
+    rules = current_rules()
+    m = rules.axis_sizes.get("model", 1) if rules is not None else 1
+    if m == 1 or not (isinstance(x, DTensor) or isinstance(w, DTensor)):
+        return x @ w
+    k, n = w.shape[-2], w.shape[-1]
+    wk = (placements_spec(w.device_mesh, w.placements, w.dim())[-2]
+          if isinstance(w, DTensor) else None)
+    if sharded_over(w, -1, "model"):
+        mode = "cols"
+    elif (wk is not None or rows) and k % m == 0:
+        mode = "rows"
+    elif cols and n % m == 0:
+        mode = "cols"
+    else:
+        mode = "whole"
+    bax = rules.resolve("batch", x.shape[0])
+    lead = (bax,) + (None,) * (x.dim() - 2)
+    wlead = (None,) * (w.dim() - 2)
+    xs = lead + ("model" if mode == "rows" else None,)
+    ws = wlead + {"cols": (None, "model"), "rows": ("model", None),
+                  "whole": (None, None)}[mode]
+    out = lead + ("model" if mode == "cols" else None,)
+    # x, whole over model, feeds its columns only; w, whole over the batch
+    # axes, the rank's rows only
+    sums = (("model",) if mode == "cols" else None, axis_names(bax))
+    if mode == "rows":
+        return local_map(lambda a, b: axis_sum(a @ b, "model"), (xs, ws),
+                         out, x, w, grad_sums=sums)
+    return local_map(lambda a, b: a @ b, (xs, ws), out, x, w,
+                     grad_sums=sums)
 
 
 # ---------------------------------------------------------------------------
@@ -304,11 +414,40 @@ def _axis_size(axis: str) -> int:
 
 
 def axis_all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """``lax.all_gather(x, axis, axis=dim, tiled=True)``, differentiable."""
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)``, differentiable
+    (the backward reduce-scatters: each rank's gradient of the gathered
+    value is a part of the whole one)."""
     if _axis_size(axis) == 1:
         return x
     return funcol.all_gather_tensor_autograd(x.contiguous(), dim,
                                              _group(axis))
+
+
+class _GatherWhole(torch.autograd.Function):
+    """All-gather along ``dim``; the backward keeps this rank's slice of
+    the gradient, which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        grp = _group(axis)
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.index = axis_index(axis)
+        return funcol.wait_tensor(funcol.all_gather_tensor(
+            x.detach().contiguous(), dim, grp))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
+
+
+def axis_gather_whole(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """:func:`axis_all_gather` of a value that leaves the body replicated
+    over ``axis`` (an output placed whole there): its gradient comes the
+    same on every rank, so the backward takes this rank's slice of it
+    where a reduce-scatter would count it once a rank."""
+    if _axis_size(axis) == 1:
+        return x
+    return _GatherWhole.apply(x, axis, dim)
 
 
 def axis_all_to_all(x: torch.Tensor, axis: str, split_dim: int,

@@ -1,15 +1,16 @@
 """The head-split sites on a mesh, in a child process on a (2, 2) fake
-world (``data`` x ``model``): RecurrentGemma's block-diagonal gates
-(``rglru._gates``) and its banded local attention
+world (``data`` x ``model``), every input replicated: RecurrentGemma's
+block-diagonal gates (``rglru._gates``) and its banded local attention
 (``attention.attend_local_banded``) run in ``local_map``.
 
-Where ``model`` divides the heads, each rank computes its share of both
-axes: a quarter of the whole site's FLOPs.  Where it does not (10 heads
-over 16 ranks at RecurrentGemma-2B's width, one KV head), each rank
-computes every head of its batch rows: half the whole site's FLOPs, the
-``model`` axis' size more than the reference's XLA program, which splits
-the heads implicitly.  This is a known departure of the port's cost on a
-mesh (ROADMAP section 3), pinned here."""
+Each pin is the reference's share (whole FLOPs / a rank's) on the same
+mesh, as ``tests/test_torch_mesh_parity.py`` reads it from the reference's
+XLA program.  The gates split over the batch only: with replicated
+operands the reference's partitioner leaves the heads whole on each rank,
+whether ``model`` divides them or not.  Banded attention splits over the
+whole mesh: by the KV heads where ``model`` divides them, else by chunks
+over ``seq_sp`` (2 chunks over 2 ranks here), as the reference's
+``constrain`` of its chunk axis does."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -87,10 +88,10 @@ def per_rank():
 
 
 @pytest.mark.parametrize("site,share", [
-    ("gates_4", 4),        # 4 heads: model divides them
+    ("gates_4", 2),        # 4 heads, replicated operands: heads whole
     ("gates_3", 2),        # 3 heads: every rank projects all of them
     ("banded_4_2", 4),     # 2 KV heads: model divides them
-    ("banded_3_1", 2),     # one KV head: every rank attends all heads
+    ("banded_3_1", 4),     # one KV head: the chunks split over seq_sp
 ])
 def test_per_rank_flops_of_a_head_split_site(per_rank, site, share):
     whole, rank = per_rank[site]

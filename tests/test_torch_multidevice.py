@@ -8,9 +8,14 @@ handed to the ranks with the parameters (through ``model_from_jax``):
 
 * on a (2 data, 4 model) mesh, the reference's mini MoE under the
   ``OFFLOAD_PLAN`` (chunked attention in ``local_map``, ``scatter_ep``,
-  which takes the expert-parallel body) and its 4-head RWKV-6 (the chunked
-  WKV in ``local_map``): the sharded loss within the reference's 5e-3 of
+  which takes the expert-parallel body), its 4-head RWKV-6 (the chunked
+  WKV in ``local_map``), and two models whose heads ``model`` does not
+  divide: a reduced RecurrentGemma with 3 heads and 1 KV head (banded
+  attention with its 4 chunks split over ``seq_sp``) and a 3-head RWKV-6
+  (d 48, head dim 16): the sharded loss within the reference's 5e-3 of
   the reference's and within 1e-5 of the port's unsharded loss;
+* on the same mesh, each of those models' parameter gradients within
+  1e-4 (relative to its largest entry) of the port's unsharded ones;
 * a (pod 2, data 2) ``make_compressed_dp_step``: without compression one
   step matches the unsharded step within 1e-6; with it, the update
   differs from the exact one by at most half the int8 quantisation step
@@ -39,12 +44,18 @@ from repro.models import REFERENCE_PLAN, build_model  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL_REF = 5e-3          # the reference's own multi-device tolerance
 TOL_PORT = 1e-5
+TOL_GRAD = 1e-4         # relative to each gradient's largest entry
 
 MINI_MOE = dict(arch_id="mini_moe", family="moe", n_layers=2, d_model=64,
                 n_heads=4, n_kv_heads=4, head_dim=16, d_ff=96, vocab=256,
                 mlp_act="silu", tie_embeddings=False)
 MINI_MOE_EXPERTS = dict(n_experts=8, top_k=2, d_ff_expert=96,
                         capacity_factor=8.0)          # no drops
+# heads that the 4-rank ``model`` axis does not divide; the hybrid's
+# window of 8 puts its 32 tokens in 4 banded chunks
+HYBRID3 = dict(d_model=48, n_heads=3, n_kv_heads=1, head_dim=16, d_rnn=48,
+               local_window=8)
+RWKV3 = dict(d_model=48, rwkv_head_dim=16)
 
 _RANKS = textwrap.dedent('''
     import dataclasses, json, os, sys, time
@@ -91,8 +102,11 @@ _RANKS = textwrap.dedent('''
         bodies = []
         local_map = pspec.local_map
 
+        quals = []
+
         def counting(fn, *a, **k):
             bodies.append(fn.__qualname__.split(".")[0])
+            quals.append(fn.__qualname__)
             return local_map(fn, *a, **k)
 
         pspec.local_map = counting
@@ -113,24 +127,42 @@ _RANKS = textwrap.dedent('''
                      **spec["moe_experts"])), plan),
                  "rwkv": (dataclasses.replace(
                      get_config("rwkv6_3b").reduced(), d_model=64,
-                     rwkv_head_dim=16), plan.replace(wkv_chunk=8))}
+                     rwkv_head_dim=16), plan.replace(wkv_chunk=8)),
+                 "hybrid3": (dataclasses.replace(
+                     get_config("recurrentgemma_2b").reduced(),
+                     **spec["hybrid3"]), plan),
+                 "rwkv3": (dataclasses.replace(
+                     get_config("rwkv6_3b").reduced(), **spec["rwkv3"]),
+                     plan.replace(wkv_chunk=8))}
         for name, (cfg, p) in cases.items():
             flat = dict(np.load(os.path.join(data_path, name + "_params.npz")))
             batch = {k: torch.from_numpy(v) for k, v in np.load(
                 os.path.join(data_path, name + "_batch.npz")).items()}
             params = model_from_jax(tree(flat), cfg, device="cpu")
             model = build_model(cfg)
-            with torch.no_grad():
-                plain = float(model.loss(params, batch, p)[0])
+            names = [n for n, _ in params.named_parameters()]
+            loss = model.loss(params, batch, p)[0]
+            plain = float(loss)
+            grads = torch.autograd.grad(loss, list(params.parameters()))
             shd.distribute(params, rules,
                            shd.param_logical_axes(params, cfg, mesh))
             b = shd.distribute(batch, rules, shd.batch_logical_axes(batch))
-            bodies.clear(); ep.clear()
+            bodies.clear(); quals.clear(); ep.clear()
             with torch.no_grad(), pspec.axis_rules(rules), \\
                     implicit_replication():
                 loss = model.loss(params, b, p)[0].full_tensor()
+            with pspec.axis_rules(rules), implicit_replication():
+                g_mesh = torch.autograd.grad(model.loss(params, b, p)[0],
+                                             list(params.parameters()))
+            # each gradient's largest error over its largest entry
+            errs = {n: float((gm.full_tensor() - g).abs().max()
+                             / g.abs().max().clamp_min(1e-30))
+                    for n, g, gm in zip(names, grads, g_mesh)}
+            worst = max(errs, key=errs.get)
             out[name] = {"plain": plain, "sharded": float(loss),
-                         "bodies": sorted(set(bodies)), "ep": ep[:]}
+                         "bodies": sorted(set(bodies)), "ep": ep[:],
+                         "quals": sorted(set(quals)),
+                         "grad_err": [worst, errs[worst]]}
         pspec.local_map = A.local_map = local_map
         out["t_losses"] = time.time() - t0
 
@@ -264,9 +296,16 @@ def ranks(tmp_path_factory):
         **MINI_MOE_EXPERTS)), 8, data, "moe"),
         "rwkv": _reference(dataclasses.replace(
             ref_get_config("rwkv6_3b").reduced(), d_model=64,
-            rwkv_head_dim=16), 4, data, "rwkv")}
+            rwkv_head_dim=16), 4, data, "rwkv"),
+        "hybrid3": _reference(dataclasses.replace(
+            ref_get_config("recurrentgemma_2b").reduced(), **HYBRID3), 4,
+            data, "hybrid3"),
+        "rwkv3": _reference(dataclasses.replace(
+            ref_get_config("rwkv6_3b").reduced(), **RWKV3), 4, data,
+            "rwkv3")}
     (data / "spec.json").write_text(json.dumps(
-        {"moe_cfg": MINI_MOE, "moe_experts": MINI_MOE_EXPERTS}))
+        {"moe_cfg": MINI_MOE, "moe_experts": MINI_MOE_EXPERTS,
+         "hybrid3": HYBRID3, "rwkv3": RWKV3}))
     script = data / "ranks.py"
     script.write_text(_RANKS)
     out = data / "out.json"
@@ -294,6 +333,35 @@ def test_sharded_rwkv_loss_matches_single_device(ranks):
     assert "wkv_chunked" in rwkv["bodies"], rwkv
     assert abs(rwkv["sharded"] - ref["rwkv"]) < TOL_REF, (rwkv, ref)
     assert abs(rwkv["sharded"] - rwkv["plain"]) < TOL_PORT, rwkv
+
+
+def test_sharded_hybrid_with_three_heads_matches_single_device(ranks):
+    ref, got = ranks
+    hyb = got["hybrid3"]
+    # the band's chunks split over seq_sp, the gates' heads whole
+    assert "attend_local_banded.<locals>.body" in hyb["quals"], hyb
+    assert "_gates" in hyb["bodies"], hyb
+    assert abs(hyb["sharded"] - ref["hybrid3"]) < TOL_REF, (hyb, ref)
+    assert abs(hyb["sharded"] - hyb["plain"]) < TOL_PORT, hyb
+
+
+def test_sharded_rwkv_with_three_heads_matches_single_device(ranks):
+    ref, got = ranks
+    rwkv = got["rwkv3"]
+    assert "wkv_chunked" in rwkv["bodies"], rwkv
+    assert "_ddlerp" in rwkv["bodies"], rwkv
+    assert abs(rwkv["sharded"] - ref["rwkv3"]) < TOL_REF, (rwkv, ref)
+    assert abs(rwkv["sharded"] - rwkv["plain"]) < TOL_PORT, rwkv
+
+
+@pytest.mark.parametrize("case", ["moe", "rwkv", "hybrid3", "rwkv3"])
+def test_sharded_gradients_match_the_unsharded(ranks, case):
+    """Every parameter's gradient of the sharded loss, gathered, against
+    the port's unsharded one: each local body sums the gradient of a value
+    it holds whole over the ranks that split its work."""
+    _, got = ranks
+    name, err = got[case]["grad_err"]
+    assert err < TOL_GRAD, (case, name, err)
 
 
 def test_compressed_dp_step(ranks):
