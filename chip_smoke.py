@@ -84,6 +84,22 @@ K. phase K, function-block genes in the export frontend (the reference's
    dropless capacity-limited dispatch) binds and verifies.  Each arm's
    winner, its forward time, and the forced chromosomes' times are
    printed, and the overlap phase's estimate and backoff;
+J. phase J, inside the phases that build its programs: the programs the
+   port captures as CUDA graphs where the reference calls ``jax.jit``
+   (``repro_torch.core.device_program``), each against the eager port
+   (``disable_capture``): Q, R, W, M and H's all-reference and all-kernel
+   programs (in phase 3), P's demo ``app`` with every top-level loop
+   offloaded (in phase P) and one decode step of each served model (S,
+   SH, SE, SF, SW, in the serve phases).  One line each, ``phase J
+   <label>:``, beside the card's name and power limit: the replay's
+   output against the eager one (bit for bit, else the first leaf that
+   differs and by how much; within the verifier's 1e-2 or the run
+   fails), a replay on new inputs against the eager run on them, the
+   host's CUDA submissions and the replays of one call (one graph a
+   program, or a loop), wall and device time and the idle share, eager
+   and captured, and the first call's and the capture's seconds.  The
+   GA's timed calls, the serve phases' prefill and decode and the
+   "where the time goes" lines of phase 3 are taken on captured programs;
 3. the main paths, each through ``Offloader.plan`` with the launch
    counters set to 0 just before it and read just after.  Each plan must
    verify; the forced all-kernel plan must bind the CUDA kernels at every
@@ -142,32 +158,34 @@ K. phase K, function-block genes in the export frontend (the reference's
      and decode times), and ``swap_plan`` between it and
      ``REFERENCE_PLAN`` while a client thread generates (every generation
      one plan's tokens);
-   - H: RecurrentGemma-2B at full width and 8 of its 26 layers (cut for
-     the run's time, ``PATH_LAYERS``) in the pattern rglru, rglru, local
+   - H: RecurrentGemma-2B at full width and 3 of its 26 layers (one
+     period of its pattern; cut for the run's time, ``PATH_LAYERS``: 8
+     until the captured programs came) in the pattern rglru, rglru, local
      attention (random weights from seed 0 in
      the reference's distributions) built with ``build_model``, its
      prefill of (2, 2048) tokens -- S = the local window, so the local
      attention is exactly causal -- planned like M in f32 (the ``step``
      scan: one scan site a recurrent sublayer), GA 4 x 2 (cut from 6 x 3
-     for the run's time): 6 ``linear_recurrence`` + 2
-     ``softmax_attention`` + 17 ``rmsnorm`` sites;
-     one forward of the forced all-kernel plan must launch RG-LRU 6 times
-     (all ``tma``), flash twice (all ``scalar``) and RMSNorm 17 times
-     (all ``d2560_l32``).  The all-reference program (~70k launches) is
+     for the run's time): 2 ``linear_recurrence`` + 1
+     ``softmax_attention`` + 7 ``rmsnorm`` sites;
+     one forward of the forced all-kernel plan must launch RG-LRU twice
+     (all ``tma``), flash once (all ``scalar``) and RMSNorm 7 times
+     (all ``d2560_l32``).  The all-reference program (~25k launches) is
      profiled for one forward.  Then the bf16 diagnostic of the forced
      all-kernel prefill, and ``Server.generate`` in bf16 under
      ``OFFLOAD_PLAN`` (the ``assoc`` scan in prefill; RG-LRU states and ring
      caches in decode): 4 requests of 512 prompt tokens and 16 greedy new
      tokens, twice (identical tokens), with the launches of a decode step;
    - E: OLMoE-1B-7B at full width (64 experts top-8 of width 1024, MHA
-     with QK-norm) and 8 of its 16 layers (cut for the run's time; random
+     with QK-norm) and 4 of its 16 layers (cut for the run's time, 8
+     until the captured programs came; random
      weights from seed 0), alone on the
      card, its prefill of (2, 2048) tokens planned in f32 under the
      ``scatter_ep`` MoE, GA 6 x 3 seeded with the forced all-kernel
-     chromosome: exactly 8 ``softmax_attention`` + 33 ``rmsnorm`` sites
+     chromosome: exactly 4 ``softmax_attention`` + 17 ``rmsnorm`` sites
      (no router, expert or MoE region binds); one forward of the forced
-     plan must launch flash 8 times (all ``scalar``) and RMSNorm 33 times
-     (17 ``generic_l32``, 16 ``d128_l32``); no chromosome may fail with an
+     plan must launch flash 4 times (all ``scalar``) and RMSNorm 17 times
+     (9 ``generic_l32``, 8 ``d128_l32``); no chromosome may fail with an
      error; the all-reference prefill run twice gives the same bits.  The
      forced plan verifies (outcome a), or (outcome b) a routing diagnostic
      finds a (layer, token) whose top-k set the kernels' rounding changed
@@ -175,14 +193,15 @@ K. phase K, function-block genes in the export frontend (the reference's
      is printed with the per-layer K/V errors.  Then one all-reference
      forward under ``dense_onehot`` (time only), and ``Server.generate``
      in bf16 under ``OFFLOAD_PLAN`` (16 new tokens);
-   - F: RWKV-6-3B at full width (40 heads of 64) and 4 of its 32 layers
-     (cut for the run's time; 8 until phase D came),
+   - F: RWKV-6-3B at full width (40 heads of 64) and 2 of its 32 layers
+     (cut for the run's time; 8 until phase D came, 4 until the captured
+     programs came),
      alone on the card: its f32 ``chunked`` prefill of (2, 2048) tokens
      planned with GA 4 x 2 (its ``step`` prefill, once a check against
      ``chunked``, went for the run's time: the CPU and card tests hold the
      two forms to each other),
-     seeded like E: only the final norm binds (``d2560_l32``); the 9
-     LayerNorm regions (x, scale, bias) and the 4 multi-head WKV scans
+     seeded like E: only the final norm binds (``d2560_l32``); the 5
+     LayerNorm regions (x, scale, bias) and the 2 multi-head WKV scans
      match and are refused; the forced plan verifies.  Then
      ``Server.generate`` in bf16 under ``OFFLOAD_PLAN`` (chunked prefill,
      RWKV states replaced in decode; 16 new tokens);
@@ -276,7 +295,7 @@ C3. phase C3 (after C2), train steps through a scan: RecurrentGemma-2B
    ``--only C`` also the dry run on ``pod16x16`` (cut from the full run
    for its time).  C3b: 3
    real train steps of each model on the card in f32 at 2 x 4096 tokens
-   in 2 microbatches, at ``PATH_LAYERS``' depth (8 of 26 and 4 of 32
+   in 2 microbatches, at ``PATH_LAYERS``' depth (3 of 26 and 2 of 32
    layers), weights drawn on the card from seed 0: finite losses, s/step
    (median of steps 2-3), the profiled third step's device time, both
    at least the traced program's compute term, the peak device memory
@@ -359,6 +378,7 @@ from torch.utils import _pytree as pytree  # noqa: E402
 from repro_torch import hlo_analysis  # noqa: E402
 from repro_torch import roofline as rl  # noqa: E402
 from repro_torch.configs.base import TRAIN_4K, get_config  # noqa: E402
+from repro_torch.core.device_program import disable_capture  # noqa: E402
 from repro_torch.core.evaluator import MeasurementCache  # noqa: E402
 from repro_torch.core.objectives import nvml_power_w  # noqa: E402
 from repro_torch.core.frontends.ast_frontend import PyOffloadArtifact  # noqa: E402
@@ -402,10 +422,11 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_NEW_H = 4, 512, 32, 16
 WHISPER = get_config("whisper_small")
 X_TOKENS, SERVE_PROMPT_X = 448, 4
 #: depth cut for the run's time, widths as published: path H's
-#: RecurrentGemma-2B runs 8 of its 26 layers (the pattern rglru, rglru,
-#: local attention kept), path E's OLMoE-1B-7B 8 of its 16, path F's
-#: RWKV-6-3B 4 of its 32 (8 until phase D came)
-PATH_LAYERS = {"recurrentgemma_2b": 8, "olmoe_1b_7b": 8, "rwkv6_3b": 4}
+#: RecurrentGemma-2B runs 3 of its 26 layers (one period of the pattern
+#: rglru, rglru, local attention), path E's OLMoE-1B-7B 4 of its 16, path
+#: F's RWKV-6-3B 2 of its 32 (H and E 8, F 4 until phase J's captured
+#: programs came; F 8 until phase D came)
+PATH_LAYERS = {"recurrentgemma_2b": 3, "olmoe_1b_7b": 4, "rwkv6_3b": 2}
 SEED = 0
 REPEATS = 25
 
@@ -760,8 +781,8 @@ def phase_kernels(dev) -> dict:
     for n, d in sorted(set(path_h_norms)):
         norms_h[(n, d)] = rmsnorm_case(dev, n, d, f32, 1e-5, flush, gen)
         print("rmsnorm  ", json.dumps(norms_h[(n, d)]), flush=True)
-    # path E's 33 calls per prefill, in f32: ln1, q-norm, k-norm (16 kv
-    # heads: as many rows as the q-norm) and ln2 of each of 8 layers, and
+    # path E's 17 calls per prefill, in f32: ln1, q-norm, k-norm (16 kv
+    # heads: as many rows as the q-norm) and ln2 of each of 4 layers, and
     # the final norm; d_model 2048 takes the generic loop.  Path F's one
     # call is path H's final norm, (2, 2560)
     olmoe = path_config("olmoe_1b_7b")
@@ -1070,7 +1091,7 @@ def _model_f32(dev, arch: str):
 
 
 def recurrentgemma_model(dev, dtype):
-    """RecurrentGemma-2B at full width and 8 of its 26 layers, weights drawn
+    """RecurrentGemma-2B at full width and 3 of its 26 layers, weights drawn
     from seed 0 in the reference's distributions on a CPU generator, then
     moved to the card; tokens uniform in [0, vocab) from the same
     generator, batch 2 x 2048 (= the local window).  The f32 draw is made
@@ -1245,6 +1266,9 @@ PATHS = {
 #: full-depth paths, cut from 3 for the run's time: their forwards take
 #: 0.05-3 s, well above the host clock's spread
 PATH_REPEATS = dict.fromkeys("MHEFX", 1)
+#: paths whose all-reference and all-kernel programs phase J holds against
+#: the eager port (H at its ``PATH_LAYERS`` depth)
+J_PATHS = ("Q", "R", "W", "M", "H")
 #: paths with top-k routing: the reference must repeat bit for bit, and
 #: the forced plan verifies or a routing diagnostic explains why not
 ROUTED = {"E"}
@@ -1510,6 +1534,7 @@ def phase_path(label, dev, scratch: Path, store: Path = None) -> tuple:
                 res.artifact.report.substituted.get(s.region, "ref")
                 for s in res.coding.sites}
     summary = {
+        "timed": "captured CUDA graphs (replays)",
         "speedup": res.speedup, "best_s": res.best.time_s,
         "baseline_s": res.baseline.time_s,
         "best_bits": "".join(map(str, res.best.bits)),
@@ -1548,9 +1573,19 @@ def phase_path(label, dev, scratch: Path, store: Path = None) -> tuple:
     print(f"path {label}:", json.dumps(summary), flush=True)
     unsubstituted = engine.substitute({})
     measured = {}
+    if label in J_PATHS:
+        j = {name: capture_entry(
+                f"{label} {name}", fn, args, new_inputs(args), iters,
+                lambda fn=fn: list(fn.captured.programs.values()),
+                eager_iters=min(iters, 3))
+             for name, fn in (("baseline (all ref)", unsubstituted),
+                              ("all kernels", forced))}
+        print_capture(label, j)
+        measured = {name: e["captured"] for name, e in j.items()}
     for name, fn in (("baseline (all ref)", unsubstituted),
                      ("plan winner", res.artifact), ("all kernels", forced)):
-        measured[name] = where_time_goes(fn, args, iters)
+        if name not in measured:
+            measured[name] = where_time_goes(fn, args, iters)
         print(f"where the time goes, path {label}, {name}:",
               json.dumps(measured[name]), flush=True)
     summary["roofline"] = path_rooflines(
@@ -1793,6 +1828,10 @@ def bf16_diagnostic(dev, label: str, make_model, n_sites: int,
     return out
 
 
+#: each serving phase's label in phase J
+SERVE_LABEL = {"M": "S", "H": "SH", "E": "SE", "F": "SF", "X": "SW"}
+
+
 def serve_phase(dev, label: str, make_model, new_tokens: int,
                 swap: bool, prompt_len: int = SERVE_PROMPT,
                 store: Path = None) -> dict:
@@ -1817,7 +1856,10 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
         gen, SERVE_BATCH, prompt_len, device=dev).items()
         if k not in ("tokens", "labels"))
     server = Server(model, params, OFFLOAD_PLAN)
-    server.generate(prompts, 2)                 # warm-up
+    # warm-up: the prefill and decode programs of both timed capacities
+    # are captured before the clock starts
+    server.generate(prompts, 1)
+    server.generate(prompts, new_tokens)
 
     def timed(max_new):
         torch.cuda.synchronize()
@@ -1835,6 +1877,7 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
     check((first == second).all(), f"serve {label}: two greedy calls differ")
     out = {"requests": SERVE_BATCH, "prompt_tokens": prompt_len,
            "new_tokens": new_tokens, "dtype": "bfloat16",
+           "timed": "captured prefill and decode (replays)",
            "prefill_ms": prefill_s * 1e3, "generate_ms": total_s * 1e3,
            "decode_ms_per_token": (total_s - prefill_s) / (new_tokens - 1)
            * 1e3, "tokens_per_s": SERVE_BATCH * new_tokens / total_s}
@@ -1854,16 +1897,14 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
         if store is not None:
             out["V3"] = serve_from_store(model, params, prompts, new_tokens,
                                          store, fresh)
-    # one decode step at the last position of these requests' caches
-    # (repeating it rewrites the same cache slot; a hybrid model's RG-LRU
-    # state is read, not written), where its time goes
-    bound = server._bound
-    with torch.no_grad():
-        _, state = bound.prefill(prompts, prompt_len + new_tokens)
-        last = prompts["tokens"][:, -1:]
-        step = where_time_goes(lambda: bound.decode(last, state), (), 5)
-    out[f"decode_step_{'reference' if swap else 'offload'}_plan"] = step
+    # one decode step, where its time goes: eager (the step at the last
+    # position of these requests' caches, repeated) and captured
+    # (consecutive steps), each against the other (phase J)
+    j = decode_capture_entry(server._bound, prompts, prompt_len)
+    out[f"decode_step_{'reference' if swap else 'offload'}_plan"] = \
+        j["captured"]
     print(f"serve, path {label}:", json.dumps(out), flush=True)
+    print_capture(SERVE_LABEL[label], {"decode step": j})
     return out
 
 
@@ -2844,20 +2885,28 @@ def phase_python(dev, scratch: Path) -> dict:
           f"phase P demo: matched {[bo.pattern for bo in res.block.offloads]}"
           f", library blocks kept {sorted(libs)}")
     summary["block_time_s"] = ctx.bundle.context["block_time_s"]
-    # the eager offloaded generic loops: every top-level loop that passed
-    # the feasibility check runs as its rewritten function on the card, one
-    # launch a scalar op (the matmul nest and the DFT included)
-    eager = {r.name: "jit" for r in ctx.graph.loops()
+    # the offloaded generic loops: every top-level loop that passed the
+    # feasibility check runs as its rewritten function on the card, captured
+    # (the matmul nest and the DFT included); phase J holds the run against
+    # the eager port (one launch a scalar op)
+    loops = {r.name: "jit" for r in ctx.graph.loops()
              if r.offloadable and r.parent is None}
-    art = PyOffloadArtifact(ctx.target, eager, {}, device=dev)
+    art = PyOffloadArtifact(ctx.target, loops, {}, device=dev)
     fv = verify(p_reference(ctx), art.run(**inputs), rtol=1e-2,
                 atol=1e-2)
-    summary["eager_loops"] = {"loops": sorted(eager), "verified": fv.ok,
-                              "max_abs": fv.max_abs,
-                              "where_time_goes": where_time_goes(
-                                  lambda: art.run(**inputs), (), 1)}
-    check(fv.ok, f"phase P demo: the eager loops do not verify: {fv}")
+    j = capture_entry(
+        "P demo", lambda inp: art.run(**inp), (inputs,),
+        ({k: v * 0.5 for k, v in inputs.items()},), 1,
+        lambda: [p for cf in ctx.target._compiled_cache.values()
+                 for p in cf.programs.values()], replays=len(loops))
+    summary["offloaded_loops"] = {
+        "loops": sorted(loops), "verified": fv.ok, "max_abs": fv.max_abs,
+        "timed": "captured CUDA graphs (replays)",
+        "where_time_goes": _time_entry(j["captured"]),
+        "eager": _time_entry(j["eager"])}
+    check(fv.ok, f"phase P demo: the offloaded loops do not verify: {fv}")
     print("phase P demo:", json.dumps(summary), flush=True)
+    print_capture("P demo", {"offloaded loops": j})
     out["demo"] = summary
     return out
 
@@ -3632,7 +3681,8 @@ def serve_from_store(model, params, prompts, new_tokens: int, store: Path,
     server = Server.from_store(model, params, PlanStore(str(store)),
                                plan.fingerprint)
     check(server.plan == plan.artifact, "phase V3: from_store's plan differs")
-    server.generate(prompts, 2)                 # warm-up
+    server.generate(prompts, 1)                 # warm-up: the captures
+    server.generate(prompts, new_tokens)
 
     def timed(max_new):
         torch.cuda.synchronize()
@@ -3727,7 +3777,7 @@ def phase_service(dev, scratch: Path, m_store: Path) -> dict:
     return {"V1": v1, "V2": v2}
 
 
-def where_time_goes(fn, args, iters: int) -> dict:
+def where_time_goes(fn, args, iters: int, warmup: int = None) -> dict:
     """One forward of ``fn``: host wall time (synchronized, no profiler)
     beside the time ``torch.profiler`` records for the device's own
     activities (kernels, copies, memsets; the profiler traces the device
@@ -3737,11 +3787,11 @@ def where_time_goes(fn, args, iters: int) -> dict:
     device's span of one forward by CUDA events, each forward enqueued
     behind a ~5 ms GPU spin so that the host is ahead and the span holds no
     host gaps (median of ``iters``); it does not depend on the profiler
-    seeing the kernels."""
+    seeing the kernels.  ``warmup`` calls first (default: up to 3)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(min(3, iters + 1)):
+    for _ in range(min(3, iters + 1) if warmup is None else warmup):
         fn(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3774,6 +3824,169 @@ def where_time_goes(fn, args, iters: int) -> dict:
             "device_launches": sum(e.count for e in events) // iters,
             "top_kernels_ms": [[e.key[:60], e.self_device_time_total / iters / 1e3]
                                for e in top]}
+
+
+# ---------------------------------------------------------------------------
+# phase J: the programs the port captures as CUDA graphs (the reference's
+# jax.jit sites), each against the eager port
+# ---------------------------------------------------------------------------
+
+#: the card's name and power limit (``nvidia-smi``), beside every phase J
+#: line
+CARD = {"name_power_limit": None}
+
+
+def host_submissions(fn, args, programs) -> tuple:
+    """One call of ``fn``: the host's submissions to the card (the CUDA
+    API rows of ``torch.profiler``, ``cuda*`` and ``cu*``, that launch a
+    kernel or a graph, or copy or set memory, by name), and the replays
+    the ``programs()`` made (their own counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = sum(p.replays for p in programs())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    subs = {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith("cu") and any(
+                w in e.key for w in ("Launch", "Memcpy", "Memset"))}
+    return subs, sum(p.replays for p in programs()) - before
+
+
+def first_difference(got, want):
+    """None where every leaf of ``got`` equals ``want``'s bit for bit;
+    else the first leaf that differs, its shape and the largest absolute
+    difference."""
+    lg, lw = pytree.tree_leaves(got), pytree.tree_leaves(want)
+    if len(lg) != len(lw):
+        return {"leaves": [len(lg), len(lw)]}
+    for i, (g, w) in enumerate(zip(lg, lw)):
+        g = torch.as_tensor(np.asarray(g)) if not isinstance(
+            g, torch.Tensor) else g.detach().cpu()
+        w = torch.as_tensor(np.asarray(w)) if not isinstance(
+            w, torch.Tensor) else w.detach().cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return {"leaf": i, "shapes": [list(g.shape), list(w.shape)]}
+        if not torch.equal(g, w):
+            return {"leaf": i, "shape": list(g.shape),
+                    "max_abs": (g.double() - w.double()).abs().max().item()}
+    return None
+
+
+def _time_entry(t: dict) -> dict:
+    return {k: t[k] for k in ("wall_ms", "event_ms", "device_ms",
+                              "device_idle_share", "device_launches")}
+
+
+def capture_entry(what: str, fn, args, new_args, iters: int, programs,
+                  replays: int = 1, eager_iters: int = 1) -> dict:
+    """Phase J for one program ``fn`` (a captured callable): its eager
+    port run (``disable_capture``) against its first call (eager on a side
+    stream, then the capture) and a replay, bit for bit; a replay after
+    the inputs change (``new_args``) against the eager run on them; host
+    submissions of one replayed call (``replays`` graph launches); wall
+    and device time and the idle share, eager and captured; the capture's
+    seconds (``programs()``: the :class:`DeviceProgram` objects)."""
+    with torch.no_grad():
+        with disable_capture():
+            want, want_new = fn(*args), fn(*new_args)
+            eager = where_time_goes(fn, args, eager_iters, warmup=0)
+        t0 = time.perf_counter()
+        first = fn(*args)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        replay = fn(*args)
+        got_new = fn(*new_args)
+        torch.cuda.synchronize()
+        check(first_difference(want_new, want) is not None,
+              f"phase J {what}: the new inputs gave the old output")
+        for name, a, b in (("a replay", replay, want),
+                           ("a replay on new inputs", got_new, want_new)):
+            v = verify(b, a, rtol=1e-2, atol=1e-2)
+            check(v.ok, f"phase J {what}: {name} differs from the eager "
+                        f"port: {v}")
+        check(first_difference(got_new, replay) is not None,
+              f"phase J {what}: a replay on new inputs gave the old output")
+        captured = where_time_goes(fn, args, iters)
+        subs, n = host_submissions(fn, args, programs)
+    progs = programs()
+    check(progs and all(p.captured for p in progs),
+          f"phase J {what}: nothing was captured")
+    check(n == replays, f"phase J {what}: one call made {n} replays, not "
+                        f"{replays} ({subs})")
+    return {"bit_equal": first_difference(replay, want) is None,
+            "differs": first_difference(replay, want),
+            "first_call_differs": first_difference(first, want),
+            "new_inputs_bit_equal": first_difference(got_new, want_new)
+            is None,
+            "host_submissions_per_call": subs, "replays_per_call": n,
+            "eager": eager, "captured": captured, "first_call_s": first_s,
+            "warmup_s": sum(p.warmup_s for p in progs),
+            "capture_s": sum(p.capture_s for p in progs),
+            "graphs": len(progs)}
+
+
+def print_capture(label: str, entries: dict) -> None:
+    print(f"phase J {label}:", json.dumps({"card": CARD["name_power_limit"],
+                                           **entries}), flush=True)
+
+
+def new_inputs(args: tuple) -> tuple:
+    """Other inputs of the same shapes: floats halved, token ids rolled."""
+    return tuple(a * 0.5 if a.is_floating_point() else a.roll(1, -1)
+                 for a in args)
+
+
+def decode_capture_entry(bound, prompts, prompt_len: int) -> dict:
+    """Phase J for a served model's decode step: from a prefill of the
+    prompts (room for 64 more tokens), the eager step against the captured
+    step's first call (eager, then the capture), and the next step (a
+    replay, the state donated and written in place) against the eager next
+    step; then where one step's time goes, eager (the same step repeated,
+    as the serve line took it before the capture) and captured
+    (consecutive steps on the donated state)."""
+    with torch.no_grad():
+        _, state = bound.prefill(prompts, prompt_len + 64)
+        base = pytree.tree_map(lambda t: t.clone(), state)
+
+        def fresh():
+            return pytree.tree_map(lambda t: t.clone(), base)
+
+        last = prompts["tokens"][:, -1:]
+        with disable_capture():
+            want, want_st = bound.decode(last, fresh())
+            nxt = torch.argmax(want[:, -1], -1, keepdim=True).to(torch.int32)
+            want2, _ = bound.decode(nxt, want_st)
+            st = fresh()
+            eager = where_time_goes(lambda: bound.decode(last, st), (), 5)
+        t0 = time.perf_counter()
+        got, cst = bound.decode(last, fresh())
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        got2, cst = bound.decode(nxt, cst)
+        torch.cuda.synchronize()
+        for name, a, b in (("the first step", got, want),
+                           ("a replay of the next step", got2, want2)):
+            v = verify(b, a, rtol=1e-2, atol=1e-2)
+            check(v.ok, f"phase J decode: {name} differs from the eager "
+                        f"step: {v}")
+        check(first_difference(got2, got) is not None,
+              "phase J decode: the next step's replay gave the first "
+              "step's logits")
+        captured = where_time_goes(lambda: bound.decode(last, cst), (), 5)
+        subs, n = host_submissions(
+            lambda: bound.decode(last, cst), (),
+            lambda: list(bound._decode.programs.values()))
+    progs = list(bound._decode.programs.values())
+    check(n == 1, f"phase J decode: one step made {n} replays ({subs})")
+    return {"bit_equal": first_difference(got2, want2) is None,
+            "differs": first_difference(got2, want2),
+            "first_call_differs": first_difference(got, want),
+            "host_submissions_per_call": subs, "replays_per_call": n,
+            "eager": eager, "captured": captured, "first_call_s": first_s,
+            "capture_s": sum(p.capture_s for p in progs),
+            "graphs": len(progs)}
 
 
 def short_kernel_names(mangled: list) -> list:
@@ -4159,7 +4372,8 @@ def run_all(only, m_store: Path, c3_dir: Path, children: list) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    CARD["name_power_limit"] = smi.stdout.strip().splitlines()[0]
+    print(CARD["name_power_limit"], flush=True)
     print(f"NVML board power: {nvml_power_w()} W (repro_torch.core."
           f"objectives.nvml_power_w)", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "

@@ -32,13 +32,17 @@ and their *cost* (reuse across runs).  This module is that subsystem:
   functions (:class:`repro_torch.core.fitness.WallClockFitness` and
   anything else exposing ``prepare(bits)`` / ``measure(prepared)``): when
   the timing loop must stay serial (``workers <= 1``), per-chromosome
-  prepares (substitution, warm-up run, verification) are dispatched
+  prepares (substitution, warm-up run, graph capture on the card,
+  verification) are dispatched
   concurrently on ``compile_workers`` threads *ahead* of the strictly
   serial timing loop, so a generation pays max(prepare) instead of
   sum(prepare) where prepares overlap.  A prepare that holds the GIL (FX
   surgery, eager forwards) contends instead; the phase measures that and
   turns itself off.  The card is synchronized before the first timing, so
-  no prepare's launches leak into it.  :class:`EvalStats` reports the
+  no prepare's launches leak into it.  Captures on the pool's threads are
+  thread-local and take turns (``device_program.CAPTURE_LOCK``); a
+  prepare syncs its own stream, never the whole device, so one thread's
+  capture never fails another's prepare.  :class:`EvalStats` reports the
   wall-clock saved.
 
 The engine is deterministic: results are returned in population order and a
@@ -221,10 +225,12 @@ def last_rank_corr(cache_dir: str, fingerprint: str,
 
 def _synchronize_device() -> None:
     """Wait for the card where this process has used one (a fitness on the
-    CPU, or a process-pool worker that never touched CUDA, skips this)."""
+    CPU, or a process-pool worker that never touched CUDA, skips this),
+    outside any graph capture on another thread."""
     torch = sys.modules.get("torch")
     if torch is not None and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        from repro_torch.core.device_program import synchronize
+        synchronize()
 
 
 

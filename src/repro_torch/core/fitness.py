@@ -2,11 +2,22 @@
 
 * :class:`WallClockFitness` — execute and time (min over repeats after a
   warm-up run), verify results against the reference path (PCAST
-  analogue) -> invalid = time ∞.  The warm-up run in
-  :meth:`WallClockFitness.prepare` also absorbs the kernels' first-use
-  build (``repro_torch.kernels.build``), so a build is never timed.  Where
-  the runner's outputs live on a CUDA device, each timed run ends in
-  ``torch.cuda.synchronize()`` — the counterpart of ``block_until_ready``.
+  analogue) -> invalid = time ∞.  The first run, in
+  :meth:`WallClockFitness.prepare`, absorbs the kernels' first-use build
+  (``repro_torch.kernels.build``) and, where the runner calls a captured
+  program (:mod:`repro_torch.core.device_program`: the export and ast
+  frontends' runners on the card), its warm-up and capture, as the
+  reference's first call compiles; where the outputs lie on the card it
+  runs the runner a second time, so that the output it verifies is a
+  replay's, the run :meth:`~WallClockFitness.measure` times.  A capture
+  error leaves
+  the GA as an invalid chromosome with its error, as a ``jit`` error does
+  in the reference.  Where the runner's outputs live on a CUDA device,
+  each run ends in a sync of the current stream — the counterpart of
+  ``block_until_ready`` — never of the whole device, which would fail a
+  capture on another thread (the overlapped prepares); and the timing loop
+  holds :data:`~repro_torch.core.device_program.CAPTURE_LOCK`, so no
+  capture on another thread lands inside a timed run.
 * :class:`CostModelFitness` — ``lower().compile()`` of the program
   (:mod:`repro_torch.hlo_analysis`: a trace, no run); the measured
   artifact is its aten graph: roofline step time on one H100 as the
@@ -28,6 +39,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import roofline as rl
+from repro_torch.core.device_program import CAPTURE_LOCK
 from repro_torch.core.ga import Evaluation
 from repro_torch.core.verifier import verify
 
@@ -39,7 +51,7 @@ def _cuda_devices(out: Any) -> set:
 
 def _synchronize(devices: set) -> None:
     for dev in devices:
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
 
 
 @dataclass
@@ -74,8 +86,10 @@ class WallClockFitness:
         bits = tuple(bits)
         try:
             runner = self.build(bits)
-            out = runner()                        # warm-up (kernel build)
+            out = runner()            # warm-up, kernel build, capture
             devices = _cuda_devices(out)
+            if devices:
+                out = runner()        # a replay: what measure() times
             _synchronize(devices)
         except Exception as e:  # noqa: BLE001 — paper: errors leave the GA
             return PreparedRun(bits, failure=Evaluation(
@@ -94,12 +108,16 @@ class WallClockFitness:
         if prepared.failure is not None:
             return prepared.failure
         best = float("inf")
-        for _ in range(self.repeats):
-            _synchronize(prepared.devices)
-            t0 = time.perf_counter()
-            prepared.runner()
-            _synchronize(prepared.devices)
-            best = min(best, time.perf_counter() - t0)
+        with CAPTURE_LOCK:
+            for _ in range(self.repeats):
+                _synchronize(prepared.devices)
+                t0 = time.perf_counter()
+                prepared.runner()
+                _synchronize(prepared.devices)
+                best = min(best, time.perf_counter() - t0)
+        # the runner's captured graphs go with it: a batch's prepared runs
+        # are measured one by one, and none outlives its measurement
+        prepared.runner = None
         return Evaluation(prepared.bits, best, True, {})
 
     def __call__(self, bits: tuple) -> Evaluation:

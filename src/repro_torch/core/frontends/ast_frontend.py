@@ -18,8 +18,19 @@ The analysis and the program model carry over unchanged: the same
     tensors on the executor's device (as ``jnp`` creates f32 with x64 off),
     takes Python scalars, and raises ``AttributeError`` on any name it lacks
     (a loop that uses one leaves the gene, as an unknown ``jnp`` name does).
-  * **The "compiled" loop is the rewritten function, run eagerly on the
-    device** — one launch per scalar op; ``torch.compile`` is not applied.
+  * **The compiled loop is the rewritten function captured as a CUDA
+    graph** (:class:`~repro_torch.core.device_program.CapturedFunction`,
+    the reference's ``jax.jit``): captured on its first call for its
+    arguments' shapes and dtypes, cached under the loop's key (which holds
+    the static range bounds, the reference's static trip counts), and
+    replayed after — one host submission where the eager function makes
+    one launch per scalar op.  On the CPU it runs eagerly.  So that the
+    rewrite captures, a subscript goes through ``tnp.getitem`` /
+    ``tnp.setitem``, which select by a 0-d integer tensor (a loop index
+    that an enclosing interpreted loop hands over) with ``index_select``
+    / ``index_copy_`` on the device where PyTorch reads it on the host,
+    and ``tnp`` makes a tensor of a Python scalar with a fill on the
+    device, not a copy from the host.
   * **The feasibility check** runs each loop's rewritten function once on
     its calibration snapshot under :class:`_NoConcretization`, a
     ``TorchFunctionMode`` that raises where ``jax.eval_shape`` raises on a
@@ -88,6 +99,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.core import similarity as sim
+from repro_torch.core.device_program import CapturedFunction
 from repro_torch.core.frontends.export_frontend import resolve_device
 from repro_torch.core.ir import Region, RegionGraph
 
@@ -234,7 +246,33 @@ class TorchNumpy:
     def asarray(self, x):
         if isinstance(x, torch.Tensor):
             return x
+        if np.ndim(x) == 0:          # a fill on the device: capturable
+            v = x.item() if isinstance(x, (np.generic, np.ndarray)) else x
+            return torch.full((), v, dtype=_device_dtype(x),
+                              device=self.device)
         return torch.as_tensor(x, dtype=_device_dtype(x), device=self.device)
+
+    # subscripts: the rewrite routes ``a[ix]`` and ``a[ix] = v`` here
+    def getitem(self, a, ix):
+        p = _tensor_index(a, ix)
+        if p is None:
+            return a[ix]
+        view, d, k, rest = _select_split(a, ix, p)
+        out = view.index_select(d, k).squeeze(d)
+        return self.getitem(out, (slice(None),) * d + rest) if rest else out
+
+    def setitem(self, a, ix, v) -> None:
+        p = _tensor_index(a, ix)
+        if p is None:
+            a[ix] = v
+            return
+        view, d, k, rest = _select_split(a, ix, p)
+        rows = view.index_select(d, k)
+        if rest:
+            self.setitem(rows.select(d, 0), (slice(None),) * d + rest, v)
+        else:
+            rows.select(d, 0)[...] = v
+        view.index_copy_(d, k, rows)
 
     def zeros(self, shape):
         return torch.zeros(shape, dtype=torch.float32, device=self.device)
@@ -264,8 +302,58 @@ class TorchNumpy:
         return torch.matmul(self.asarray(a), self.asarray(b))
 
 
+def _tensor_index(a, ix) -> Optional[int]:
+    """Where ``ix`` (a subscript of the tensor ``a``) first holds a 0-d
+    integer tensor after basic entries only (ints, slices, None), which
+    PyTorch would read on the host to select; None where it holds none,
+    or the selection is left to PyTorch (an Ellipsis before it)."""
+    if not isinstance(a, torch.Tensor):
+        return None
+    for p, e in enumerate(ix if isinstance(ix, tuple) else (ix,)):
+        if isinstance(e, torch.Tensor):
+            if e.ndim == 0 and not e.is_floating_point() \
+                    and not e.is_complex() and e.dtype != torch.bool:
+                return p
+            return None
+        if e is Ellipsis:
+            return None
+    return None
+
+
+def _select_split(a: torch.Tensor, ix, p: int) -> tuple:
+    """(``a`` under the basic entries before ``p`` (a view), the dim the
+    tensor index selects in it, that index as a 1-element long tensor
+    with a negative one wrapped, the entries after ``p``)."""
+    ix = ix if isinstance(ix, tuple) else (ix,)
+    pre = ix[:p]
+    view = a[pre] if pre else a
+    d = sum(1 for e in pre if e is None or isinstance(e, slice))
+    k = ix[p].reshape(1).long()
+    k = torch.where(k < 0, k + view.shape[d], k)
+    return view, d, k, ix[p + 1:]
+
+
 #: the global name the rewrite gives ``np`` / ``numpy`` / ``math``
 _NS = "tnp"
+
+
+def _ns_call(name: str, *args) -> ast.Call:
+    return ast.Call(func=ast.Attribute(value=ast.Name(id=_NS, ctx=ast.Load()),
+                                       attr=name, ctx=ast.Load()),
+                    args=list(args), keywords=[])
+
+
+def _index_expr(node: ast.AST) -> ast.AST:
+    """A subscript's slice as an expression: ``a:b`` -> ``slice(a, b)``."""
+    if isinstance(node, ast.Slice):
+        none = ast.Constant(value=None)
+        return ast.Call(func=ast.Name(id="slice", ctx=ast.Load()),
+                        args=[node.lower or none, node.upper or none,
+                              node.step or none], keywords=[])
+    if isinstance(node, ast.Tuple):
+        return ast.Tuple(elts=[_index_expr(e) for e in node.elts],
+                         ctx=ast.Load())
+    return node
 
 
 # ---------------------------------------------------------------------------
@@ -275,9 +363,11 @@ _NS = "tnp"
 
 class _TorchRewriter(ast.NodeTransformer):
     """np.X / math.X -> tnp.X; in-place writes stay in place, recorded in
-    ``written``.  Raises :class:`_RewriteError` on exactly the writes the
-    reference's functionalization (``a = a.at[i].set(v)``) refuses or jax
-    cannot trace, so the same loops leave the gene."""
+    ``written``; ``a[ix]`` -> ``tnp.getitem(a, ix)``, ``a[ix] = v`` ->
+    ``tnp.setitem(a, ix, v)`` and ``a[ix] += v`` -> ``tnp.setitem(a, ix,
+    tnp.getitem(a, ix) + v)``.  Raises :class:`_RewriteError` on exactly
+    the writes the reference's functionalization (``a = a.at[i].set(v)``)
+    refuses or jax cannot trace, so the same loops leave the gene."""
 
     def __init__(self):
         self.written: set = set()
@@ -292,10 +382,22 @@ class _TorchRewriter(ast.NodeTransformer):
             raise _RewriteError("can only functionalize writes to simple names")
         self.written.add(tgt.value.id)
 
+    def visit_Subscript(self, node: ast.Subscript):
+        self.generic_visit(node)
+        if isinstance(node.ctx, ast.Load):
+            return ast.copy_location(
+                _ns_call("getitem", node.value, _index_expr(node.slice)),
+                node)
+        return node
+
     def visit_Assign(self, node: ast.Assign):
         self.generic_visit(node)
         if len(node.targets) == 1 and isinstance(node.targets[0], ast.Subscript):
-            self._subscript_write(node.targets[0])
+            tgt = node.targets[0]
+            self._subscript_write(tgt)
+            return ast.copy_location(ast.Expr(value=_ns_call(
+                "setitem", tgt.value, _index_expr(tgt.slice), node.value)),
+                node)
         elif any(isinstance(n, ast.Subscript) and isinstance(n.ctx, ast.Store)
                  for t in node.targets for n in ast.walk(t)):
             # the reference leaves these unrewritten and jax refuses the
@@ -310,7 +412,13 @@ class _TorchRewriter(ast.NodeTransformer):
             if type(node.op).__name__ not in ("Add", "Mult"):
                 raise _RewriteError(
                     f"unsupported augmented op {type(node.op).__name__}")
-            self._subscript_write(node.target)
+            tgt = node.target
+            self._subscript_write(tgt)
+            ix = _index_expr(tgt.slice)
+            new = ast.BinOp(left=_ns_call("getitem", tgt.value, ix),
+                            op=node.op, right=node.value)
+            return ast.copy_location(ast.Expr(value=_ns_call(
+                "setitem", tgt.value, ix, new)), node)
         return node
 
 
@@ -492,7 +600,7 @@ class PyProgram:
                 node = self._find_loop(r.name)
                 fn, live_in, _ = self._compile_loop(node, env, dev)
                 with torch.inference_mode(), _NoConcretization():
-                    fn(*[device_value(env[v], dev) for v in live_in])
+                    fn.fn(*[device_value(env[v], dev) for v in live_in])
                 r.offloadable = True
                 ok.append(r.name)
             except Exception as e:  # noqa: BLE001 — any failure disqualifies
@@ -537,7 +645,9 @@ class PyProgram:
     def _compile_loop(self, node: _Node, env: dict,
                       device: torch.device) -> tuple[Callable, list, list]:
         """Build the device function for one loop.  Returns (fn, live_in,
-        live_out).
+        live_out); ``fn`` is the rewritten function captured on the card
+        (a :class:`~repro_torch.core.device_program.CapturedFunction`; its
+        ``fn`` the plain function), the reference's ``jax.jit``.
 
         Arrays and non-range scalars become arguments (device tensors);
         range/len bounds become closure constants (static trip counts — the
@@ -586,7 +696,7 @@ class PyProgram:
                     if k not in live_in and k not in glb})
         loc: dict = {}
         exec(compile(ast.parse(fn_src), f"<offload:{key}>", "exec"), glb, loc)  # noqa: S102
-        fn = loc["_offload"]
+        fn = CapturedFunction(loc["_offload"], name=f"offload:{key}")
         self._compiled_cache[cache_key] = fn
         return fn, live_in, live_out
 

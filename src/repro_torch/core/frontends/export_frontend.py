@@ -642,6 +642,7 @@ class ExportFrontend:
         import threading
 
         from repro_torch.core.block_offload import block_offload_pass
+        from repro_torch.core.device_program import GraphPool
         from repro_torch.core.fitness import WallClockFitness
         from repro_torch.core.frontends.registry import (
             FitnessBundle, decoded_pattern, static_cost_fitness_factory)
@@ -686,6 +687,10 @@ class ExportFrontend:
             # variant).  Guarded: prepare may run on compile-pool threads.
             reports: dict = {}
             rlock = threading.Lock()
+            # the search's captured programs share one memory pool: the GA
+            # times them one by one, and a batch's prepared programs wait
+            # for their timing side by side
+            pool = GraphPool()
 
             def build(values):
                 values = tuple(values)
@@ -694,6 +699,10 @@ class ExportFrontend:
                     impl, destinations=coding.destinations_of(values))
                 with rlock:
                     reports[values] = sub.report
+                # the runner the GA times is the captured program (the
+                # reference's jax.jit(sub.fn)): its first call, in
+                # prepare, captures it on the card
+                sub.captured.pool = pool
                 return lambda: sub(*example_args)
 
             class _RecordingFitness(WallClockFitness):

@@ -26,7 +26,10 @@ that binds claims its members (their requests fall back to ``ref``,
 ``claimed by block <name>``), and a block whose variant does not bind
 releases them.
 Everything else runs the exported ATen ops unchanged.  The result,
-:class:`SubstitutedCallable`, runs eagerly (no compilation step).
+:class:`SubstitutedCallable`, is captured as a CUDA graph on its first
+call on the card and replayed after, as the reference's runs a cached
+``jax.jit`` (:mod:`repro_torch.core.device_program`); on the CPU it runs
+the graph module eagerly.
 
 Variant binding happens *eagerly* against the graph's ``node.meta["val"]``
 shapes and dtypes, so every fallback decision is recorded in the
@@ -52,6 +55,7 @@ import torch.fx
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import similarity as sim
+from repro_torch.core.device_program import CapturedFunction
 from repro_torch.core.ir import RegionGraph
 from repro_torch.core.variants import (_REF_IMPLS, SubstitutionChoice,
                                        SubstitutionReport, resolve_variant)
@@ -65,19 +69,22 @@ __all__ = ["SiteBinding", "SubstitutionChoice", "SubstitutionReport",
 class SubstitutedCallable:
     """A runnable substituted program: same signature as the exported
     source.  ``gm`` is the rewritten ``GraphModule`` (it shares the source's
-    parameters); calling the object runs it under ``torch.no_grad``.
-    ``report`` says which regions were substituted with which variant and
-    why the rest fell back."""
+    parameters); calling the object runs it under ``torch.no_grad``, on
+    CUDA inputs as a graph captured on the first call for their signature
+    (``captured``, a :class:`~repro_torch.core.device_program.
+    CapturedFunction`) and replayed after.  ``report`` says which regions
+    were substituted with which variant and why the rest fell back."""
 
     def __init__(self, gm: torch.fx.GraphModule, report: SubstitutionReport,
                  name: str = "substituted"):
         self.gm = gm
         self.report = report
         self.name = name
+        self.captured = CapturedFunction(gm, name=name)
 
     def __call__(self, *args):
         with torch.no_grad():
-            return self.gm(*args)
+            return self.captured(*args)
 
     def __repr__(self) -> str:
         return (f"SubstitutedCallable({self.name!r}, "

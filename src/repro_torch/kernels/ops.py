@@ -10,7 +10,12 @@ Each wrapper counts its launches in a plain integer attribute
 (``flash_attention.launches``, ``rmsnorm.launches``,
 ``rglru_scan.launches``, ``wkv6.launches``), incremented where the kernel
 is launched and nowhere else (under one lock: launches may come from
-several threads), so a run can show that it went through the kernels.  ``flash_attention.launches_by_path`` splits its count over the
+several threads), so a run can show that it went through the kernels.
+A wrapper called while its thread captures a CUDA graph
+(:mod:`repro_torch.core.device_program`) launches nothing then: the
+capture records the count (:func:`recording_launches`), and each replay
+of the graph adds it (:func:`replay_launches`), as each replay launches
+the kernel.  ``flash_attention.launches_by_path`` splits its count over the
 kernel's paths (``"wgmma"``, ``"mma"``, ``"scalar"``),
 ``rmsnorm.launches_by_variant`` over the RMSNorm kernel's variants
 (``"d128_l16"``: the instance for d = 128 at 16 lanes a row;
@@ -30,6 +35,7 @@ head flattening for WKV are gone.  The RG-LRU ``h0`` fold into ``b[:, 0]``
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 from typing import Optional
@@ -42,12 +48,55 @@ from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import wkv6 as _wk
 
 __all__ = ["flash_attention", "rglru_scan", "rmsnorm", "wkv6",
-           "reset_launch_counts", "launch_counts"]
+           "reset_launch_counts", "launch_counts", "recording_launches",
+           "replay_launches"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: guards the launch counts: the planner's overlapped prepares launch from
 #: several threads
 _COUNT_LOCK = threading.Lock()
+#: ``record``: the launches a capture on this thread has recorded
+_CAPTURING = threading.local()
+
+
+def _apply(wrapper, split: Optional[str], key: Optional[str]) -> None:
+    wrapper.launches += 1
+    if split is not None:
+        counts = getattr(wrapper, split)
+        counts[key] = counts.get(key, 0) + 1
+
+
+def _count(wrapper, split: Optional[str] = None,
+           key: Optional[str] = None) -> None:
+    """One launch of ``wrapper``'s kernel (by ``split[key]``); recorded
+    instead while this thread captures a graph."""
+    record = getattr(_CAPTURING, "record", None)
+    if record is not None:
+        record.append((wrapper, split, key))
+        return
+    with _COUNT_LOCK:
+        _apply(wrapper, split, key)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches are recorded into the
+    list it yields, not counted: a graph capture, whose replays count
+    them (:func:`replay_launches`)."""
+    prev = getattr(_CAPTURING, "record", None)
+    _CAPTURING.record = record = []
+    try:
+        yield record
+    finally:
+        _CAPTURING.record = prev
+
+
+def replay_launches(record) -> None:
+    """Count the launches a captured graph's replay made."""
+    if record:
+        with _COUNT_LOCK:
+            for item in record:
+                _apply(*item)
 
 
 def _route(*tensors: torch.Tensor) -> str:
@@ -88,9 +137,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     path = _fa.select_path(q, k, v)
     _fa.launch(q, k, v, out, causal=causal, scale=scale, path=path)
-    with _COUNT_LOCK:
-        flash_attention.launches += 1
-        flash_attention.launches_by_path[path] += 1
+    _count(flash_attention, "launches_by_path", path)
     return out
 
 
@@ -115,11 +162,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     out = torch.empty_like(x2)
     if x2.shape[0] > 0:
         _rn.launch(x2, scale, out, eps, variant=variant)
-        name = _rn.variant_name(variant)
-        with _COUNT_LOCK:
-            rmsnorm.launches += 1
-            rmsnorm.launches_by_variant[name] = \
-                rmsnorm.launches_by_variant.get(name, 0) + 1
+        _count(rmsnorm, "launches_by_variant", _rn.variant_name(variant))
     return out.reshape(x.shape)
 
 
@@ -160,9 +203,7 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
     if out.numel() > 0:
         route = _rg.select_route(la, bb)
         _rg.launch(la, bb, out, route=route)
-        with _COUNT_LOCK:
-            rglru_scan.launches += 1
-            rglru_scan.launches_by_route[route] += 1
+        _count(rglru_scan, "launches_by_route", route)
     return out
 
 
@@ -191,8 +232,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     if out.numel() > 0:
         _wk.launch(r, k, v, log_w, u, out)
-        with _COUNT_LOCK:
-            wkv6.launches += 1
+        _count(wkv6)
     return out
 
 

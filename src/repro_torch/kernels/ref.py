@@ -20,8 +20,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if causal:
         sq, sk = q.shape[1], k.shape[1]
-        mask = torch.arange(sk)[None, :] <= torch.arange(sq)[:, None]
-        s = torch.where(mask[None].to(s.device), s, -1e30)
+        mask = torch.arange(sk, device=s.device)[None, :] \
+            <= torch.arange(sq, device=s.device)[:, None]
+        s = torch.where(mask[None], s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 

@@ -12,10 +12,19 @@ replaced), and ``cache_len`` stays a device scalar, so
 no step synchronises with the host; the generated tokens are copied to the
 host once, at the end.
 
+On the card, as the reference jits them (its ``serve.py:51`` and ``:59``),
+the decode step and the prefill run as CUDA graphs
+(:mod:`repro_torch.core.device_program`): the decode step captured once
+per (batch, capacity), its state donated — the graph writes the new
+RG-LRU / RWKV states and ``cache_len`` back into the state's buffers, as
+the KV caches are written — and the prefill once per capacity and input
+shapes.  Sampling stays outside the graphs, as in the reference.  On the
+CPU both are the plain calls.
+
 The plan is **hot-swappable**: everything derived from it — here the
 parameters cast once to the plan's compute dtype where the reference casts
-them at each use (same values) — lives in one immutable ``_Bound`` snapshot
-published by a single reference assignment.  ``generate`` reads the
+them at each use (same values), and the captured programs — lives in one
+immutable ``_Bound`` snapshot published by a single reference assignment.  ``generate`` reads the
 snapshot once per call, so an in-flight generation always runs one complete
 plan end to end; a concurrent :meth:`Server.swap_plan` takes effect on the
 *next* call, never mid-sequence.  ``Server.from_store`` builds a server
@@ -26,13 +35,16 @@ from __future__ import annotations
 
 import collections
 import copy
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
+from repro_torch.core.device_program import CapturedFunction, capture_enabled
 from repro_torch.models import layers as L
 from repro_torch.models.api import Model
 from repro_torch.models.moe import Router
@@ -80,23 +92,59 @@ def _cast_params(params: torch.nn.Module, dtype: torch.dtype):
     return copy.deepcopy(params, memo) if memo else params
 
 
-class _Bound:
-    """One plan plus what is derived from it (the parameters in its
-    compute dtype).  Immutable after construction."""
+def _write_back(state, new) -> None:
+    """Copy each leaf of ``new`` that is not ``state``'s own tensor into
+    the leaf of ``state`` at its key path (a decode step's replaced
+    RG-LRU / RWKV states and ``cache_len``)."""
+    old = dict(pytree.tree_flatten_with_path(state)[0])
+    for path, leaf in pytree.tree_flatten_with_path(new)[0]:
+        if path not in old:
+            raise ValueError(f"the decode step returned a state leaf the "
+                             f"state lacks: {pytree.keystr(path)}")
+        if leaf is not old[path]:
+            old[path].copy_(leaf)
 
-    __slots__ = ("plan", "params", "_model")
+
+class _Bound:
+    """One plan plus what is derived from it: the parameters in its
+    compute dtype and the captured prefill and decode programs (their
+    graphs per signature fill in on first use, and go with the snapshot).
+    ``lock`` lets one ``generate`` at a time use them."""
+
+    __slots__ = ("plan", "params", "_model", "_prefill", "_decode", "lock")
 
     def __init__(self, model: Model, params, plan: ExecPlan):
         self.plan = plan
         self.params = _cast_params(params, L.cdtype(plan))
         self._model = model
+        self._prefill = CapturedFunction(self._prefill_plain, name="prefill")
+        self._decode = CapturedFunction(self._decode_in_place, donate=(1,),
+                                        name="decode")
+        self.lock = threading.Lock()
 
-    def prefill(self, inputs: dict, cache_capacity: int):
+    def _prefill_plain(self, inputs: dict, cache_capacity: int):
         return self._model.prefill(self.params, inputs, self.plan,
                                    cache_capacity=cache_capacity)
 
+    def _decode_in_place(self, token: torch.Tensor, state: dict):
+        logits, new = self._model.decode(self.params, token, state,
+                                         self.plan)
+        _write_back(state, new)
+        return logits, state
+
+    def prefill(self, inputs: dict, cache_capacity: int):
+        """(last-token logits, decode state); captured per capacity and
+        input shapes on the card."""
+        return self._prefill(inputs, cache_capacity)
+
     def decode(self, token: torch.Tensor, state: dict):
-        return self._model.decode(self.params, token, state, self.plan)
+        """(logits, new state).  On the card ``state`` is donated: the
+        new state is the captured step's buffers, updated in place (a
+        state that is not them is copied in first); on the CPU, and inside
+        ``disable_capture``, the plain step."""
+        if token.device.type != "cuda" or not capture_enabled():
+            return self._model.decode(self.params, token, state, self.plan)
+        return self._decode(token, state)
 
 
 class Server:
@@ -156,7 +204,7 @@ class Server:
         self._req_times.append(t0)
         obs_metrics.gauge("serve.traffic_hz").set(self.traffic_hz())
         with obs_trace.span("serve.generate", batch=b, prompt_len=s,
-                            max_new=max_new):
+                            max_new=max_new), bound.lock:
             cap = s + max_new + (self.model.cfg.vision_patches or 0)
             logits, state = bound.prefill(inputs, cap)
             gen = torch.Generator(logits.device).manual_seed(self.cfg.seed)

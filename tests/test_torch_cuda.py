@@ -5,6 +5,8 @@ machine without JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import contextlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1211,3 +1213,240 @@ def test_service_endpoint_runs_the_kernels_and_warm_loads_on_card(
     torch.cuda.synchronize()
     assert tops.launch_counts()["flash_attention"] == 1
     assert torch.equal(again, out)
+
+
+# ---------------------------------------------------------------------------
+# captured programs (core/device_program.py): the port's jax.jit
+# ---------------------------------------------------------------------------
+
+_FAMILIES = ("qwen3_0_6b", "recurrentgemma_2b", "olmoe_1b_7b", "rwkv6_3b",
+             "whisper_small")
+
+
+def _same(a, b) -> bool:
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def _captured_block(cuda, label):
+    """Path ``label``'s program at small widths on the card (Q a reduced
+    Qwen3 block, R a reduced RG-LRU sublayer, W one WKV-6 head as a scan):
+    its example arguments and its all-reference and all-kernel
+    substitutions."""
+    from torch._higher_order_ops.scan import scan
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload import OffloadConfig, Offloader
+    from repro_torch.models.transformer import DenseBlock, RecurrentSublayer
+
+    g = torch.Generator().manual_seed(0)
+    if label == "Q":
+        cfg = get_config("qwen3_0_6b").reduced()
+        target = DenseBlock(cfg, device=cuda, generator=g)
+        args = ((torch.randn(2, 64, cfg.d_model, generator=g) * 0.1).to(cuda),)
+    elif label == "R":
+        cfg = get_config("recurrentgemma_2b").reduced()
+        target = RecurrentSublayer(cfg, device=cuda, generator=g)
+        args = ((torch.randn(2, 64, cfg.d_model, generator=g) * 0.1).to(cuda),)
+    else:
+        def target(r, k, v, lw, u):
+            def step(s, rkvw):
+                rt, kt, vt, lwt = rkvw
+                kv = kt[:, None] * vt[None, :]
+                y = rt @ (s + u[:, None] * kv)
+                return torch.exp(lwt)[:, None] * s + kv, y
+            _, ys = scan(step, torch.zeros(r.shape[-1], v.shape[-1],
+                                           device=r.device), (r, k, v, lw))
+            return ys
+        r, k, v = (torch.randn(128, 64, generator=g) for _ in range(3))
+        lw = -torch.exp(torch.randn(128, 64, generator=g) - 0.6)
+        args = tuple(t.to(cuda) for t in
+                     (r, k, v, lw, torch.randn(64, generator=g) * 0.1))
+    ctx = Offloader(OffloadConfig(options={"example_args": args})).prepare(
+        target)
+    engine = ctx.bundle.context["engine"]
+    bits = tuple(2 if ctx.graph.by_name(s.region).meta.get("pattern")
+                 and not ctx.graph.by_name(s.region).meta.get("block_members")
+                 else 0 for s in ctx.coding.sites)
+    return args, (engine.substitute({}),
+                  engine.substitute(ctx.coding.decode(bits)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["Q", "R", "W"])
+def test_captured_program_equals_eager_and_replays_new_inputs_on_card(
+        cuda, label):
+    """A substituted program's first call on the card runs eagerly and
+    captures; each later call is one replay, bit for bit the eager
+    program's, launching what an eager call launches; a replay after new
+    inputs gives the new result and leaves the earlier one as it was."""
+    args, subs = _captured_block(cuda, label)
+    assert any(c.chosen == "cuda" for c in subs[1].report.choices)
+    for sub in subs:
+        with torch.no_grad():
+            eager = sub.gm(*args)
+        tops.reset_launch_counts()
+        first = sub(*args)
+        once = tops.launch_counts()
+        again = sub(*args)
+        torch.cuda.synchronize()
+        twice = tops.launch_counts()
+        (prog,) = sub.captured.programs.values()
+        assert prog.captured and prog.replays == 1 and prog.capture_s > 0
+        assert _same(first, eager) and _same(again, eager)
+        assert {k: twice[k] - once[k] for k in once} == once
+        new = tuple(a.flip(0) for a in args)
+        with torch.no_grad():
+            eager_new = sub.gm(*new)
+        got_new = sub(*new)
+        assert _same(got_new, eager_new) and not _same(got_new, eager)
+        assert _same(again, eager)
+        assert prog.replays == 2 and len(sub.captured.programs) == 1
+
+
+def _family_on(arch, device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import OFFLOAD_PLAN, build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    g = torch.Generator().manual_seed(0)
+    params = model.init(g, torch.float32, device=device)
+    batch = model.demo_batch(g, 2, 16, device=device)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    return model, params, OFFLOAD_PLAN.replace(compute_dtype="float32"), inputs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _FAMILIES)
+def test_captured_decode_equals_eager_on_card(cuda, arch):
+    """Three decode steps of each family: the captured step (state
+    donated, written back in place) gives the eager step's logits and
+    state bit for bit, one capture then a replay a step; ``generate``
+    gives the eager server's tokens."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core.device_program import disable_capture
+    from repro_torch.runtime.serve import Server
+
+    model, params, plan, inputs = _family_on(arch, cuda)
+    server = Server(model, params, plan)
+    bound = server._bound
+    with torch.no_grad():
+        logits, state0 = bound.prefill(inputs, 20)
+        tok = torch.argmax(logits[:, -1], -1, keepdim=True).to(torch.int32)
+        runs = []
+        for captured in (False, True):
+            st = pytree.tree_map(lambda t: t.clone(), state0)
+            t, out = tok, []
+            with contextlib.nullcontext() if captured else disable_capture():
+                for _ in range(3):
+                    lg, st = bound.decode(t, st)
+                    out.append(lg)
+                    t = torch.argmax(lg[:, -1], -1, keepdim=True).to(
+                        torch.int32)
+            runs.append((out, dict(pytree.tree_flatten_with_path(st)[0])))
+    (eager, e_state), (got, c_state) = runs
+    assert all(torch.equal(a, b) for a, b in zip(got, eager))
+    for path, leaf in e_state.items():
+        assert torch.equal(c_state[path], leaf), pytree.keystr(path)
+    (prog,) = bound._decode.programs.values()
+    assert prog.replays == 2
+    a = server.generate(inputs, 5)
+    with disable_capture():
+        b = server.generate(inputs, 5)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_capture_error_raises_and_does_not_fall_back_on_card(cuda):
+    """A program that reads a device value on the host runs eagerly once,
+    then its capture fails: the call raises, nothing is cached, and no
+    eager run takes the replay's place; in the GA the chromosome is
+    invalid with the error."""
+    import math
+
+    from repro_torch.core.device_program import CapturedFunction
+    from repro_torch.core.fitness import WallClockFitness
+
+    calls = []
+
+    def reads_back(x):
+        calls.append(1)
+        return x * float(x.sum())
+
+    x = torch.ones(4, device=cuda)
+    cf = CapturedFunction(reads_back)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        cf(x)
+    assert cf.programs == {} and len(calls) == 2
+    ev = WallClockFitness(
+        lambda bits: (lambda: CapturedFunction(reads_back)(x)))((0,))
+    assert not ev.valid and math.isinf(ev.time_s)
+    assert "capture failed" in ev.detail["error"]
+    ok = CapturedFunction(lambda y: y * 2)      # the card still captures
+    ok(x)
+    assert torch.equal(ok(x), x * 2)
+
+
+@pytest.mark.gpu
+def test_swap_plan_during_generate_finishes_on_the_old_snapshot_on_card(cuda):
+    """``swap_plan`` from inside a generation (at its third sample): the
+    call finishes on the old snapshot's captured programs, the next one
+    runs the new snapshot's, each with its plan's tokens."""
+    from repro_torch.models import REFERENCE_PLAN
+    from repro_torch.runtime.serve import Server
+
+    model, params, plan, inputs = _family_on("qwen3_0_6b", cuda)
+    other = REFERENCE_PLAN.replace(compute_dtype="bfloat16")
+    want_old = Server(model, params, plan).generate(inputs, 6)
+    want_new = Server(model, params, other).generate(inputs, 6)
+    server = Server(model, params, plan)
+    old = server._bound
+    sample, n = server._sample, [0]
+
+    def swapping(logits, gen):
+        n[0] += 1
+        if n[0] == 3:
+            server.swap_plan(other)
+        return sample(logits, gen)
+
+    server._sample = swapping
+    got = server.generate(inputs, 6)
+    new = server._bound
+    assert new is not old and new.plan is other
+    np.testing.assert_array_equal(got, want_old)
+    (prog,) = old._decode.programs.values()
+    assert prog.replays == 4 and new._decode.programs == {}
+    np.testing.assert_array_equal(server.generate(inputs, 6), want_new)
+    (prog,) = new._decode.programs.values()
+    assert prog.replays == 4
+
+
+@pytest.mark.gpu
+def test_programs_sharing_a_pool_replay_in_any_order_on_card(cuda):
+    """Two programs captured into one ``GraphPool`` (a search's chromosomes)
+    replay in another order than they were captured, on new inputs too,
+    each with the eager program's outputs."""
+    from repro_torch.core.device_program import (CapturedFunction,
+                                                 GraphPool, disable_capture)
+
+    pool = GraphPool()
+    fns = [CapturedFunction(lambda t: torch.relu(t @ t) + 1.0),
+           CapturedFunction(lambda t: torch.tanh(t * 3.0) @ t.T)]
+    for f in fns:
+        f.pool = pool
+    x = torch.randn(256, 256, generator=torch.Generator().manual_seed(0)
+                    ).to(cuda)
+    for f in fns:
+        f(x)
+    for t in (x, x.flip(0), x * 0.5):
+        got = [f(t) for f in reversed(fns)][::-1]
+        with disable_capture():
+            want = [f(t) for f in fns]
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(next(iter(f.programs.values())).replays == 3 for f in fns)
