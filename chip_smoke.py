@@ -2046,7 +2046,10 @@ def train_launcher(dev, ckpt_dir: Path) -> dict:
     """T3 and T4: the launcher's ``_run`` on the whole Qwen3-0.6B (28
     layers, f32) for 6 steps of 4 x 2048 tokens in 2 microbatches,
     checkpoints every 4 steps under ``ckpt_dir``, then ``--resume --steps
-    6``, which restores step 4 and replays steps 4 and 5."""
+    6``, which restores step 4 and replays steps 4 and 5.  The launcher's
+    step is captured: its first step is an eager step and the capture,
+    each later one a replay (``s_per_step_median_2_6``); phase J's entry
+    holds a replay to the eager step from one state and batch."""
     from repro_torch.launch import train as launch
 
     res = {"free_disk_bytes_before": shutil.disk_usage(ckpt_dir).free}
@@ -2062,7 +2065,8 @@ def train_launcher(dev, ckpt_dir: Path) -> dict:
           f"T3: losses {losses}")
     check(losses[-1] < losses[0], f"T3: loss did not fall: {losses}")
     s_step = statistics.median(secs[1:])
-    t3 = {"seconds": time.perf_counter() - t0,
+    t3 = {"seconds": time.perf_counter() - t0, "first_step_s": secs[0],
+          **capture_info(run.step_fn),
           "plan_updates": run.plan_updates,
           "remat": run.plan.remat, "microbatch": run.plan.microbatch,
           "n_params": sum(p.numel() for p in run.state.params.parameters()),
@@ -2071,13 +2075,13 @@ def train_launcher(dev, ckpt_dir: Path) -> dict:
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
           "checkpoint_saves": run.ckpt.saves}
     print("T3:", json.dumps(t3), flush=True)
-    batch = run.batch_fn(T3_STEPS)
-    t3["one_step"] = where_time_goes(
-        lambda: run.step_fn(run.state, batch), (), 1)
-    print("T3 one step:", json.dumps(t3["one_step"]), flush=True)
-    del run, batch
+    t3["J"] = train_capture_entry("T", run.step_fn, run.step_fn, run.state,
+                                  run.batch_fn(T3_STEPS))
+    print_capture("T", {"launcher step": t3["J"]})
+    del run
     gc.collect()
     torch.cuda.empty_cache()
+    t3["device_bytes_reserved_after_free"] = torch.cuda.memory_reserved()
 
     t0 = time.perf_counter()
     again = launch._run(launch.parse_args(
@@ -2130,14 +2134,17 @@ C2_STEPS = 3
 
 
 def c2_real_steps(dev, model, init: dict, plan, roof: dict,
-                  live_bytes: float) -> dict:
-    """``C2_STEPS`` train steps of ``plan`` on the card from the weights
-    ``init`` (host copies), fresh AdamW moments, at a constant lr: each
-    step's host seconds (synchronized) must reach the plan's FLOPs' time
-    (``roof["compute_s"]``); the peak device memory is printed beside the
-    cost model's ``live_bytes``."""
+                  live_bytes: float, j_label: str = None) -> dict:
+    """``C2_STEPS`` captured train steps (``jit_step``: the first an eager
+    step and the capture, the rest replays) of ``plan`` on the card from
+    the weights ``init`` (host copies), fresh AdamW moments, at a constant
+    lr: each step's host seconds (synchronized) must reach the plan's
+    FLOPs' time (``roof["compute_s"]``); the peak device memory is printed
+    beside the cost model's ``live_bytes``; with ``j_label``, phase J's
+    entry of the step."""
     from repro_torch.optim import OptimizerConfig, adamw_init
-    from repro_torch.runtime.train import TrainState, make_train_step
+    from repro_torch.runtime.train import (TrainState, jit_step,
+                                           make_train_step)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2148,8 +2155,9 @@ def c2_real_steps(dev, model, init: dict, plan, roof: dict,
         for k, p in params.named_parameters():
             p.copy_(init[k])
     state = TrainState(params, adamw_init(params), None)
-    step = make_train_step(model, plan, OptimizerConfig(),
-                           lambda s: torch.full((), T_LR, device=dev))
+    step = jit_step(make_train_step(model, plan, OptimizerConfig(),
+                                    lambda s: torch.full((), T_LR,
+                                                         device=dev)))
     batch = model.demo_batch(torch.Generator().manual_seed(SEED + 1),
                              C2_SHAPE.global_batch, C2_SHAPE.seq_len,
                              device=dev)
@@ -2162,6 +2170,11 @@ def c2_real_steps(dev, model, init: dict, plan, roof: dict,
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() - held
+    j = None
+    if j_label is not None:
+        j = train_capture_entry(j_label, step, step, state, batch)
+        print_capture(j_label, {"C2 step": j})
+    capture = capture_info(step)
     del state, params, step, batch, metrics
     gc.collect()
     torch.cuda.empty_cache()
@@ -2172,6 +2185,7 @@ def c2_real_steps(dev, model, init: dict, plan, roof: dict,
               f"{roof['compute_s']} s")
     s_step = statistics.median(secs[1:])
     return {"step_seconds": secs, "s_per_step_median_2_3": s_step,
+            **capture, "J": j,
             "losses": losses, "step_s_model": roof["step_s"],
             "compute_s_model": roof["compute_s"],
             "memory_s_model": roof["memory_s"],
@@ -2279,9 +2293,9 @@ def phase_cost_plan(dev) -> dict:
         runs.append(("baseline", res.baseline, baseline_plan))
     out["real"] = {}
     for name, ev, plan in runs:
-        out["real"][name] = c2_real_steps(dev, model, init, plan,
-                                          ev.detail["roofline"],
-                                          ev.detail["live_bytes"])
+        out["real"][name] = c2_real_steps(
+            dev, model, init, plan, ev.detail["roofline"],
+            ev.detail["live_bytes"], "C2" if name == "winner" else None)
         print(f"C2 real steps, {name}:", json.dumps(out["real"][name]),
               flush=True)
     if len(runs) == 1:
@@ -2426,17 +2440,17 @@ def c3_finish(procs: dict, out_dir: Path) -> dict:
 
 
 def c3_real_steps(dev, arch: str, traced: dict) -> dict:
-    """``C3_STEPS`` train steps of ``arch`` at ``PATH_LAYERS``' depth under
-    its production plan in f32 over ``C3_SHAPE``, from weights drawn on
-    the card (seed 0) at a constant lr: each step's host seconds
-    (synchronized) and the profiled last step's device time must reach the
-    traced program's FLOPs' time; the losses must be finite; the peak
-    device memory is printed beside the trace's ``live_bytes``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """``C3_STEPS`` captured train steps (``jit_step``: the first an eager
+    step and the capture, the rest replays) of ``arch`` at
+    ``PATH_LAYERS``' depth under its production plan in f32 over
+    ``C3_SHAPE``, from weights drawn on the card (seed 0) at a constant
+    lr: each step's host seconds (synchronized) and the device time of a
+    replay (phase J's entry of the step, profiled) must reach the traced
+    program's FLOPs' time; the losses must be finite; the peak device
+    memory is printed beside the trace's ``live_bytes``."""
     from repro_torch.optim import OptimizerConfig, adamw_init
-    from repro_torch.runtime.train import TrainState, make_train_step
+    from repro_torch.runtime.train import (TrainState, jit_step,
+                                           make_train_step)
 
     check(not torch.backends.cuda.matmul.allow_tf32, "C3b: TF32 is on")
     free_models()
@@ -2449,27 +2463,25 @@ def c3_real_steps(dev, arch: str, traced: dict) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     plan = c3_plan(arch)
-    step = make_train_step(model, plan, OptimizerConfig(),
-                           lambda s: torch.full((), T_LR, device=dev))
+    step = jit_step(make_train_step(model, plan, OptimizerConfig(),
+                                    lambda s: torch.full((), T_LR,
+                                                         device=dev)))
     batch = model.demo_batch(torch.Generator().manual_seed(SEED + 1),
                              C3_SHAPE.global_batch, C3_SHAPE.seq_len,
                              device=dev)
     secs, losses = [], []
     for i in range(C3_STEPS):
-        prof = profile(activities=[ProfilerActivity.CUDA]) \
-            if i == C3_STEPS - 1 else contextlib.nullcontext()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with prof:
-            state, metrics = step(state, batch)
-            losses.append(float(metrics["loss"]))
-            torch.cuda.synchronize()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    device_s = sum(e.self_device_time_total for e in events) / 1e6
     peak = torch.cuda.max_memory_allocated() - held
+    j = train_capture_entry(f"C3b {arch}", step, step, state, batch)
+    print_capture(f"C3b {arch}", {"step": j})
+    device_s = j["captured"]["device_ms"] / 1e3
+    capture = capture_info(step)
     del state, params, step, batch, metrics
     gc.collect()
     torch.cuda.empty_cache()
@@ -2484,11 +2496,11 @@ def c3_real_steps(dev, arch: str, traced: dict) -> dict:
                k: getattr(plan, k) for k in ("rglru_impl", "wkv_impl",
                                              "remat", "microbatch",
                                              "attn_impl", "loss_impl")},
-           "init_s": init_s, "step_seconds": secs,
+           "init_s": init_s, "step_seconds": secs, **capture,
            "s_per_step_median_2_3": s_step, "losses": losses,
-           "device_s_last_step": device_s,
-           "device_idle_share_last_step": 1 - device_s / secs[-1],
-           "device_launches_last_step": sum(e.count for e in events),
+           "device_s_replay": device_s,
+           "device_idle_share_replay": j["captured"]["device_idle_share"],
+           "device_launches_replay": j["captured"]["device_launches"],
            "compute_s_model": roof["compute_s"],
            "memory_s_model": roof["memory_s"], "step_s_model": roof["step_s"],
            "device_over_compute": device_s / roof["compute_s"],
@@ -3848,10 +3860,17 @@ def host_submissions(fn, args, programs) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         fn(*args)
         torch.cuda.synchronize()
-    subs = {e.key: e.count for e in prof.key_averages()
-            if e.key.startswith("cu") and any(
-                w in e.key for w in ("Launch", "Memcpy", "Memset"))}
-    return subs, sum(p.replays for p in programs()) - before
+    return _submissions(prof), sum(p.replays for p in programs()) - before
+
+
+def _submissions(prof) -> dict:
+    """The host's submissions to the card a profile holds: its CUDA API
+    events (``cuda*``, ``cu*``) that launch a kernel or a graph, or copy or
+    set memory, counted by name from the raw events."""
+    return dict(collections.Counter(
+        e.name() for e in prof.profiler.kineto_results.events()
+        if e.name().startswith("cu")
+        and any(w in e.name() for w in ("Launch", "Memcpy", "Memset"))))
 
 
 def first_difference(got, want):
@@ -3925,6 +3944,168 @@ def capture_entry(what: str, fn, args, new_args, iters: int, programs,
             "warmup_s": sum(p.warmup_s for p in progs),
             "capture_s": sum(p.capture_s for p in progs),
             "graphs": len(progs)}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (on the (1, 1) mesh, the whole), a plain
+    tensor itself."""
+    return getattr(t, "_local_tensor", t)
+
+
+def _train_leaves(state) -> dict:
+    """{path: tensor} of a train state: its parameters, moments, step
+    count and error-feedback residuals."""
+    out = {f"params/{k}": p for k, p in state.params.named_parameters()}
+    out["opt/step"] = state.opt.step
+    for n in ("mu", "nu"):
+        out.update({f"opt/{n}/{k}": t for k, t in getattr(state.opt,
+                                                          n).items()})
+    if state.comp is not None:
+        out.update({f"comp/{k}": t for k, t in state.comp.error.items()})
+    return out
+
+
+def capture_info(captured) -> dict:
+    """The warm-up and capture seconds and the replays of a captured
+    train step's one program."""
+    (prog,) = captured.programs.values()
+    return {"warmup_s": prog.warmup_s, "capture_s": prog.capture_s,
+            "replays": prog.replays}
+
+
+def _stash(leaves: dict, spare: int) -> dict:
+    """Each leaf's value (a DTensor's local shard) copied where it fits: on
+    the card while its free memory exceeds the copy by ``spare`` bytes,
+    else in host memory (slower to move back)."""
+    need = sum(_local(t).numel() * t.element_size() for t in leaves.values())
+    where = "cuda" if torch.cuda.mem_get_info()[0] > need + spare else "cpu"
+    return {k: _local(t).detach().to(where, copy=True)
+            for k, t in leaves.items()}
+
+
+def _train_difference(got: dict, want: dict):
+    """None where every leaf of ``got`` (path -> tensor on the card) equals
+    ``want``'s bit for bit; else how many differ, the first, its shape and
+    the largest absolute difference among them."""
+    bad = []
+    for k, w in want.items():
+        g = _local(got[k]).detach()
+        w = w.to(g.device)
+        if not torch.equal(g, w):
+            bad.append((k, (g.double() - w.double()).abs().max().item()))
+    if not bad:
+        return None
+    return {"leaves": len(bad), "first": bad[0][0],
+            "shape": list(got[bad[0][0]].shape),
+            "max_abs": max(d for _, d in bad)}
+
+
+def _wall_ms(fn) -> tuple:
+    """One call of ``fn``: its result and its host wall ms, synchronized
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _profiled_ms(fn, host: bool = False) -> tuple:
+    """One call of ``fn`` under the profiler: its result, its host wall ms,
+    the device's own activities' ms and count (summed from the raw
+    events: a train step has ~82k) and, with ``host``, the host's
+    submissions to the card (:func:`_submissions`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
+        out, wall = _wall_ms(fn)
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    return out, wall, sum(e.duration_ns() for e in dev) / 1e6, len(dev), \
+        _submissions(prof) if host else {}
+
+
+def train_capture_entry(what: str, fn, captured, state, batch) -> dict:
+    """Phase J for a train step ``fn`` (``state, batch -> (state,
+    metrics)``) whose captured program ``captured`` (a ``jit_step``) the
+    steps before captured on ``state``.  From one snapshot of ``state``,
+    restored into the state's own tensors before each run, on the same
+    batch: an eager step (``disable_capture``), profiled (the device's
+    activities only: its wall time is the profiled run's), its result
+    kept; a replay, timed; a replay, profiled with the host's submissions.
+    The first replay is held to the eager step bit for bit; where it
+    differs, a second eager step says whether two eager steps differ too
+    (``eager_twice``: the step's own atomics, not the capture), and a
+    replay that differs where they agree fails.  Wall and device time and
+    the idle share, eager and captured, and the capture's seconds;
+    ``state`` is left as the snapshot was.  The snapshot and the kept
+    result sit on the card where it has room for them beside the graph's
+    pool and an eager step's transients, else in host memory."""
+    t_start = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = _train_leaves(state)
+    state_bytes = sum(_local(t).numel() * t.element_size()
+                      for t in leaves.values())
+    # room for the kept result and an eager step's transients (about two
+    # states' worth on these steps) besides the snapshot
+    snap = _stash(leaves, 4 * state_bytes)
+
+    def restore():
+        with torch.no_grad():
+            for k, t in _train_leaves(state).items():
+                _local(t).copy_(snap[k])
+
+    def one() -> dict:
+        st, m = fn(state, batch)
+        return {**{f"metrics/{k}": v.clone() for k, v in m.items()},
+                **_train_leaves(st)}
+
+    with disable_capture():
+        got, eager_ms, eager_dev, eager_n, _ = _profiled_ms(one)
+        eager_peak = torch.cuda.max_memory_allocated() - held
+        want = _stash(got, eager_peak)
+    restore()
+    got, cap_ms = _wall_ms(one)
+    differs = _train_difference(got, want)
+    eager_twice = None
+    if differs is not None:
+        restore()
+        with disable_capture():
+            eager_twice = _train_difference(one(), want)
+    restore()
+    progs = list(captured.programs.values())
+    before = sum(p.replays for p in progs)
+    _, _, cap_dev, cap_n, subs = _profiled_ms(lambda: fn(state, batch),
+                                              host=True)
+    n = sum(p.replays for p in progs) - before
+    restore()
+    on_card = next(iter(snap.values())).device.type == "cuda"
+    del got, snap, want
+    gc.collect()
+    check(progs and all(p.captured for p in progs),
+          f"phase J {what}: nothing was captured")
+    check(n == 1, f"phase J {what}: one step made {n} replays ({subs})")
+    check(differs is None or eager_twice is not None,
+          f"phase J {what}: a replay differs from the eager step where two "
+          f"eager steps agree: {differs}")
+    return {"bit_equal": differs is None, "differs": differs,
+            "eager_twice_differs": eager_twice,
+            "host_submissions_per_call": subs, "replays_per_call": n,
+            "eager": {"wall_ms": eager_ms, "device_ms": eager_dev,
+                      "device_idle_share": 1 - eager_dev / eager_ms,
+                      "device_launches": eager_n},
+            "captured": {"wall_ms": cap_ms, "device_ms": cap_dev,
+                         "device_idle_share": 1 - cap_dev / cap_ms,
+                         "device_launches": cap_n},
+            "warmup_s": sum(p.warmup_s for p in progs),
+            "capture_s": sum(p.capture_s for p in progs),
+            "graphs": len(progs), "snapshot_on_card": on_card,
+            "device_bytes_held": held,
+            "device_bytes_peak": torch.cuda.max_memory_allocated(),
+            "entry_s": time.perf_counter() - t_start}
 
 
 def print_capture(label: str, entries: dict) -> None:
@@ -4133,8 +4314,10 @@ def _train_steps(step, state, batch, label: str) -> tuple:
 def d1_host_mesh_train(dev) -> dict:
     """D1: ``make_host_mesh()`` (NCCL at world size 1, a (1, 1) mesh); the
     whole Qwen3-0.6B (28 layers, f32, random weights from seed 0) for 2
-    steps of ``jit_train_step`` against 2 steps of ``make_train_step`` from
-    the same init: losses and every updated parameter within 1e-5; then
+    steps of ``jit_train_step`` (captured: the first an eager step and the
+    capture, the second a replay) against 2 eager steps of
+    ``make_train_step`` from the same init: losses and every updated
+    parameter within 1e-5; phase J's entry of the sharded step; then
     ``reshard`` of the step-2 checkpoint onto the same mesh, bit-equal."""
     import torch.distributed as dist
 
@@ -4172,9 +4355,10 @@ def d1_host_mesh_train(dev) -> dict:
     sharded = init_train_state(model, torch.Generator().manual_seed(SEED),
                                device=dev)
     shardings = state_shardings(sharded, rules, cfg)
-    sharded, res["sharded"] = _train_steps(
-        jit_train_step(model, plan, OptimizerConfig(), lr, rules, shardings),
-        sharded, batch, "jit_train_step")
+    sharded_step = jit_train_step(model, plan, OptimizerConfig(), lr, rules,
+                                  shardings)
+    sharded, res["sharded"] = _train_steps(sharded_step, sharded, batch,
+                                           "jit_train_step")
     for a, b in zip(res["plain"]["losses"], res["sharded"]["losses"]):
         check(abs(a - b) <= 1e-5, f"D1: losses {res['plain']['losses']} "
                                   f"against {res['sharded']['losses']}")
@@ -4183,6 +4367,11 @@ def d1_host_mesh_train(dev) -> dict:
     check(worst <= 1e-5, f"D1: parameters differ by {worst}")
     res["max_param_diff"] = worst
     del want
+    res["sharded"].update(capture_info(sharded_step.jitted))
+    res["J"] = train_capture_entry("D1", sharded_step, sharded_step.jitted,
+                                   sharded, batch)
+    print_capture("D1", {"jit_train_step": res["J"]})
+    del sharded_step
     ckpt_dir = Path(tempfile.mkdtemp(prefix="reshard-", dir=build.BUILD_DIR))
     try:
         ckpt = CheckpointManager(str(ckpt_dir), async_save=False)
@@ -4305,7 +4494,7 @@ def phase_mesh(dev, scratch: Path) -> dict:
     try:
         out = {"D1": d1_host_mesh_train(dev)}
         print("D1:", json.dumps({k: v for k, v in out["D1"].items()
-                                 if k not in ("plain", "sharded")}),
+                                 if k not in ("plain", "sharded", "J")}),
               flush=True)
         done_d1 = time.perf_counter() - t0
         out["D2"] = d2_mesh_destination(dev, scratch)

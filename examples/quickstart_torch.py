@@ -25,7 +25,8 @@ from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.models import REFERENCE_PLAN, build_model
 from repro_torch.optim import OptimizerConfig, make_schedule
 from repro_torch.runtime.serve import ServeConfig, Server
-from repro_torch.runtime.train import init_train_state, make_train_step
+from repro_torch.runtime.train import (init_train_state, jit_step,
+                                       make_train_step)
 
 PY_SRC = """
 def rms_app(x, scale, n, d):
@@ -124,9 +125,10 @@ def main():
                                          vocab=cfg.vocab, seed=0))
     state = init_train_state(model, torch.Generator().manual_seed(0),
                              device=dev)
-    step = make_train_step(
+    # the reference's jax.jit: captured on the card, the state donated
+    step = jit_step(make_train_step(
         model, plan, OptimizerConfig(lr=3e-3, weight_decay=0.0),
-        make_schedule("constant", peak_lr=3e-3, warmup_steps=1))
+        make_schedule("constant", peak_lr=3e-3, warmup_steps=1)))
     for i in range(10):
         batch = {n: torch.from_numpy(a).to(dev)
                  for n, a in data.batch(i).items()}

@@ -28,7 +28,8 @@ from repro_torch.models import build_model
 from repro_torch.models.plan import ExecPlan
 from repro_torch.optim import OptimizerConfig, make_schedule
 from repro_torch.runtime.fault_tolerance import Supervisor
-from repro_torch.runtime.train import init_train_state, make_train_step
+from repro_torch.runtime.train import (init_train_state, jit_step,
+                                       make_train_step)
 
 CKPT_DIR = Path(__file__).resolve().parents[1] / "build" / "train_e2e"
 
@@ -75,7 +76,8 @@ def main():
     opt_cfg = OptimizerConfig(lr=1e-3, weight_decay=0.01)
     sched = make_schedule("cosine", peak_lr=1e-3, warmup_steps=20,
                           total_steps=steps)
-    step_fn = make_train_step(model, plan, opt_cfg, sched)
+    # jax.jit(..., donate_argnums=(0,)): captured on the card
+    step_fn = jit_step(make_train_step(model, plan, opt_cfg, sched))
 
     mgr = CheckpointManager(args.ckpt_dir, keep=3)
     state = init_train_state(model, torch.Generator().manual_seed(0),

@@ -12,7 +12,13 @@ compiles:
   * ``repro/core/frontends/ast_frontend.py:399`` (an offloaded Python
     loop);
   * ``repro/runtime/serve.py:51`` and ``:59`` (the decode step, its state
-    donated, and prefill once per cache capacity).
+    donated, and prefill once per cache capacity);
+  * ``repro/launch/train.py:78``, ``repro/runtime/train.py:98``
+    (``jit_train_step``) and ``:168`` (the compressed-DP step): the train
+    steps, forward, backward and AdamW in one graph, the train state
+    donated (``runtime/train.py``'s ``jit_step``), and the examples' steps
+    that the reference jits (``examples/quickstart.py:105``,
+    ``examples/train_e2e.py:70``).
 
 A replay runs the kernels the eager call runs, with the same arguments,
 so its outputs are the eager call's; what goes is the host's dispatch of
@@ -66,8 +72,8 @@ instead of adding them, and each replay adds them
 capture refuses or would freeze: a tensor's value read into Python, a
 tensor made from host data, a copy between the host and the device, and
 an op whose output shape depends on the data.  The tests run the decode
-steps, the substituted programs and the offloaded loops under it on the
-CPU.
+steps, the train steps, the substituted programs and the offloaded loops
+under it on the CPU.
 """
 from __future__ import annotations
 
@@ -179,7 +185,8 @@ def _signature(leaves: list, spec) -> tuple:
     sig = []
     for l in leaves:
         if isinstance(l, torch.Tensor):
-            sig.append(("T", tuple(l.shape), l.dtype, l.device))
+            sig.append(("T", tuple(l.shape), l.dtype, l.device,
+                        getattr(l, "placements", None)))
             continue
         try:
             hash(l)
@@ -187,6 +194,29 @@ def _signature(leaves: list, spec) -> tuple:
             l = id(l)
         sig.append(("V", type(l), l))
     return spec, tuple(sig)
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``src``'s value into ``dst`` (a DTensor's local shard into the
+    other's: their placements are equal, as the signature holds them)."""
+    with torch.no_grad():
+        local = getattr(dst, "_local_tensor", None)
+        if local is None:
+            dst.copy_(src)
+        else:
+            local.copy_(src._local_tensor)
+
+
+def _module_params(leaves: list) -> list:
+    """(owner module, name, parameter) for each parameter slot of each
+    module among ``leaves``, a tied parameter under each of its owners."""
+    out = []
+    for m in leaves:
+        if isinstance(m, torch.nn.Module):
+            for owner in m.modules():
+                out.extend((owner, k, p) for k, p in owner._parameters.items()
+                           if p is not None)
+    return out
 
 
 def _donated_mask(args: tuple, donate: tuple) -> list:
@@ -206,6 +236,13 @@ class DeviceProgram:
     back as they are.  The graph has a memory pool of its own, freed with
     the program, unless ``pool`` (a :class:`GraphPool`) is given.  On the
     CPU (no CUDA tensor among the leaves) a call is ``fn(*args)``.
+
+    A module among the arguments (a train state's parameters) is one leaf
+    of the signature, by identity, and the graph reads and writes the
+    parameters it held at the capture.  A call that finds one of them
+    replaced in its module (a restore of DTensor parameters) copies the
+    new value into the captured parameter and puts that back in the
+    module; one of another shape, dtype or placement raises.
     """
 
     def __init__(self, fn: Callable, example_args: tuple, *,
@@ -229,6 +266,7 @@ class DeviceProgram:
         self._static = [l if (d or not isinstance(l, torch.Tensor))
                         else torch.empty_like(l).copy_(l)
                         for l, d in zip(leaves, donated)]
+        self._params = _module_params(leaves)
         dev = self.device
         cur = torch.cuda.current_stream(dev)
         t0 = time.perf_counter()
@@ -240,7 +278,8 @@ class DeviceProgram:
         cur.wait_stream(side)
         for t in pytree.tree_leaves(first):
             if isinstance(t, torch.Tensor) and t.device.type == "cuda":
-                t.record_stream(cur)
+                # a DTensor's storage is its local shard's
+                getattr(t, "_local_tensor", t).record_stream(cur)
         self.first_output = first
         warm_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -301,9 +340,10 @@ class DeviceProgram:
             stream = torch.cuda.current_stream(self.device)
             if turn.done is not None:
                 stream.wait_event(turn.done)
+            self._restore_params()
             for x, s in zip(leaves, self._static):
                 if isinstance(s, torch.Tensor) and x is not s:
-                    s.copy_(x)
+                    _copy_into(s, x)
             self.graph.replay()
             outs = [o.clone() if isinstance(o, torch.Tensor) and a is None
                     else (self._static[a] if a is not None else o)
@@ -313,6 +353,24 @@ class DeviceProgram:
             self.replays += 1
         ops.replay_launches(self._launched)
         return pytree.tree_unflatten(outs, self._out_spec)
+
+
+    def _restore_params(self) -> None:
+        """Each captured parameter back in its module slot, with the value
+        of whatever replaced it there."""
+        for owner, name, p in self._params:
+            cur = owner._parameters.get(name)
+            if cur is p:
+                continue
+            if cur is None or cur.shape != p.shape or cur.dtype != p.dtype \
+                    or getattr(cur, "placements", None) \
+                    != getattr(p, "placements", None):
+                raise ValueError(
+                    f"{self.name}: parameter {name!r} of "
+                    f"{type(owner).__name__} was replaced by one of another "
+                    f"shape, dtype or placement than the captured one")
+            _copy_into(p, cur)
+            owner._parameters[name] = p
 
 
 class CapturedFunction:

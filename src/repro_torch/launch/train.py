@@ -8,12 +8,18 @@ selects any architecture whose batch is tokens and labels.
 The reference's pipeline on the port's pieces: the pattern-DB block
 offload over the module frontend's graph picks the ExecPlan knobs, then
 the supervised loop (checkpoint/restart and the straggler monitor) trains
-on synthetic data.  It runs on ``cuda`` unless ``--device cpu`` is asked
-for (it raises without a card) and on the reduced same-family config
-unless ``--no-reduced`` is given.  Checkpoints go under
-``build/launch_train`` of the checkout unless ``--ckpt-dir`` says
-otherwise.  ``_run(args)`` returns a :class:`TrainRun` for drivers that
-read the run (``chip_smoke.py``, the tests).
+on synthetic data.  The step is ``runtime.train.jit_step`` of the
+reference's builder, its state donated: on the card the first step runs
+eagerly and captures the step as a CUDA graph, and each later step is one
+replay, after which the supervisor reads the loss (the step's one host
+synchronisation).  A restore hands it new moment tensors, which the next
+step copies into the graph's buffers.  It runs on ``cuda`` unless
+``--device cpu`` is asked for (it raises without a card) and on the
+reduced same-family config unless ``--no-reduced`` is given.
+Checkpoints go under ``build/launch_train`` of the checkout unless
+``--ckpt-dir`` says otherwise.  ``_run(args)`` returns a
+:class:`TrainRun` for drivers that read the run (``chip_smoke.py``, the
+tests).
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ from repro_torch.obs.log import get_logger, setup as setup_logging
 from repro_torch.optim import OptimizerConfig, make_schedule
 from repro_torch.runtime.fault_tolerance import RunReport, Supervisor
 from repro_torch.runtime.train import (TrainState, init_train_state,
-                                       make_train_step)
+                                       jit_step, make_train_step)
 
 __all__ = ["TrainRun", "launcher_plan", "main", "parse_args"]
 
@@ -116,10 +122,12 @@ def _run(args: argparse.Namespace) -> TrainRun:
     data = SyntheticLMDataset(DataConfig(
         seq_len=args.seq_len, global_batch=args.global_batch,
         vocab=cfg.vocab, seed=0))
-    step_fn = make_train_step(
+    # jax.jit(make_train_step(...), donate_argnums=(0,)): captured on the
+    # card at its first call, each later step one replay
+    step_fn = jit_step(make_train_step(
         model, plan, OptimizerConfig(lr=args.lr),
         make_schedule("cosine", peak_lr=args.lr, warmup_steps=10,
-                      total_steps=args.steps))
+                      total_steps=args.steps)), "launcher_train_step")
 
     mgr = CheckpointManager(args.ckpt_dir, keep=3)
     state = init_train_state(model, torch.Generator().manual_seed(0),

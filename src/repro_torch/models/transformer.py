@@ -100,6 +100,14 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(_save_dots)
 
 
+#: whether a checkpoint stashes and restores the RNG states for its
+#: recompute.  No layer of ``models/`` draws random numbers, so the
+#: gradients are the same either way
+#: (``tests/test_torch_train_capture.py``); the stash reads the CUDA
+#: generator's offset on the host, which a captured train step refuses
+PRESERVE_RNG_STATE = False
+
+
 def _under_rules(fn, rules, *args, **kwargs):
     """``fn`` under ``rules``: a checkpoint's recompute runs in the
     backward, on the autograd engine's thread for the device (the card's
@@ -119,10 +127,11 @@ def _maybe_remat(fn, plan: ExecPlan):
     rules = current_rules()
     if rules is not None:
         fn = functools.partial(_under_rules, fn, rules)
+    remat = functools.partial(checkpoint, fn, use_reentrant=False,
+                              preserve_rng_state=PRESERVE_RNG_STATE)
     if plan.remat == "dots":
-        return functools.partial(checkpoint, fn, use_reentrant=False,
-                                 context_fn=_dots_contexts)
-    return functools.partial(checkpoint, fn, use_reentrant=False)
+        return functools.partial(remat, context_fn=_dots_contexts)
+    return remat
 
 
 def _merge_heads(o: torch.Tensor) -> torch.Tensor:

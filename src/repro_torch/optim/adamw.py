@@ -84,6 +84,10 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
             + cfg.weight_decay * p.float()
         new_p[k] = (p.float() - lr * delta).to(p.dtype)
         new_m[k], new_v[k] = m, v
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
+    # a Python lr (a constant schedule) as a device fill, not a copy from
+    # the host, which a capture refuses
+    lr = lr.to(device=gnorm.device, dtype=torch.float32) \
+        if isinstance(lr, torch.Tensor) else \
+        torch.full((), lr, dtype=torch.float32, device=gnorm.device)
     return new_p, AdamWState(step, new_m, new_v), {"grad_norm": gnorm,
                                                    "lr": lr}

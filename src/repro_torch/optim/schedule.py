@@ -14,9 +14,12 @@ def make_schedule(kind: str = "cosine", *, peak_lr: float = 3e-4,
                   warmup_steps: int = 100, total_steps: int = 10_000,
                   final_frac: float = 0.1):
     """``sched(step)`` -> the lr as an f32 tensor on ``step``'s device (a
-    Python int gives a CPU scalar)."""
+    Python int gives a CPU scalar).  A device step is read on the device
+    only, so a captured train step computes each replay's lr from its own
+    step count."""
     def sched(step):
-        s = torch.as_tensor(step).to(torch.float32)
+        s = step.to(torch.float32) if isinstance(step, torch.Tensor) \
+            else torch.tensor(float(step))
         warm = peak_lr * torch.clamp(s / max(warmup_steps, 1), max=1.0)
         if kind == "constant":
             return warm

@@ -8,33 +8,47 @@ part's gradients accumulate in f32 divided by mb, and its metrics are
 averaged (activation memory scales by 1/mb).  The metrics are the
 model's (``ce``, ``loss``, a MoE model's ``moe_lb`` and ``moe_z``) with
 ``grad_norm`` and ``lr``, all device tensors (the step never reads one on
-the host).
+the host).  It is the pure builder that the dry run traces, as the
+reference's is: it jits nothing.
 
 The state is :class:`TrainState` (the parameter module, an
 :class:`~repro_torch.optim.AdamWState` keyed by parameter names, and the
-optional compression state).  The step takes the input state as the
-reference's launcher donates it: the whole update is computed into new
+optional compression state).  The whole update is computed into new
 tensors first, then written into the module's parameters, and the returned
 state carries the new moments and step.  A failure before the write leaves
 the state as it was, and a restore from a checkpoint
 (``CheckpointManager.restore``) overwrites every leaf, so no half-applied
 update survives one.
 
+:func:`jit_step` is the port's ``jax.jit(step, donate_argnums=(0,))``
+(reference ``launch/train.py:78``, ``runtime/train.py:98`` and ``:168``):
+the step of :func:`in_place_step`, which also writes the new moments,
+step count and error-feedback residuals back into the state it was given
+and returns that state, as a
+:class:`~repro_torch.core.device_program.CapturedFunction` whose first
+argument is donated.  On the card its first call per signature runs
+eagerly (a real step) and captures the step, forward, backward and AdamW,
+as one CUDA graph; each later call copies what is not the graph's own
+buffers in (a batch; moments a restore made; a parameter a restore
+replaced) and replays it.  On the CPU, and inside ``disable_capture``, a
+call is the plain in-place step.
+
 Across devices (``runtime/pspec.py``, ``runtime/sharding.py``):
 
-* ``jit_train_step`` keeps the reference's name but compiles nothing: it
-  is ``make_train_step`` run under ``axis_rules(rules)`` on a state whose
-  parameters and AdamW moments are DTensors (placed by
-  :func:`place_state` under :func:`state_shardings`, the moments with
-  their parameters' placements) and a batch placed by ``batch_shardings``
-  (the rules' ``batch_logical_axes`` when None).  PyTorch is
-  multi-controller: every rank calls it.  The donation is the
-  write-after-compute contract above.
+* ``jit_train_step``: ``make_train_step`` run under ``axis_rules(rules)``
+  and captured as :func:`jit_step` captures, on a state whose parameters
+  and AdamW moments are DTensors (placed by :func:`place_state` under
+  :func:`state_shardings`, the moments with their parameters' placements)
+  and a batch placed by ``batch_shardings`` (the rules' ``batch_logical_axes``
+  when None).  Both are placed before the captured body, as the
+  reference's ``in_shardings`` place them.  PyTorch is multi-controller:
+  every rank calls it.
 * ``make_compressed_dp_step``: pure data parallelism over ``(pod?,
-  data)`` with replicated parameters: each rank takes its rows of the
-  batch, the gradients are averaged exactly in f32 over ``data``, and over
-  ``pod`` the error-feedback int8 payloads are all-gathered and summed in
-  int16 (exact for up to 256 pods; neither gloo nor NCCL reduces int16
+  data)`` with replicated parameters, captured as :func:`jit_step`
+  captures (the plain call on gloo CPU ranks): each rank takes its rows of
+  the batch, the gradients are averaged exactly in f32 over ``data``, and
+  over ``pod`` the error-feedback int8 payloads are all-gathered and summed
+  in int16 (exact for up to 256 pods; neither gloo nor NCCL reduces int16
   itself), then scaled by ``1 / n_pods``, as the reference's ``psum`` of
   int16 does; the metrics are averaged over the first DP axis.  The pods
   first agree on each tensor's scale (the largest of theirs): the
@@ -48,14 +62,15 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch import nn
 
+from repro_torch.core.device_program import CapturedFunction
 from repro_torch.models.api import Model
 from repro_torch.models.plan import ExecPlan
 from repro_torch.optim import (AdamWState, CompressionState, OptimizerConfig,
                                adamw_init, adamw_update, ef_init)
 
-__all__ = ["TrainState", "init_train_state", "jit_train_step",
-           "make_compressed_dp_step", "make_train_step", "place_state",
-           "state_shardings"]
+__all__ = ["TrainState", "in_place_step", "init_train_state", "jit_step",
+           "jit_train_step", "make_compressed_dp_step", "make_train_step",
+           "place_state", "state_shardings"]
 
 
 class TrainState(NamedTuple):
@@ -121,6 +136,42 @@ def make_train_step(model: Model, plan: ExecPlan, opt_cfg: OptimizerConfig,
     return train_step
 
 
+def _state_leaves(state: TrainState) -> list:
+    """The optimizer's and the compression's tensors of ``state``, in one
+    order."""
+    out = [state.opt.step, *state.opt.mu.values(), *state.opt.nu.values()]
+    if state.comp is not None:
+        out.extend(state.comp.error.values())
+    return out
+
+
+def in_place_step(step: Callable) -> Callable:
+    """``step`` (a train step's signature) with its state donated: the new
+    moments, step count and error-feedback residuals are written back into
+    the tensors of the state it was given (the step writes the parameters
+    itself), and that state is returned, as ``runtime/serve.py``'s decode
+    step writes its state back."""
+    def donated(state: TrainState, batch: dict) -> tuple:
+        new, metrics = step(state, batch)
+        with torch.no_grad():
+            for old, leaf in zip(_state_leaves(state), _state_leaves(new),
+                                 strict=True):
+                if leaf is not old:
+                    _write(old, leaf)
+        return state, metrics
+
+    return donated
+
+
+def jit_step(step: Callable, name: str = "train_step") -> CapturedFunction:
+    """``jax.jit(step, donate_argnums=(0,))`` for the port: the
+    :func:`in_place_step` of ``step`` captured as a CUDA graph per call
+    signature, its state donated (the returned state is the graph's
+    buffers, the caller's own tensors); the plain in-place step on the CPU
+    and inside ``disable_capture``.  A capture that fails raises."""
+    return CapturedFunction(in_place_step(step), donate=(0,), name=name)
+
+
 def _write(p: torch.Tensor, new: torch.Tensor) -> None:
     """``new`` written into the parameter ``p``; a DTensor's local shard
     is written directly (torch 2.11's DTensor refuses an in-place copy
@@ -180,7 +231,8 @@ def place_state(state: TrainState, shardings: dict) -> TrainState:
     """``state`` with its parameters (replaced in place in the module),
     moments and residuals placed as DTensors under ``shardings`` (from
     :func:`state_shardings`).  Every rank passes the same whole tensors; a
-    leaf that is a DTensor already is kept."""
+    leaf that is a DTensor already is kept (a placed parameter stays the
+    module's own object)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     def put(path, t):
@@ -190,6 +242,8 @@ def place_state(state: TrainState, shardings: dict) -> TrainState:
         return distribute_tensor(t.detach(), mesh, pl)
 
     for name, p in list(state.params.named_parameters()):
+        if isinstance(p, DTensor) or f"params/{name}" not in shardings:
+            continue
         owner, _, leaf = name.rpartition(".")
         mod = state.params.get_submodule(owner) if owner else state.params
         mod._parameters[leaf] = nn.Parameter(put(f"params/{name}", p),
@@ -207,14 +261,18 @@ def place_state(state: TrainState, shardings: dict) -> TrainState:
 def jit_train_step(model: Model, plan: ExecPlan, opt_cfg: OptimizerConfig,
                    schedule: Callable, rules, state_shardings: dict,
                    batch_shardings: Optional[dict] = None) -> Callable:
-    """The sharded train step (the reference's name; nothing is jitted):
-    ``step(state, batch) -> (state, metrics)``.  The state is placed under
-    ``state_shardings`` on the first call (its module's parameters are
-    replaced by DTensors; pass the returned state on); a plain batch leaf
-    is placed under ``batch_shardings[key]`` (placements on the rules'
-    mesh), or the rules' batch axes.  The step runs under
-    ``axis_rules(rules)``, plain tensors made inside it taken as
-    replicated.  The metrics are replicated DTensors."""
+    """The sharded train step, ``step(state, batch) -> (state, metrics)``:
+    the reference's ``jax.jit`` with ``in_shardings`` and
+    ``donate_argnums=(0,)``.  Each call places the state under
+    ``state_shardings`` (the first call replaces its module's parameters
+    by DTensors; a placed leaf is kept) and a plain batch leaf under
+    ``batch_shardings[key]`` (placements on the rules' mesh), or the
+    rules' batch axes, outside the captured body; the body,
+    ``make_train_step`` under ``axis_rules(rules)`` with plain tensors made
+    inside it taken as replicated, is captured as :func:`jit_step`
+    captures, the state donated (pass the returned state on); the step's
+    ``jitted`` attribute is that captured program.  The metrics are
+    replicated DTensors."""
     from torch.distributed.tensor import DTensor, distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -233,11 +291,16 @@ def jit_train_step(model: Model, plan: ExecPlan, opt_cfg: OptimizerConfig,
             out[k] = distribute_tensor(x, rules.mesh, pl)
         return out
 
-    def sharded_step(state: TrainState, batch: dict) -> tuple:
-        state = place_state(state, state_shardings)
+    def ruled_step(state: TrainState, batch: dict) -> tuple:
         with axis_rules(rules), implicit_replication():
-            return step(state, place_batch(batch))
+            return step(state, batch)
 
+    jitted = jit_step(ruled_step, "jit_train_step")
+
+    def sharded_step(state: TrainState, batch: dict) -> tuple:
+        return jitted(place_state(state, state_shardings), place_batch(batch))
+
+    sharded_step.jitted = jitted
     return sharded_step
 
 
@@ -254,9 +317,10 @@ def make_compressed_dp_step(model: Model, plan: ExecPlan,
     error-feedback int8 across pods (``compress``, with ``state.comp``).
     The parameters are replicated (every rank holds the same module) and
     every rank passes the whole batch, of which it takes its rows.  Returns
-    ``step(state, batch) -> (state, metrics)``; the parameters are written
-    in place after the whole update is computed, as in
-    :func:`make_train_step`."""
+    ``step(state, batch) -> (state, metrics)`` captured as :func:`jit_step`
+    captures (the reference's ``jax.jit(..., donate_argnums=(0,))``): the
+    whole update is computed, then written into the state it was given;
+    on CPU ranks, the plain call."""
     import math
 
     from repro_torch.optim.compression import ef_compress_update, int8_scale
@@ -317,4 +381,4 @@ def make_compressed_dp_step(model: Model, plan: ExecPlan,
                     p.copy_(new_p[k])
         return TrainState(state.params, new_opt, comp), metrics
 
-    return step
+    return jit_step(step, "compressed_dp_step")

@@ -1450,3 +1450,300 @@ def test_programs_sharing_a_pool_replay_in_any_order_on_card(cuda):
             want = [f(t) for f in fns]
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert all(next(iter(f.programs.values())).replays == 3 for f in fns)
+
+
+# ---------------------------------------------------------------------------
+# captured train steps (runtime/train.py's jit_step): the reference's
+# jax.jit(make_train_step(...), donate_argnums=(0,)) on the card
+# ---------------------------------------------------------------------------
+
+_TRAIN_CASES = {
+    "dense": ("qwen3_0_6b", {}),
+    "hybrid_assoc": ("recurrentgemma_2b", {"rglru_impl": "assoc"}),
+    "hybrid_step": ("recurrentgemma_2b", {"rglru_impl": "step"}),
+    "ssm": ("rwkv6_3b", {"wkv_impl": "chunked"}),
+}
+
+
+def _train_setup(cuda, case, steps=5):
+    """A reduced model of ``case`` under the launcher's plan at microbatch
+    2, remat ``dots`` and small chunks; a warmup-cosine lr that changes
+    every step; ``fresh()`` draws the same initial state each time,
+    ``make(schedule)`` a new captured step; one 4 x 40 batch a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import launcher_plan
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig, make_schedule
+    from repro_torch.runtime.train import (init_train_state, jit_step,
+                                           make_train_step)
+
+    arch, over = _TRAIN_CASES[case]
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    plan = launcher_plan(cfg, microbatch=2)[0].replace(
+        attn_kv_chunk=16, rglru_chunk=8, wkv_chunk=8, remat="dots", **over)
+    sched = make_schedule("cosine", peak_lr=1e-3, warmup_steps=2,
+                          total_steps=steps)
+    batches = [model.demo_batch(torch.Generator().manual_seed(10 + i), 4, 40,
+                                device=cuda) for i in range(steps)]
+
+    def fresh():
+        return init_train_state(model, torch.Generator().manual_seed(0),
+                                device=cuda)
+
+    def make(schedule=sched):
+        return jit_step(make_train_step(model, plan, OptimizerConfig(),
+                                        schedule))
+
+    return model, plan, fresh, make, batches
+
+
+def _run_steps(step, state, batches) -> tuple:
+    metrics = []
+    for b in batches:
+        state, m = step(state, b)
+        metrics.append({k: v.clone() for k, v in m.items()})
+    return state, metrics
+
+
+def _state_diff(a, b) -> list:
+    """The names of the train-state leaves that differ bit for bit."""
+    out = [f"params/{k}" for (k, p), q in zip(a.params.named_parameters(),
+                                              b.params.parameters())
+           if not torch.equal(p, q)]
+    out += [f"opt/{n}/{k}" for n in ("mu", "nu")
+            for k, t in getattr(a.opt, n).items()
+            if not torch.equal(t, getattr(b.opt, n)[k])]
+    if not torch.equal(a.opt.step, b.opt.step):
+        out.append("opt/step")
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_TRAIN_CASES))
+def test_captured_train_step_equals_eager_on_card(cuda, case):
+    """Five steps at an lr that changes every step: the captured step
+    (one capture, then a replay a step, its state donated) gives the eager
+    step's metrics, parameters, moments and step count bit for bit, and
+    applies each step's own lr."""
+    from repro_torch.core.device_program import disable_capture
+
+    _, _, fresh, make, batches = _train_setup(cuda, case)
+    with disable_capture():
+        want_state, want = _run_steps(make(), fresh(), batches)
+        again_state, again = _run_steps(make(), fresh(), batches)
+    eager_diff = _state_diff(want_state, again_state)
+    step = make()
+    got_state, got = _run_steps(step, fresh(), batches)
+    (prog,) = step.programs.values()
+    assert prog.captured and prog.replays == len(batches) - 1
+    lrs = [float(m["lr"]) for m in got]
+    assert len(set(lrs)) == len(batches), lrs
+    assert lrs == [float(m["lr"]) for m in want]
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            assert torch.equal(g[k], w[k]), (i, k, eager_diff)
+    assert _state_diff(got_state, want_state) == [], eager_diff
+
+
+def _device_kernels(fn) -> dict:
+    """The kernels one call of ``fn`` runs on the card, by name (the
+    profiler's device activities, copies and sets left out: a graph runs a
+    copy between device buffers as the driver's ``memcpy32_post``
+    kernel, where an eager call runs a ``Memcpy``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count
+            and not any(c in e.key for c in ("Memcpy", "Memset", "memcpy"))}
+
+
+@pytest.mark.gpu
+def test_captured_train_step_replays_the_backward_on_card(cuda):
+    """One replay runs as many kernels as one eager step, forward,
+    backward and AdamW, over twice a forward's: the backward, which the
+    autograd engine runs on its own device thread, was captured too."""
+    from repro_torch.core.device_program import disable_capture
+
+    model, plan, fresh, make, batches = _train_setup(cuda, "dense", steps=3)
+    step = make()
+    state, _ = step(fresh(), batches[0])
+    step(state, batches[1])
+    with disable_capture():
+        eager = _device_kernels(lambda: step(state, batches[2]))
+    replay = _device_kernels(lambda: step(state, batches[2]))
+    with torch.no_grad():
+        forward = _device_kernels(
+            lambda: model.loss(state.params, batches[2], plan))
+    diff = {k: (replay.get(k, 0), eager.get(k, 0))
+            for k in {*replay, *eager} if replay.get(k) != eager.get(k)}
+    assert diff == {}, diff
+    assert sum(replay.values()) > 2 * sum(forward.values())
+
+
+@pytest.mark.gpu
+def test_captured_supervised_run_with_a_failure_equals_eager_on_card(
+        cuda, tmp_path):
+    """The launcher's loop (``Supervisor``) over six captured steps with a
+    failure injected at step 3: it restores step 2's checkpoint (new
+    moment tensors, which the next call copies into the graph's buffers)
+    and replays, with the eager run's losses and final state bit for
+    bit; every call after the first is a replay."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.device_program import disable_capture
+    from repro_torch.runtime.fault_tolerance import Supervisor
+
+    _, _, fresh, make, batches = _train_setup(cuda, "dense", steps=6)
+    runs = {}
+    for captured in (False, True):
+        sup = Supervisor(CheckpointManager(str(tmp_path / str(captured))),
+                         ckpt_every=2)
+        hit = set()
+
+        def inject(s):
+            if s == 3 and s not in hit:
+                hit.add(s)
+                return True
+            return False
+
+        step = make()
+        with contextlib.nullcontext() if captured else disable_capture():
+            state, report = sup.run(fresh(), lambda s: batches[s], step,
+                                    n_steps=6, failure_injector=inject)
+        runs[captured] = (state, report, step)
+    (want, want_report, _), (got, report, step) = runs[False], runs[True]
+    assert report.restarts == want_report.restarts == 1
+    assert report.losses == want_report.losses
+    assert _state_diff(got, want) == []
+    (prog,) = step.programs.values()
+    assert prog.replays == 6
+
+
+@pytest.mark.gpu
+def test_captured_train_step_uses_a_replaced_parameter_on_card(cuda):
+    """A parameter replaced in its module after the capture (as a restore
+    of DTensor parameters replaces them) is what the next replay reads:
+    its value goes into the captured parameter, which goes back in the
+    module, and the step equals an eager step from the same values; one of
+    another shape raises."""
+    from torch import nn
+
+    from repro_torch.core.device_program import disable_capture
+    from repro_torch.runtime.train import TrainState
+
+    model, _, fresh, make, batches = _train_setup(cuda, "dense", steps=3)
+    step = make()
+    state, _ = step(fresh(), batches[0])
+    state, _ = step(state, batches[1])
+    name, old = next(iter(state.params.named_parameters()))
+    owner_name, _, leaf = name.rpartition(".")
+    owner = state.params.get_submodule(owner_name) if owner_name \
+        else state.params
+    owner._parameters[leaf] = nn.Parameter(old.detach() * 0.5)
+    twin = model.param_shapes().to_empty(device=cuda)
+    with torch.no_grad():
+        for p, q in zip(twin.parameters(), state.params.parameters()):
+            p.copy_(q)
+    opt = state.opt
+    eager = TrainState(twin, type(opt)(
+        opt.step.clone(), {k: v.clone() for k, v in opt.mu.items()},
+        {k: v.clone() for k, v in opt.nu.items()}), None)
+    with disable_capture():
+        eager, want = step(eager, batches[2])
+    state, got = step(state, batches[2])
+    assert owner._parameters[leaf] is old
+    assert torch.equal(got["loss"], want["loss"])
+    assert _state_diff(state, eager) == []
+    owner._parameters[leaf] = nn.Parameter(torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError, match="replaced"):
+        step(state, batches[2])
+
+
+@pytest.mark.gpu
+def test_captured_train_step_refuses_a_schedule_that_reads_the_step_on_card(
+        cuda):
+    """A schedule that reads the device step count on the host would
+    freeze one lr into the graph: the capture fails and the call raises;
+    nothing is cached and no eager step takes the replay's place."""
+    _, _, fresh, make, batches = _train_setup(cuda, "dense", steps=1)
+    step = make(lambda s: 1e-3 * min(1.0, float(s) + 1.0))
+    with pytest.raises(RuntimeError, match="capture failed"):
+        step(fresh(), batches[0])
+    assert step.programs == {}
+
+
+@pytest.fixture
+def host_mesh(cuda):
+    """The (1, 1) NCCL host mesh, its world-size-1 group torn down after
+    when this fixture started it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    started = not dist.is_initialized()
+    yield make_host_mesh()
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["jit_train_step", "compressed_dp"])
+def test_captured_mesh_steps_equal_eager_on_card(cuda, host_mesh, kind):
+    """``jit_train_step`` (parameters and moments DTensors, placed before
+    the captured body) and the compressed-DP step (collectives inside the
+    graph) of a full-width 2-layer Qwen3 on the (1, 1) NCCL host mesh:
+    three captured steps, a replay each after the first, equal three
+    eager steps bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.device_program import disable_capture
+    from repro_torch.models import OFFLOAD_PLAN, build_model
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.train import (init_train_state, jit_train_step,
+                                           make_compressed_dp_step,
+                                           state_shardings)
+
+    # phase D1's model and plan at 2 layers and 1 x 128 tokens: torch
+    # 2.11's DTensor fails the reduced Qwen3's sharded step under the
+    # launcher's plan, eager as captured (ROADMAP §3 item 23)
+    cfg = dataclasses.replace(get_config("qwen3_0_6b"), n_layers=2)
+    model = build_model(cfg)
+    plan = OFFLOAD_PLAN.replace(compute_dtype="float32")
+    batches = [model.demo_batch(torch.Generator().manual_seed(10 + i), 1,
+                                128, device=cuda) for i in range(3)]
+    sched = lambda s: 1e-3 * (s.float() + 1.0) / 3                 # noqa: E731
+    runs = {}
+    for captured in (False, True):
+        state = init_train_state(model, torch.Generator().manual_seed(0),
+                                 with_compression=kind == "compressed_dp",
+                                 device=cuda)
+        if kind == "jit_train_step":
+            rules = shd.make_rules(host_mesh)
+            step = jit_train_step(model, plan, OptimizerConfig(), sched,
+                                  rules, state_shardings(state, rules, cfg))
+            programs = step.jitted.programs
+        else:
+            step = make_compressed_dp_step(model, plan, OptimizerConfig(),
+                                           sched, host_mesh)
+            programs = step.programs
+        losses = []
+        with contextlib.nullcontext() if captured else disable_capture():
+            for b in batches:
+                state, m = step(state, b)
+                loss = m["loss"]
+                losses.append(loss.full_tensor() if hasattr(
+                    loss, "full_tensor") else loss.clone())
+        whole = [p.full_tensor() if hasattr(p, "full_tensor") else p
+                 for p in state.params.parameters()]
+        runs[captured] = (losses, whole, programs)
+    (want, want_p, _), (got, got_p, programs) = runs[False], runs[True]
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), (got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got_p, want_p))
+    (prog,) = programs.values()
+    assert prog.captured and prog.replays == len(batches) - 1
