@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only V         # the build, path M, serve M, V
     python3 chip_smoke.py --only D         # the build and phase D alone
     python3 chip_smoke.py --only C         # the build, phases C2 and C3
+    python3 chip_smoke.py --only Z         # the build, paths L, B, A, served
 
 
 Phases, in order; any failure exits non-zero before the last line:
@@ -24,10 +25,12 @@ Phases, in order; any failure exits non-zero before the last line:
    768) and (2, 768) f32 on the generic loop, and flash at the encoder's
    and the cross-attention's non-causal shapes, (2, 1500 / 448 queries,
    1500 keys, 12 heads of 64) in f32 and bf16, which no path binds yet;
-   phase P's: flash at (1, 8, 1 / 1 head, 128) causal, RMSNorm at (128,
-   1024), RG-LRU at (1, 128, 2560) from a nonzero state, all f32; phase
+   phase P's: flash at (1, 4, 1 / 1 head, 128) causal, RMSNorm at (64,
+   1024), RG-LRU at (1, 64, 2560) from a nonzero state, all f32; phase
    K's: flash at (1, 2048, 1 / 1 head, 128) causal and RMSNorm at (2048,
-   1024), f32; and a few edge cases), with its time (CUDA events, median
+   1024), f32; path L's flash at (1, 4096, 32 / 8 heads, 128) and path
+   A's at (2, 2048, 40 / 8 heads, 128), causal f32; and a few edge cases),
+   with its time (CUDA events, median
    of 25 launches, L2 flushed before each; the plain scan loops, median of
    5), the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one (``library_ms``, timed
@@ -49,9 +52,9 @@ P. phase P, numeric Python source through the python_ast frontend
    (``Offloader.prepare`` + ``search``, which is ``plan``), the launch
    counters set to 0 before it and read after: the differential suite's
    three workloads at full width, f32 on the card from float64 inputs,
-   seed 0 -- ``ATTN_SRC`` at qwen3_0_6b's head dim 128 over 8 positions,
-   ``RMS_SRC`` at its d_model 1024 over 128 rows, ``REC_SRC`` at
-   recurrentgemma_2b's RG-LRU width 2560 over 128 steps from a nonzero
+   seed 0 -- ``ATTN_SRC`` at qwen3_0_6b's head dim 128 over 4 positions,
+   ``RMS_SRC`` at its d_model 1024 over 64 rows, ``REC_SRC`` at
+   recurrentgemma_2b's RG-LRU width 2560 over 64 steps from a nonzero
    ``h`` (``reduced``: the positions, rows and steps, which CPython
    interprets) -- each planned with GA 4 x 2 and repeats 1: the loops and
    why each excluded one left, the variant menu, the feasibility-check,
@@ -90,7 +93,8 @@ J. phase J, inside the phases that build its programs: the programs the
    (``disable_capture``): Q, R, W, M and H's all-reference and all-kernel
    programs (in phase 3), P's demo ``app`` with every top-level loop
    offloaded (in phase P) and one decode step of each served model (S,
-   SH, SE, SF, SW, in the serve phases).  One line each, ``phase J
+   SH, SE, SF, SW, SL, SB, SA, in the serve phases; SL's, SB's and SA's
+   replay must equal the eager step bit for bit).  One line each, ``phase J
    <label>:``, beside the card's name and power limit: the replay's
    output against the eager one (bit for bit, else the first leaf that
    differs and by how much; within the verifier's 1e-2 or the run
@@ -136,7 +140,9 @@ J. phase J, inside the phases that build its programs: the programs the
      RWKV-6-3B's head width, D = 64, S = 4096, f32, GA 6 x 3: 1
      ``wkv_recurrence`` site, the WKV-6 kernel;
    - M: the whole Qwen3-0.6B (28 layers at full width, random weights from
-     seed 0 in the reference's distributions) built with ``build_model``,
+     seed 0 in the reference's distributions, drawn on the card by a CUDA
+     generator as every model of M, H, E, F, X, L, B and A is since PR 30)
+     built with ``build_model``,
      its prefill of (2, 2048) tokens -> (last-token logits, decode state)
      planned through a lambda over ``Model.prefill`` in f32 by the planning
      service (``PlanService.plan``: one search, on the service's pool
@@ -223,7 +229,24 @@ J. phase J, inside the phases that build its programs: the programs the
      are printed.  Then the bf16 diagnostic of the forced plan, and
      ``Server.generate`` in bf16 under ``OFFLOAD_PLAN`` (path SW): 4
      requests of a 4-token prompt over (4, 1500, 768) frames, 32 greedy new
-     tokens, twice (identical tokens), then after ``swap_plan``.
+     tokens, twice (identical tokens), then after ``swap_plan``;
+   - L, B, A (``ZOO``): the zoo configs whose code no other path runs, at
+     published widths, each alone on the card after X: L the
+     LLaVA-NeXT-Mistral-7B prefill (8 of 32 layers) of 1 x (2880 patch
+     features through the projector, then 1216 tokens); B the Qwen1.5-4B
+     prefill (10 of 40 layers; QKV bias, 20 heads of 128) and A the
+     Llama-4 Scout prefill (2 of 48 layers; top-1 of 16 experts and a
+     shared expert under ``scatter_ep``, 40 query heads over 8 KV heads),
+     each of 2 x 2048 tokens; all f32, weights drawn on the card from a
+     CUDA generator seeded 0 with every zero-initialised leaf (QKV and
+     projector biases, norm scales) redrawn N(0, 0.1).  Each export finds
+     an attention and two norms a layer and the final norm; GA 4 x 2
+     seeded with the forced chromosome, which launches flash (``scalar``)
+     once a layer and RMSNorm 2 x layers + 1 times and verifies (A: or
+     the routing diagnostic explains the miss).  Then ``Server.generate``
+     in bf16 under ``OFFLOAD_PLAN`` (SL, SB, SA): 4 requests of 512 prompt
+     tokens (L's after 2880 patches), 16 greedy new tokens, twice
+     (identical tokens).
 
    On every path the verifier runs as the fitness runs it (the reference
    kept on the card, each pair compared there in f64; ``verify_s``) and as
@@ -426,7 +449,20 @@ X_TOKENS, SERVE_PROMPT_X = 448, 4
 #: rglru, rglru, local attention), path E's OLMoE-1B-7B 4 of its 16, path
 #: F's RWKV-6-3B 2 of its 32 (H and E 8, F 4 until phase J's captured
 #: programs came; F 8 until phase D came)
-PATH_LAYERS = {"recurrentgemma_2b": 3, "olmoe_1b_7b": 4, "rwkv6_3b": 2}
+PATH_LAYERS = {"recurrentgemma_2b": 3, "olmoe_1b_7b": 4, "rwkv6_3b": 2,
+               "llava_next_mistral_7b": 8, "qwen1_5_4b": 10,
+               "llama4_scout_17b_a16e": 2}
+#: the zoo configs whose code no other path runs, each at published widths
+#: and the depth above (``PATH_LAYERS``): path L, LLaVA-NeXT-Mistral-7B (the
+#: projector and a 2880-patch prefix; 8 of 32 layers, for the run's time);
+#: path B, Qwen1.5-4B (QKV bias, 20 MHA heads of 128; 10 of 40); path A,
+#: Llama-4 Scout (top-1 routing, a shared expert, 40 query heads over 8 KV
+#: heads; 2 of 48: 108B parameters, 216 GB in bf16, never fit one card)
+ZOO = {"L": "llava_next_mistral_7b", "B": "qwen1_5_4b",
+       "A": "llama4_scout_17b_a16e"}
+#: each zoo path's prefill: (batch, tokens a row, a VLM's patches
+#: included): L 1 x (2880 patches + 1216 text tokens), B and A 2 x 2048
+ZOO_BATCH = {"L": (1, 4096), "B": (BATCH, SEQ), "A": (BATCH, SEQ)}
 SEED = 0
 REPEATS = 25
 
@@ -842,6 +878,17 @@ def phase_kernels(dev) -> dict:
                 dev, BATCH, sq, wh.encoder_seq, wh.n_heads, wh.n_kv_heads,
                 wd, False, dt, *tols, flush, gen))
             print("flash    ", json.dumps(x_non_causal[-1]), flush=True)
+    # the zoo paths' causal prefills, f32: L's 1 x 4096 positions (2880
+    # patches and 1216 tokens), 32 query heads over 8; A's 2 x 2048, 40
+    # over 8 (a group of 5)
+    zoo_flash = {}
+    for label in ("L", "A"):
+        zc = path_config(ZOO[label])
+        b, sq = ZOO_BATCH[label]
+        zoo_flash[label] = flash_case(dev, b, sq, sq, zc.n_heads,
+                                      zc.n_kv_heads, zc.resolved_head_dim,
+                                      True, f32, 2e-5, 1e-4, flush, gen)
+        print("flash    ", json.dumps(zoo_flash[label]), flush=True)
     for case in [(2, 1000, 1000, 4, 2, 128, True),    # ragged S=1000
                  (2, 130, 70, 4, 2, 64, True),        # Sq != Sk, hd 64
                  (2, 512, 512, 4, 2, 64, False),      # non-causal
@@ -966,7 +1013,12 @@ def phase_kernels(dev) -> dict:
                                      for r in x_non_causal]},
                          path_p={"calls_per_run": 1, **flash_keys(p_flash)},
                          path_k={"calls_per_forward": 1,
-                                 **flash_keys(k_flash)})
+                                 **flash_keys(k_flash)},
+                         **{f"path_{label.lower()}": {
+                             "calls_per_prefill":
+                                 PATH_LAYERS[ZOO[label]],
+                             **flash_keys(row)}
+                            for label, row in zoo_flash.items()})
     rglru_entry = _entry("rglru_scan", path_rglru,
                          replaces="src/repro/kernels/rglru_scan.py:55",
                          path_h={"calls_per_prefill": 2 * (rg.n_layers // 3)
@@ -1051,16 +1103,22 @@ def path_w(dev):
 
 
 def qwen3_model(dev, dtype):
-    """The whole Qwen3-0.6B (28 layers, full width), weights drawn from
-    seed 0 in the reference's distributions on a CPU generator, then moved
-    to the card in ``dtype``; tokens uniform in [0, vocab) from the same
-    generator, batch 2 x 2048."""
-    cfg = get_config("qwen3_0_6b")
-    gen = torch.Generator().manual_seed(SEED)
-    model = build_model(cfg)
-    params = model.init(gen, dtype=dtype, device=dev)
-    tokens = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=gen)
-    return model, params, tokens.to(dev)
+    """The whole Qwen3-0.6B (28 layers, full width) and 2 x 2048 tokens, as
+    :func:`_model_f32` draws them once and keeps them on the card; another
+    ``dtype`` is that draw cast, as ``Model.init`` casts it."""
+    model, params, tokens = _model_f32(dev, "qwen3_0_6b")
+    return model, cast_draw(params, dtype), tokens
+
+
+def cast_draw(params, dtype, keep=lambda name: False):
+    """``params`` (an f32 draw) with every weight but those ``keep`` names
+    cast to ``dtype``, as ``Model.init`` would draw them in ``dtype``; the
+    draw itself when ``dtype`` is f32."""
+    if dtype == torch.float32:
+        return params
+    memo = {id(w): torch.nn.Parameter(w.detach().to(dtype))
+            for name, w in params.named_parameters() if not keep(name)}
+    return copy.deepcopy(params, memo)
 
 
 def path_m(dev):
@@ -1070,40 +1128,70 @@ def path_m(dev):
             (tokens,))
 
 
-@functools.lru_cache(maxsize=1)
+#: two models kept: paths M and H, their bf16 diagnostics and their
+#: serving interleave, and each redraw took 7-8 s of host time on the card's
+#: machine
+@functools.lru_cache(maxsize=2)
 def _model_f32(dev, arch: str):
     """``arch`` at its published widths (at its path's depth,
-    :func:`path_config`), weights drawn from seed
-    0 in the reference's distributions on a CPU generator and moved to the
-    card in f32 as drawn (the host holds one tensor at a time); tokens
-    uniform in [0, vocab) from the same generator, batch 2 x 2048.  Kept
-    on the card until another model is asked for or ``free_models``."""
+    :func:`path_config`), weights drawn in f32 in the reference's
+    distributions on the card, from a CUDA generator seeded ``SEED`` (the
+    host's generator took 6-20 s a model on the card's machine, and would
+    take minutes for Llama-4 Scout's two layers); tokens uniform in [0,
+    vocab) from the same generator, batch 2 x 2048.  Kept on the card
+    until two others are asked for or ``free_models``.
+
+    In a zoo path's model (``ZOO``) every leaf the reference starts at zero
+    -- the QKV biases, the projector's biases, the norm scales -- is
+    redrawn N(0, 0.1), so that one a program drops shows; its inputs are
+    ``Model.demo_batch``'s from a CPU generator seeded ``SEED + 1``
+    (``ZOO_BATCH``; a VLM's patch features in bf16), a dict."""
     cfg = path_config(arch)
-    gen = torch.Generator().manual_seed(SEED)
+    zoo = arch in ZOO.values()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(gen, dtype=torch.float32, device=dev)
+    if zoo:
+        with torch.no_grad():
+            for w in params.parameters():
+                if not w.any():
+                    w.normal_(0.0, 0.1, generator=gen)
     torch.cuda.synchronize()
     print(f"{arch}: {sum(w.numel() for w in params.parameters())} "
-          f"parameters drawn in {time.perf_counter() - t0:.1f} s", flush=True)
-    tokens = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=gen)
-    return model, params, tokens.to(dev)
+          f"parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if zoo:
+        label = next(k for k, a in ZOO.items() if a == arch)
+        batch = model.demo_batch(torch.Generator().manual_seed(SEED + 1),
+                                 *ZOO_BATCH[label], device=dev)
+        return model, params, {k: v for k, v in batch.items()
+                               if k != "labels"}
+    tokens = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=gen,
+                           device=dev)
+    return model, params, tokens
+
+
+def zoo_path(label: str):
+    """Path ``label``'s program maker: the zoo model's prefill under the
+    path's plan (``ZOO_PLAN``), its inputs as positional arguments (a
+    VLM's tokens, then its patch features)."""
+    def make(dev):
+        model, params, inputs = _model_f32(dev, ZOO[label])
+        keys, plan = list(inputs), ZOO_PLAN[label]
+        return (lambda *xs: model.prefill(params, dict(zip(keys, xs)), plan),
+                tuple(inputs.values()))
+    return make
 
 
 def recurrentgemma_model(dev, dtype):
-    """RecurrentGemma-2B at full width and 3 of its 26 layers, weights drawn
-    from seed 0 in the reference's distributions on a CPU generator, then
-    moved to the card; tokens uniform in [0, vocab) from the same
-    generator, batch 2 x 2048 (= the local window).  The f32 draw is made
-    once and kept on the card; another ``dtype`` is that draw cast as
+    """RecurrentGemma-2B at full width and 3 of its 26 layers and 2 x 2048
+    tokens (= the local window), as :func:`_model_f32` draws them once and
+    keeps them on the card; another ``dtype`` is that draw cast as
     ``Model.init`` casts it (every weight but the RG-LRU's ``lam``)."""
     model, params, tokens = _model_f32(dev, "recurrentgemma_2b")
-    if dtype != torch.float32:
-        memo = {id(w): torch.nn.Parameter(w.detach().to(dtype))
-                for name, w in params.named_parameters()
-                if not name.endswith(".lam")}
-        params = copy.deepcopy(params, memo)
-    return model, params, tokens
+    return model, cast_draw(params, dtype,
+                            lambda name: name.endswith(".lam")), tokens
 
 
 def path_h(dev):
@@ -1141,6 +1229,8 @@ def path_f(dev):
 
 #: path X's plan: f32, as for M, H and E
 PATH_X_PLAN = REFERENCE_PLAN.replace(compute_dtype="float32")
+#: the zoo paths' plans: f32, and A under the production MoE, as path E
+ZOO_PLAN = {"L": PATH_X_PLAN, "B": PATH_X_PLAN, "A": PATH_E_PLAN}
 
 
 def whisper_model(dev, dtype):
@@ -1201,7 +1291,7 @@ def whisper_sites(cfg) -> list:
 
 
 def free_models() -> None:
-    """Drop the full-depth model kept on the card, so the next path's peak
+    """Drop the full-depth models kept on the card, so the next path's peak
     memory is its own.  Dynamo's caches are reset too: the export frontend
     releases what its exports compiled (``ROADMAP.md`` §3 item 6), and the
     reset drops what the scans run eagerly (serving) compiled."""
@@ -1244,6 +1334,13 @@ PATH_F_SITES = ([("rmsnorm", "cuda")]
 PATH_X_SITES = [(p, v) for _, p, v in whisper_sites(WHISPER)]
 #: paths whose matched sites the export must find in this program order
 PATH_SITE_ORDER = {"X": [(m, p) for m, p, _ in whisper_sites(WHISPER)]}
+#: sites of the zoo paths L, B and A: an attention and two norms a layer
+#: (no q/k norms in these configs) and the final norm; A's router and
+#: shared expert, like E's MoE, and L's projector match nothing
+PATH_ZOO_SITES = {
+    label: [("softmax_attention", "cuda")] * PATH_LAYERS[arch]
+    + [("rmsnorm", "cuda")] * (2 * PATH_LAYERS[arch] + 1)
+    for label, arch in ZOO.items()}
 
 PATHS = {
     # label: (program maker, GA population x generations, expected (pattern,
@@ -1261,21 +1358,25 @@ PATHS = {
     "E": (path_e, (6, 3), PATH_E_SITES, ("flash_attention", "rmsnorm"), 1),
     "F": (path_f, (4, 2), PATH_F_SITES, ("rmsnorm",), 1),
     "X": (path_x, (6, 3), PATH_X_SITES, ("flash_attention", "rmsnorm"), 3),
+    **{label: (zoo_path(label), (4, 2), PATH_ZOO_SITES[label],
+               ("flash_attention", "rmsnorm"), 1) for label in ZOO},
 }
 #: timing repeats of each chromosome (after its warm-up run) on the
 #: full-depth paths, cut from 3 for the run's time: their forwards take
 #: 0.05-3 s, well above the host clock's spread
-PATH_REPEATS = dict.fromkeys("MHEFX", 1)
+PATH_REPEATS = dict.fromkeys("MHEFXLBA", 1)
 #: paths whose all-reference and all-kernel programs phase J holds against
 #: the eager port (H at its ``PATH_LAYERS`` depth)
 J_PATHS = ("Q", "R", "W", "M", "H")
-#: paths with top-k routing: the reference must repeat bit for bit, and
-#: the forced plan verifies or a routing diagnostic explains why not
-ROUTED = {"E"}
+#: paths with top-k routing, each with its model and plan: the reference
+#: must repeat bit for bit, and the forced plan verifies or a routing
+#: diagnostic explains why not
+ROUTED = {"E": ("olmoe_1b_7b", PATH_E_PLAN),
+          "A": (ZOO["A"], ZOO_PLAN["A"])}
 #: paths whose search is seeded with the forced chromosome
 #: (``Offloader.search``'s ``extra_seeds``), and on which no chromosome at
 #: all may fail with an error
-SEEDED = {"H", "E", "F", "X"}
+SEEDED = {"H", "E", "F", "X", "L", "B", "A"}
 
 
 #: the kernel each pattern's ``cuda`` variant launches
@@ -1290,6 +1391,8 @@ PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"},
                  "M": {"d1024_l32", "d128_l32"}, "H": {"d2560_l32"},
                  "E": {"generic_l32", "d128_l32"}, "F": {"d2560_l32"},
                  "X": {"generic_l32"}, "K": {"d1024_l32"},
+                 "L": {"generic_l32"}, "B": {"d2560_l32"},
+                 "A": {"generic_l32"},
                  "V": {"d1024_l32", "d128_l16"},
                  "D": {"d1024_l32", "d128_l16"}}
 #: RMSNorm launches by variant of one forward of the forced plan, where
@@ -1298,12 +1401,16 @@ PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"},
 #: norms at d 768 all take the generic loop
 PATH_VARIANT_COUNTS = {"E": {"generic_l32": 2 * E_LAYERS + 1,
                              "d128_l32": 2 * E_LAYERS},
-                       "X": {"generic_l32": len(x_norm_calls(WHISPER))}}
+                       "X": {"generic_l32": len(x_norm_calls(WHISPER))},
+                       **{label: {next(iter(PATH_VARIANTS[label])):
+                                  2 * PATH_LAYERS[arch] + 1}
+                          for label, arch in ZOO.items()}}
 PATH_ROUTES = {"R": {"tma"}, "H": {"tma"}}
 #: the flash path each path's launches take (paths M, H, E and X in f32,
 #: path H at head dim 256: ``scalar``)
 PATH_FLASH = {"Q": "wgmma", "M": "scalar", "H": "scalar", "E": "scalar",
-              "X": "scalar", "K": "scalar", "V": "wgmma", "D": "wgmma"}
+              "X": "scalar", "K": "scalar", "V": "wgmma", "D": "wgmma",
+              "L": "scalar", "B": "scalar", "A": "scalar"}
 
 
 def sub_counts() -> dict:
@@ -1696,9 +1803,10 @@ def causal_binder_finding(label, res, engine, args, reference) -> dict:
     return out
 
 
-def routing_flips(model, params, tokens) -> dict:
-    """Each layer's top-k experts for every token of path E's eager
-    prefill, once as it is and once with the forced plan's kernels swapped
+def routing_flips(model, params, inputs: dict, plan) -> dict:
+    """Each layer's top-k experts for every token of a routed path's eager
+    prefill (``inputs`` under ``plan``), once as it is and once with the
+    forced plan's kernels swapped
     in by forward hooks (each RMSNorm's output replaced by the RMSNorm
     kernel's on its input, each attention's by the flash kernel's): the
     (layer, token) pairs whose top-k set differs, and the first layer where
@@ -1722,7 +1830,7 @@ def routing_flips(model, params, tokens) -> dict:
                                                               causal=True)))
         try:
             with torch.no_grad():
-                model.prefill(params, {"tokens": tokens}, PATH_E_PLAN)
+                model.prefill(params, inputs, plan)
         finally:
             for h in hooks:
                 h.remove()
@@ -1742,7 +1850,10 @@ def routing_outcome(label, dev, reference, forced_out, fv) -> dict:
     the kernels' rounding changed, and the forced plan's layer-0 K and V
     (no routing decision comes before them) are within 1e-4 of the
     reference's.  Fails unless (a) or (b) holds."""
-    model, params, tokens = _model_f32(dev, "olmoe_1b_7b")
+    arch, plan = ROUTED[label]
+    model, params, inputs = _model_f32(dev, arch)
+    if not isinstance(inputs, dict):
+        inputs = {"tokens": inputs}
     n = model.cfg.n_layers
     ref, got = pytree.tree_leaves(reference), pytree.tree_leaves(forced_out)
     check(len(ref) == len(got) == 2 + 2 * n,
@@ -1753,7 +1864,7 @@ def routing_outcome(label, dev, reference, forced_out, fv) -> dict:
     out = {"verified": fv.ok, "max_abs": fv.max_abs, "max_rel": fv.max_rel,
            "logits_max_abs": (got[0] - ref[0]).abs().max().item(),
            "kv_max_abs_by_layer": kv_err,
-           **routing_flips(model, params, tokens)}
+           **routing_flips(model, params, inputs, plan)}
     if fv.ok:
         out["outcome"] = "a"
     else:
@@ -1829,7 +1940,8 @@ def bf16_diagnostic(dev, label: str, make_model, n_sites: int,
 
 
 #: each serving phase's label in phase J
-SERVE_LABEL = {"M": "S", "H": "SH", "E": "SE", "F": "SF", "X": "SW"}
+SERVE_LABEL = {"M": "S", "H": "SH", "E": "SE", "F": "SF", "X": "SW",
+               "L": "SL", "B": "SB", "A": "SA"}
 
 
 def serve_phase(dev, label: str, make_model, new_tokens: int,
@@ -1839,8 +1951,9 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
     ``OFFLOAD_PLAN`` (``make_model`` gives its weights in bf16, or in f32
     for the ``Server`` to cast once, keeping the leaves the reference reads
     in f32): 4 requests of ``prompt_len`` prompt tokens (and the model's
-    other inputs, an enc-dec model's frames, drawn as ``Model.demo_batch``
-    draws them), ``new_tokens`` greedy new tokens.  Two calls give identical tokens; with ``swap``,
+    other inputs, an enc-dec model's frames or a VLM's patch features
+    before the prompt, drawn as ``Model.demo_batch`` draws them),
+    ``new_tokens`` greedy new tokens.  Two calls give identical tokens; with ``swap``,
     after ``swap_plan(REFERENCE_PLAN)`` the next call gives the tokens of a
     server built on that plan.  Times: a prefill (``max_new = 1``: prefill
     and one sample), the whole call, and the decode time per token between
@@ -1852,8 +1965,9 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
     gen = torch.Generator().manual_seed(SEED + 1)
     prompts = {"tokens": torch.randint(
         0, cfg.vocab, (SERVE_BATCH, prompt_len), generator=gen).to(dev)}
+    patches = cfg.vision_patches or 0
     prompts.update((k, v) for k, v in model.demo_batch(
-        gen, SERVE_BATCH, prompt_len, device=dev).items()
+        gen, SERVE_BATCH, prompt_len + patches, device=dev).items()
         if k not in ("tokens", "labels"))
     server = Server(model, params, OFFLOAD_PLAN)
     # warm-up: the prefill and decode programs of both timed capacities
@@ -1876,6 +1990,7 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
           f"serve {label}: a token outside the vocab")
     check((first == second).all(), f"serve {label}: two greedy calls differ")
     out = {"requests": SERVE_BATCH, "prompt_tokens": prompt_len,
+           "prompt_patches": patches,
            "new_tokens": new_tokens, "dtype": "bfloat16",
            "timed": "captured prefill and decode (replays)",
            "prefill_ms": prefill_s * 1e3, "generate_ms": total_s * 1e3,
@@ -1900,9 +2015,13 @@ def serve_phase(dev, label: str, make_model, new_tokens: int,
     # one decode step, where its time goes: eager (the step at the last
     # position of these requests' caches, repeated) and captured
     # (consecutive steps), each against the other (phase J)
-    j = decode_capture_entry(server._bound, prompts, prompt_len)
+    j = decode_capture_entry(server._bound, prompts, prompt_len + patches)
     out[f"decode_step_{'reference' if swap else 'offload'}_plan"] = \
         j["captured"]
+    if label in ZOO:
+        check(j["bit_equal"], f"phase J {SERVE_LABEL[label]}: the decode "
+                              f"step's replay differs from the eager step "
+                              f"at {j['differs']}")
     print(f"serve, path {label}:", json.dumps(out), flush=True)
     print_capture(SERVE_LABEL[label], {"decode step": j})
     return out
@@ -2458,7 +2577,8 @@ def c3_real_steps(dev, arch: str, traced: dict) -> dict:
     held = torch.cuda.memory_allocated()
     model = build_model(path_config(arch))
     t0 = time.perf_counter()
-    params = model.init(torch.Generator().manual_seed(SEED), device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
     state = TrainState(params, adamw_init(params), None)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -2671,11 +2791,12 @@ def app(a, b, x, sig_re, sig_im, n, m, k, iters, fftn):
 #: recurrentgemma_2b's RG-LRU width); the sequence length / rows are the
 #: scale, cut because CPython interprets the reference program
 #: (attention costs O(n^2 d^2) interpreted)
-P_SCALE = {"attention": 8, "rmsnorm": 128, "recurrence": 128}
+P_SCALE = {"attention": 4, "rmsnorm": 64, "recurrence": 64}
+#: halved in PR 30 (from 8, 128 and 128) for the script's time
 P_REDUCED = {
-    "attention": "sequence 2048 -> 8 (CPython interprets O(n^2 d^2))",
-    "rmsnorm": "rows 4096 -> 128 (CPython interprets every element)",
-    "recurrence": "steps 2048 -> 128 (CPython interprets every element)"}
+    "attention": "sequence 2048 -> 4 (CPython interprets O(n^2 d^2))",
+    "rmsnorm": "rows 4096 -> 64 (CPython interprets every element)",
+    "recurrence": "steps 2048 -> 64 (CPython interprets every element)"}
 #: the suite's sizes for BLOCK_SRC, the demo's own for its app
 P_BLOCK_S, P_BLOCK_D = 16, 8
 P_DEMO_CONSTS = {"n": 24, "m": 24, "k": 24, "iters": 50, "fftn": 64}
@@ -4515,7 +4636,9 @@ def phase_mesh(dev, scratch: Path) -> dict:
 
 def main(argv: list) -> int:
     """The full run with no arguments.  ``--only K`` runs the build and
-    phase K alone; ``--only V`` runs the build, path M (through the
+    phase K alone; ``--only Z`` the build and paths L, B and A with their
+    serving (and its phase J entries); ``--only V`` runs the build, path M
+    (through the
     planning service, then on this thread for comparison), serve M (with
     V3) and phase V; ``--only D`` the build and phase D; ``--only C`` the build,
     phase C2 and phase C3 (its children started first); the last line of
@@ -4530,8 +4653,8 @@ def main(argv: list) -> int:
     if len(argv) == 3 and argv[0] == "--c3-trace":
         return c3_trace_child(argv[1], Path(argv[2]))
     check(argv in ([], ["--only", "K"], ["--only", "V"], ["--only", "D"],
-                   ["--only", "C"]),
-          "usage: chip_smoke.py [--only K|V|D|C]")
+                   ["--only", "C"], ["--only", "Z"]),
+          "usage: chip_smoke.py [--only K|V|D|C|Z]")
     only = argv[1] if argv else None
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     m_store = Path(tempfile.mkdtemp(prefix="plan-store-M-",
@@ -4647,6 +4770,18 @@ def run_all(only, m_store: Path, c3_dir: Path, children: list) -> int:
         print(f"phase V: {sum(v_s.values()):.1f} s (V1 and V2 "
               f"{v_s['V1, V2']:.1f} s, V3 {v_s['V3']:.1f} s)", flush=True)
 
+    def run_zoo():
+        """Paths L, B and A, each alone on the card, then served (SL, SB,
+        SA; their decode steps in phase J), the Server casting the f32
+        draw to its plan's bf16 once."""
+        for label, arch in ZOO.items():
+            free_models()
+            run_path(label)
+            serve_phase(dev, label, lambda d, _, a=arch: _model_f32(d, a),
+                        SERVE_NEW_H, False)
+            done(f"serve {label}")
+        free_models()
+
     def serve_m():
         out = serve_phase(dev, "M", qwen3_model, SERVE_NEW, True,
                           store=m_store)
@@ -4668,6 +4803,10 @@ def run_all(only, m_store: Path, c3_dir: Path, children: list) -> int:
         done("phase C2")
         phase_scan_train(dev, c3_procs, c3_dir)
         print("phase C alone: ok", flush=True)
+        return 0
+    if only == "Z":
+        run_zoo()
+        print("phase Z alone: ok", flush=True)
         return 0
     if only == "V":
         run_path("M")
@@ -4725,7 +4864,9 @@ def run_all(only, m_store: Path, c3_dir: Path, children: list) -> int:
     serve_phase(dev, "X", lambda d, _: whisper_model(d, torch.float32),
                 SERVE_NEW, True, prompt_len=SERVE_PROMPT_X)
     done("serve X")
-    free_models()
+    # the zoo configs no other path runs: LLaVA-NeXT-Mistral-7B, Qwen1.5-4B
+    # and Llama-4 Scout
+    run_zoo()
     # phase C3's dry-run children trace beside phases T and C2
     c3_procs = c3_start(c3_dir, ("h100x1",))
     children.extend((p, log) for p, log, _ in c3_procs.values())

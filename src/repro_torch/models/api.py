@@ -46,9 +46,10 @@ class Model:
 
     def init(self, generator: Optional[torch.Generator] = None,
              dtype: torch.dtype = torch.float32, device=None):
-        """Parameters drawn from ``generator`` (a CPU generator; seed 0 when
-        None) in the reference's distributions, on ``device`` (``cuda``
-        unless ``"cpu"`` is asked for)."""
+        """Parameters drawn from ``generator`` (a CPU generator, seed 0 when
+        None, or a CUDA generator, which draws on its card) in the
+        reference's distributions, on ``device`` (``cuda`` unless ``"cpu"``
+        is asked for)."""
         init = WH.init_params if self._encdec else T.init_params
         return init(self.cfg, generator, dtype, device)
 

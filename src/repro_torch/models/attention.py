@@ -340,9 +340,10 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ck = min(plan.attn_kv_chunk, sk)
     pad = (-sk) % ck
     kh, vh = _repeat_kv(k, group), _repeat_kv(v, group)
-    if pad:
-        kh = torch.nn.functional.pad(kh, (0, 0, 0, 0, 0, pad))
-        vh = torch.nn.functional.pad(vh, (0, 0, 0, 0, 0, pad))
+
+    def pad_keys(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) if pad else t
+
     # anchor the entry and the exit on the TP-natural head sharding
     hax = _score_axes(hq)[1]
     q = constrain(q, "batch", None, hax, None)
@@ -351,11 +352,17 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype = L.cdtype(plan)
     rules = current_rules()
     if rules is None:
-        return _flash_heads(q, kh, vh, causal, window, ck, dtype, sk)
+        return _flash_heads(q, pad_keys(kh), pad_keys(vh), causal, window,
+                            ck, dtype, sk)
     m = rules.axis_sizes.get("model", 1)
     per = -(-hq // m)
 
     def body(qi, ki, vi):
+        # the ragged last chunk is padded here, on the rank's plain
+        # tensors: torch 2.11's DTensor pad (``constant_pad_nd``) leaves a
+        # spec of one placement on the two-axis mesh, which the backward's
+        # later ops cannot propagate (ROADMAP §3 item 23)
+        ki, vi = pad_keys(ki), pad_keys(vi)
         lo = (axis_index("model") if m > 1 else 0) * per
         hi = min(lo + per, hq)
         out = _flash_heads(qi[:, :, lo:hi], ki[:, :, lo:hi], vi[:, :, lo:hi],

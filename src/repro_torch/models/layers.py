@@ -78,22 +78,32 @@ def plan_for(x: torch.Tensor, plan: Optional[ExecPlan]) -> ExecPlan:
 
 
 # ---------------------------------------------------------------------------
-# initializers (f32 on the CPU, drawn from an explicit generator)
+# initializers (f32, drawn from an explicit generator: on the CPU, or on
+# the card from a CUDA generator)
 # ---------------------------------------------------------------------------
+
+
+def draw_device(generator: torch.Generator):
+    """Where a draw from ``generator`` lands: a CUDA generator's card, else
+    the current default device (the CPU, or ``meta`` inside
+    ``torch.device("meta")``)."""
+    return generator.device if generator.device.type == "cuda" else None
 
 
 def dense_init(shape: tuple, generator: torch.Generator,
                in_axis: int = -2) -> torch.Tensor:
     """The reference's ``dense_init``: a normal truncated to +-2 std, scaled
-    by 1/sqrt(fan_in), f32 on the CPU."""
-    w = nn.init.trunc_normal_(torch.empty(shape), std=1.0, a=-2.0, b=2.0,
-                              generator=generator)
+    by 1/sqrt(fan_in), f32."""
+    w = nn.init.trunc_normal_(torch.empty(shape,
+                                          device=draw_device(generator)),
+                              std=1.0, a=-2.0, b=2.0, generator=generator)
     return w / math.sqrt(shape[in_axis])
 
 
 def embed_init(shape: tuple, generator: torch.Generator) -> torch.Tensor:
-    """The reference's ``embed_init``: N(0, 0.02), f32 on the CPU."""
-    return torch.randn(shape, generator=generator) * 0.02
+    """The reference's ``embed_init``: N(0, 0.02), f32."""
+    return torch.randn(shape, generator=generator,
+                       device=draw_device(generator)) * 0.02
 
 
 def mlp_init(d_model: int, d_ff: int,

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch._higher_order_ops.associative_scan import associative_scan
 
-from repro_torch.models.layers import (cast, cdtype, dense_init,
+from repro_torch.models.layers import (cast, cdtype, dense_init, draw_device,
                                       remat_safe_scan)
 from repro_torch.models.plan import ExecPlan
 
@@ -50,8 +50,8 @@ class RGLRUState(NamedTuple):
 
 
 def rglru_init(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """The shapes and distributions of the reference's ``rglru_init``, f32
-    on the CPU: projections (in, out), a depthwise conv of width
+    """The shapes and distributions of the reference's ``rglru_init``, f32,
+    drawn where ``generator`` draws (``layers.draw_device``): projections (in, out), a depthwise conv of width
     ``conv1d_width``, block-diagonal gates of ``n_heads`` blocks and the
     recurrence's ``lam`` uniform in [0.4, 0.8]."""
     d, dr, nh = cfg.d_model, cfg.d_rnn_resolved, cfg.n_heads
@@ -60,13 +60,15 @@ def rglru_init(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:
         "w_branch": dense_init((d, dr), generator),       # gelu branch
         "w_in": dense_init((d, dr), generator),           # recurrent branch
         "w_out": dense_init((dr, d), generator),
-        "w_conv": torch.randn(cfg.conv1d_width, dr, generator=generator) * 0.1,
+        "w_conv": torch.randn(cfg.conv1d_width, dr, generator=generator,
+                              device=draw_device(generator)) * 0.1,
         "b_conv": torch.zeros(dr),
         "w_a": dense_init((nh, dh, dh), generator),
         "b_a": torch.zeros(dr),
         "w_x": dense_init((nh, dh, dh), generator),
         "b_x": torch.zeros(dr),
-        "lam": torch.rand(dr, generator=generator) * 0.4 + 0.4,
+        "lam": torch.rand(dr, generator=generator,
+                          device=draw_device(generator)) * 0.4 + 0.4,
     }
 
 

@@ -56,8 +56,8 @@ class RWKVState(NamedTuple):
 
 
 def rwkv_init(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """The shapes and distributions of the reference's ``rwkv_init``, f32
-    on the CPU."""
+    """The shapes and distributions of the reference's ``rwkv_init``, f32,
+    drawn where ``generator`` draws (``layers.draw_device``)."""
     d, hd = cfg.d_model, cfg.rwkv_head_dim
     nh = d // hd
 
@@ -65,7 +65,8 @@ def rwkv_init(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:
         return L.dense_init(shape, generator)
 
     def normal(*shape, std):
-        return torch.randn(shape, generator=generator) * std
+        return torch.randn(shape, generator=generator,
+                           device=L.draw_device(generator)) * std
 
     return {
         # time-mix

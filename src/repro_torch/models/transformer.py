@@ -214,7 +214,8 @@ class DenseBlock(nn.Module):
             out_std = INIT_STD / math.sqrt(2 * max(cfg.n_layers, 1))
 
             def weight(*shape, std=INIT_STD):
-                return torch.randn(*shape, generator=generator) * std
+                return torch.randn(*shape, generator=generator,
+                                   device=L.draw_device(generator)) * std
 
             w = {"wq": weight(d, nq * hd), "wk": weight(d, nkv * hd),
                  "wv": weight(d, nkv * hd), "wo": weight(nq * hd, d,
@@ -330,7 +331,10 @@ class LMParams(nn.Module):
     reference's distributions and moved to ``device`` (``cuda`` unless
     ``"cpu"`` is asked for) in ``dtype`` as drawn, so the host holds one
     block's weights at most (a MoE block's, one expert tensor); the RG-LRU
-    ``lam`` and the MoE router stay f32, as in the reference."""
+    ``lam`` and the MoE router stay f32, as in the reference.  A CUDA
+    generator draws the weights on its card instead (``layers.draw_device``);
+    the zeros and constants the reference starts biases, norm scales and
+    mixes at are made on the host either way."""
 
     def __init__(self, cfg, *, dtype: torch.dtype = torch.float32,
                  device=None, generator: Optional[torch.Generator] = None):

@@ -181,8 +181,8 @@ class WhisperParams(nn.Module):
     """The parameters of the encoder-decoder, as the reference's
     ``init_params`` lays them out: ``embed`` (vocab, d), tied;
     ``final_norm``, ``enc_final_norm``; ``enc_blocks`` and ``blocks``.
-    Drawn from ``generator`` (a CPU generator; seed 0 when None) in the
-    reference's distributions and moved to ``device`` (``cuda`` unless
+    Drawn from ``generator`` (a CPU generator, seed 0 when None, or a CUDA
+    generator, which draws on its card) in the reference's distributions and moved to ``device`` (``cuda`` unless
     ``"cpu"`` is asked for) in ``dtype`` as drawn, a tensor at a time."""
 
     def __init__(self, cfg, *, dtype: torch.dtype = torch.float32,

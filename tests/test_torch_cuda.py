@@ -1709,9 +1709,9 @@ def test_captured_mesh_steps_equal_eager_on_card(cuda, host_mesh, kind):
                                            make_compressed_dp_step,
                                            state_shardings)
 
-    # phase D1's model and plan at 2 layers and 1 x 128 tokens: torch
-    # 2.11's DTensor fails the reduced Qwen3's sharded step under the
-    # launcher's plan, eager as captured (ROADMAP §3 item 23)
+    # phase D1's model and plan at 2 layers and 1 x 128 tokens (the
+    # reduced Qwen3 under the launcher's plan is held by
+    # test_reduced_sharded_step_under_the_launchers_plan_on_card)
     cfg = dataclasses.replace(get_config("qwen3_0_6b"), n_layers=2)
     model = build_model(cfg)
     plan = OFFLOAD_PLAN.replace(compute_dtype="float32")
@@ -1747,3 +1747,166 @@ def test_captured_mesh_steps_equal_eager_on_card(cuda, host_mesh, kind):
     assert all(torch.equal(a, b) for a, b in zip(got_p, want_p))
     (prog,) = programs.values()
     assert prog.captured and prog.replays == len(batches) - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("microbatch", [1, 2])
+def test_reduced_sharded_step_under_the_launchers_plan_on_card(
+        cuda, host_mesh, microbatch):
+    """The reduced Qwen3 (head dim 16, q/k norms) under the launcher's
+    plan (128-key chunks, unfused QKV, fused norms, remat ``dots``) at
+    microbatch 1 and 2, over 2 x 200 tokens, so that the last KV chunk is
+    ragged and padded: three ``jit_train_step`` steps on the (1, 1) NCCL
+    host mesh, eager and captured, against three plain
+    ``make_train_step`` steps from the same init.  Losses and parameters
+    within 1e-5 of the plain steps'; the captured steps equal the eager
+    ones bit for bit (ROADMAP §3 item 23: on torch 2.11, DTensor's pad of
+    K and V failed this step's backward, eager as captured)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.device_program import disable_capture
+    from repro_torch.launch.train import launcher_plan
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.train import (init_train_state, jit_train_step,
+                                           make_train_step, state_shardings)
+
+    cfg = get_config("qwen3_0_6b").reduced()
+    model = build_model(cfg)
+    plan = launcher_plan(cfg, microbatch=microbatch)[0]
+    assert plan.attn_kv_chunk == 128 and not plan.qkv_fused
+    batches = [model.demo_batch(torch.Generator().manual_seed(10 + i), 2,
+                                200, device=cuda) for i in range(3)]
+    sched = lambda s: 1e-3 * (s.float() + 1.0) / 3                 # noqa: E731
+
+    def fresh():
+        return init_train_state(model, torch.Generator().manual_seed(0),
+                                device=cuda)
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    runs = {}
+    step = make_train_step(model, plan, OptimizerConfig(), sched)
+    state, losses = fresh(), []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(m["loss"].clone())
+    runs["plain"] = (losses, [p.detach().clone()
+                              for p in state.params.parameters()])
+    rules = shd.make_rules(host_mesh)
+    for captured in (False, True):
+        state = fresh()
+        step = jit_train_step(model, plan, OptimizerConfig(), sched, rules,
+                              state_shardings(state, rules, cfg))
+        losses = []
+        with contextlib.nullcontext() if captured else disable_capture():
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(whole(m["loss"]).clone())
+        runs[captured] = (losses, [whole(p.detach()).clone()
+                                   for p in state.params.parameters()])
+    (want, want_p), (eager, eager_p), (got, got_p) = (
+        runs["plain"], runs[False], runs[True])
+    for a, b in zip(eager, want, strict=True):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    for a, b in zip(eager_p, want_p, strict=True):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, eager)), (got, eager)
+    assert all(torch.equal(a, b) for a, b in zip(got_p, eager_p))
+    (prog,) = step.jitted.programs.values()
+    assert prog.captured and prog.replays == len(batches) - 1
+
+
+# ---------------------------------------------------------------------------
+# the zoo's attention shapes the card had not run: Llama-4 Scout (a group of
+# 5), Qwen1.5-4B (20 MHA heads), TinyLlama-1.1B and Gemma-7B (head dim 256)
+# ---------------------------------------------------------------------------
+
+_ZOO_FLASH = {"llama4_scout": (40, 8, 128), "qwen1_5_4b": (20, 20, 128),
+              "tinyllama": (32, 4, 64), "gemma_7b": (16, 16, 256)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", list(_ZOO_FLASH))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_at_zoo_prefill_shapes_on_card(cuda, model, dtype):
+    """Causal prefill attention, 2 x 2048 tokens, at each config's heads
+    and head dim: bf16 takes ``wgmma`` at head dim 64 and 128 (the
+    ``scalar`` path at 256), f32 ``scalar``.  Block-relative error 1e-4 in
+    f32; 1e-2 in bf16, where the kernel rounds P to bf16 before P V (about
+    3e-3 from that rounding alone)."""
+    hq, hkv, d = _ZOO_FLASH[model]
+    g = torch.Generator(device="cpu").manual_seed(30)
+    dt = _DTYPES[dtype]
+    q = torch.randn(2, 2048, hq, d, generator=g).to(cuda, dt)
+    k = torch.randn(2, 2048, hkv, d, generator=g).to(cuda, dt)
+    v = torch.randn(2, 2048, hkv, d, generator=g).to(cuda, dt)
+    path = tfa.select_path(q, k, v)
+    assert path == ("wgmma" if dtype == "bfloat16" and d in (64, 128)
+                    else "scalar")
+    before = tops.flash_attention.launches_by_path[path]
+    got = tops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tops.flash_attention.launches_by_path[path] == before + 1
+    want = tfa.flash_attention_plain(q, k, v, causal=True,
+                                     scale=1 / np.sqrt(d))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert tfa.block_rel_err(got, want) <= (1e-2 if dtype == "bfloat16"
+                                            else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["llama4_scout", "qwen1_5_4b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_decode_step_at_zoo_shapes_on_card(cuda, model, dtype):
+    """One decode step (Sq = 1) against a 4 x 577-entry cache, non-causal
+    (the one query sees every cached key): a 128-row query tile holding
+    one row, and a ragged KV tile."""
+    hq, hkv, d = _ZOO_FLASH[model]
+    g = torch.Generator(device="cpu").manual_seed(31)
+    dt = _DTYPES[dtype]
+    q = torch.randn(4, 1, hq, d, generator=g).to(cuda, dt)
+    k = torch.randn(4, 577, hkv, d, generator=g).to(cuda, dt)
+    v = torch.randn(4, 577, hkv, d, generator=g).to(cuda, dt)
+    path = tfa.select_path(q, k, v)
+    assert path == ("wgmma" if dtype == "bfloat16" else "scalar")
+    got = tops.flash_attention(q, k, v, causal=False)
+    want = tfa.flash_attention_plain(q, k, v, causal=False,
+                                     scale=1 / np.sqrt(d))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert tfa.block_rel_err(got, want) <= (1e-2 if dtype == "bfloat16"
+                                            else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e",
+                                  "llava_next_mistral_7b",
+                                  "recurrentgemma_2b", "rwkv6_3b",
+                                  "whisper_small"])
+def test_model_init_draws_on_a_cuda_generators_card(cuda, arch):
+    """Each family's reduced model drawn from a CUDA generator (MoE with a
+    shared expert, VLM, hybrid, SSM, enc-dec): every leaf on the card, the
+    same seed giving the same weights bit for bit, another seed other
+    draws (the constants a reference init sets stay), and the first
+    block's truncated normal ``wq`` (or ``wr``) within 2 / sqrt(fan in)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    model = build_model(get_config(arch).reduced())
+
+    def draw(seed):
+        return model.init(torch.Generator(device=cuda).manual_seed(seed),
+                          device=cuda)
+
+    a, b, c = draw(0), draw(0), draw(1)
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert p.device.type == "cuda", name
+        assert torch.equal(p, q), name
+    wq, other = (next(p for n, p in m.named_parameters()
+                      if n.endswith((".wq", ".wr"))) for m in (a, c))
+    assert not torch.equal(wq, other)
+    assert wq.abs().max().item() <= 2.0 / np.sqrt(wq.shape[0]) + 1e-6
+    assert wq.std().item() > 0.5 / np.sqrt(wq.shape[0])
