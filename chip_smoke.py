@@ -5,7 +5,8 @@
     python3 chip_smoke.py --only V         # the build, path M, serve M, V
     python3 chip_smoke.py --only D         # the build and phase D alone
     python3 chip_smoke.py --only C         # the build, phases C2 and C3
-    python3 chip_smoke.py --only Z         # the build, paths L, B, A, served
+    python3 chip_smoke.py --only Z         # the build, paths L, B, A, G, N,
+                                           # each served
 
 
 Phases, in order; any failure exits non-zero before the last line:
@@ -28,8 +29,11 @@ Phases, in order; any failure exits non-zero before the last line:
    phase P's: flash at (1, 4, 1 / 1 head, 128) causal, RMSNorm at (64,
    1024), RG-LRU at (1, 64, 2560) from a nonzero state, all f32; phase
    K's: flash at (1, 2048, 1 / 1 head, 128) causal and RMSNorm at (2048,
-   1024), f32; path L's flash at (1, 4096, 32 / 8 heads, 128) and path
-   A's at (2, 2048, 40 / 8 heads, 128), causal f32; and a few edge cases),
+   1024), f32; path L's flash at (1, 4096, 32 / 8 heads, 128), path A's
+   at (2, 2048, 40 / 8 heads, 128), path G's at (2, 2048, 16 / 16 heads,
+   256) and path N's at (2, 2048, 32 / 4 heads, 64), causal f32; path G's
+   RMSNorm at (4096, 3072) and (2, 3072) f32 on the generic loop (path N's
+   widths are path E's); and a few edge cases),
    with its time (CUDA events, median
    of 25 launches, L2 flushed before each; the plain scan loops, median of
    5), the plain version's time, the time of the one PyTorch call that
@@ -141,7 +145,7 @@ J. phase J, inside the phases that build its programs: the programs the
      ``wkv_recurrence`` site, the WKV-6 kernel;
    - M: the whole Qwen3-0.6B (28 layers at full width, random weights from
      seed 0 in the reference's distributions, drawn on the card by a CUDA
-     generator as every model of M, H, E, F, X, L, B and A is since PR 30)
+     generator, as every path model is)
      built with ``build_model``,
      its prefill of (2, 2048) tokens -> (last-token logits, decode state)
      planned through a lambda over ``Model.prefill`` in f32 by the planning
@@ -230,23 +234,27 @@ J. phase J, inside the phases that build its programs: the programs the
      ``Server.generate`` in bf16 under ``OFFLOAD_PLAN`` (path SW): 4
      requests of a 4-token prompt over (4, 1500, 768) frames, 32 greedy new
      tokens, twice (identical tokens), then after ``swap_plan``;
-   - L, B, A (``ZOO``): the zoo configs whose code no other path runs, at
-     published widths, each alone on the card after X: L the
-     LLaVA-NeXT-Mistral-7B prefill (8 of 32 layers) of 1 x (2880 patch
-     features through the projector, then 1216 tokens); B the Qwen1.5-4B
-     prefill (10 of 40 layers; QKV bias, 20 heads of 128) and A the
-     Llama-4 Scout prefill (2 of 48 layers; top-1 of 16 experts and a
+   - L, B, A, G, N (``ZOO``): the zoo configs whose code or shapes no
+     other path runs, at published widths, each alone on the card after
+     X: L the LLaVA-NeXT-Mistral-7B prefill (8 of 32 layers) of 1 x (2880
+     patch features through the projector, then 1216 tokens); B the
+     Qwen1.5-4B prefill (10 of 40 layers; QKV bias, 20 heads of 128), A
+     the Llama-4 Scout prefill (2 of 48 layers; top-1 of 16 experts and a
      shared expert under ``scatter_ep``, 40 query heads over 8 KV heads),
-     each of 2 x 2048 tokens; all f32, weights drawn on the card from a
-     CUDA generator seeded 0 with every zero-initialised leaf (QKV and
-     projector biases, norm scales) redrawn N(0, 0.1).  Each export finds
-     an attention and two norms a layer and the final norm; GA 4 x 2
-     seeded with the forced chromosome, which launches flash (``scalar``)
-     once a layer and RMSNorm 2 x layers + 1 times and verifies (A: or
-     the routing diagnostic explains the miss).  Then ``Server.generate``
-     in bf16 under ``OFFLOAD_PLAN`` (SL, SB, SA): 4 requests of 512 prompt
-     tokens (L's after 2880 patches), 16 greedy new tokens, twice
-     (identical tokens).
+     G the Gemma-7B prefill (4 of 28 layers; 16 MHA heads of 256, GeGLU,
+     the sqrt(d_model)-scaled tied 256000 x 3072 embedding) and N the
+     whole TinyLlama-1.1B prefill (22 layers; 32 query heads over 4 KV
+     heads of 64), each of 2 x 2048 tokens; all f32, weights drawn on the
+     card from a CUDA generator seeded 0 with every zero-initialised leaf
+     (QKV and projector biases, norm scales) redrawn N(0, 0.1).  Each
+     export finds an attention and two norms a layer and the final norm;
+     GA 4 x 2 seeded with the forced chromosome, which launches flash
+     (``scalar``) once a layer and RMSNorm 2 x layers + 1 times and
+     verifies (A: or the routing diagnostic explains the miss).  Then
+     ``Server.generate`` in bf16 under ``OFFLOAD_PLAN`` (SL, SB, SA, SG,
+     SN): 4 requests of 512 prompt tokens (L's after 2880 patches), 16
+     greedy new tokens, twice (identical tokens); each decode step's
+     replay bit-equal to the eager step (phase J).
 
    On every path the verifier runs as the fitness runs it (the reference
    kept on the card, each pair compared there in f64; ``verify_s``) and as
@@ -451,18 +459,24 @@ X_TOKENS, SERVE_PROMPT_X = 448, 4
 #: programs came; F 8 until phase D came)
 PATH_LAYERS = {"recurrentgemma_2b": 3, "olmoe_1b_7b": 4, "rwkv6_3b": 2,
                "llava_next_mistral_7b": 8, "qwen1_5_4b": 10,
-               "llama4_scout_17b_a16e": 2}
-#: the zoo configs whose code no other path runs, each at published widths
-#: and the depth above (``PATH_LAYERS``): path L, LLaVA-NeXT-Mistral-7B (the
-#: projector and a 2880-patch prefix; 8 of 32 layers, for the run's time);
+               "llama4_scout_17b_a16e": 2, "gemma_7b": 4,
+               "tinyllama_1_1b": 22}
+#: the zoo configs whose code or shapes no other path runs, each at
+#: published widths and the depth above (``PATH_LAYERS``): path L,
+#: LLaVA-NeXT-Mistral-7B (the projector and a 2880-patch prefix; 8 of 32
+#: layers, for the run's time);
 #: path B, Qwen1.5-4B (QKV bias, 20 MHA heads of 128; 10 of 40); path A,
 #: Llama-4 Scout (top-1 routing, a shared expert, 40 query heads over 8 KV
-#: heads; 2 of 48: 108B parameters, 216 GB in bf16, never fit one card)
+#: heads; 2 of 48: 108B parameters, 216 GB in bf16, never fit one card);
+#: path G, Gemma-7B (16 MHA heads of 256, GeGLU, a sqrt(d_model)-scaled
+#: tied 256000 x 3072 embedding; 4 of 28, for the run's time); path N,
+#: TinyLlama-1.1B (32 query heads over 4 KV heads of 64; all 22 layers)
 ZOO = {"L": "llava_next_mistral_7b", "B": "qwen1_5_4b",
-       "A": "llama4_scout_17b_a16e"}
+       "A": "llama4_scout_17b_a16e", "G": "gemma_7b", "N": "tinyllama_1_1b"}
 #: each zoo path's prefill: (batch, tokens a row, a VLM's patches
-#: included): L 1 x (2880 patches + 1216 text tokens), B and A 2 x 2048
-ZOO_BATCH = {"L": (1, 4096), "B": (BATCH, SEQ), "A": (BATCH, SEQ)}
+#: included): L 1 x (2880 patches + 1216 text tokens), the others 2 x 2048
+ZOO_BATCH = {"L": (1, 4096), "B": (BATCH, SEQ), "A": (BATCH, SEQ),
+             "G": (BATCH, SEQ), "N": (BATCH, SEQ)}
 SEED = 0
 REPEATS = 25
 
@@ -833,6 +847,21 @@ def phase_kernels(dev) -> dict:
             dev, n, d, f32, 1e-5, flush, gen)
         print("rmsnorm  ", json.dumps(norms_e[(n, d)]), flush=True)
     path_f_norms = [(BATCH, get_config("rwkv6_3b").d_model)]
+    # the calls of paths G and N per prefill, in f32: ln1 and ln2 of each
+    # layer and the final norm over the last token's rows; d_model 3072
+    # and 2048 take the generic loop, and N's widths are E's rows.  G's and
+    # N's rows draw from a generator of their own, so the rows before
+    # them keep their inputs
+    zoo_gen = torch.Generator().manual_seed(SEED + 2)
+    zoo_norms, norms_zoo = {}, dict(norms_e)
+    for label in ("G", "N"):
+        zc = path_config(ZOO[label])
+        zoo_norms[label] = [(tokens, zc.d_model)] * (2 * zc.n_layers) \
+            + [(BATCH, zc.d_model)]
+        for n, d in sorted(set(zoo_norms[label]) - set(norms_zoo)):
+            norms_zoo[(n, d)] = rmsnorm_case(dev, n, d, f32, 1e-5, flush,
+                                             zoo_gen)
+            print("rmsnorm  ", json.dumps(norms_zoo[(n, d)]), flush=True)
     # path X's 62 calls per prefill, in f32: the encoder's ln1 and ln2 of
     # each of 12 layers and its final norm over 2 x 1500 frames, the
     # decoder's ln1, ln_x and ln2 of each of 12 layers over 2 x 448 tokens,
@@ -880,14 +909,17 @@ def phase_kernels(dev) -> dict:
             print("flash    ", json.dumps(x_non_causal[-1]), flush=True)
     # the zoo paths' causal prefills, f32: L's 1 x 4096 positions (2880
     # patches and 1216 tokens), 32 query heads over 8; A's 2 x 2048, 40
-    # over 8 (a group of 5)
+    # over 8 (a group of 5); G's 2 x 2048, 16 MHA heads of 256; N's 2 x
+    # 2048, 32 over 4 (a group of 8) at head dim 64
     zoo_flash = {}
-    for label in ("L", "A"):
+    for label in ("L", "A", "G", "N"):
         zc = path_config(ZOO[label])
         b, sq = ZOO_BATCH[label]
         zoo_flash[label] = flash_case(dev, b, sq, sq, zc.n_heads,
                                       zc.n_kv_heads, zc.resolved_head_dim,
-                                      True, f32, 2e-5, 1e-4, flush, gen)
+                                      True, f32, 2e-5, 1e-4, flush,
+                                      zoo_gen if label in ("G", "N")
+                                      else gen)
         print("flash    ", json.dumps(zoo_flash[label]), flush=True)
     for case in [(2, 1000, 1000, 4, 2, 128, True),    # ragged S=1000
                  (2, 130, 70, 4, 2, 64, True),        # Sq != Sk, hd 64
@@ -991,6 +1023,11 @@ def phase_kernels(dev) -> dict:
                            for nd in sorted(norms_x)]},
         path_p={"calls_per_run": 1, **{k: p_norm[k] for k in row_keys}},
         path_k={"calls_per_forward": 1, **{k: k_norm[k] for k in row_keys}},
+        **{f"path_{label.lower()}": {
+            "calls_per_prefill": len(calls), **norm_sums(calls, norms_zoo),
+            "shapes": [{k: norms_zoo[nd][k] for k in row_keys}
+                       for nd in sorted(set(calls))]}
+           for label, calls in zoo_norms.items()},
         shapes=[{k: norms[nd][k] for k in row_keys}
                 for nd in sorted(norms)])
     flash_entry = _entry("flash_attention", path_flash,
@@ -1230,7 +1267,8 @@ def path_f(dev):
 #: path X's plan: f32, as for M, H and E
 PATH_X_PLAN = REFERENCE_PLAN.replace(compute_dtype="float32")
 #: the zoo paths' plans: f32, and A under the production MoE, as path E
-ZOO_PLAN = {"L": PATH_X_PLAN, "B": PATH_X_PLAN, "A": PATH_E_PLAN}
+ZOO_PLAN = {"L": PATH_X_PLAN, "B": PATH_X_PLAN, "A": PATH_E_PLAN,
+            "G": PATH_X_PLAN, "N": PATH_X_PLAN}
 
 
 def whisper_model(dev, dtype):
@@ -1334,9 +1372,9 @@ PATH_F_SITES = ([("rmsnorm", "cuda")]
 PATH_X_SITES = [(p, v) for _, p, v in whisper_sites(WHISPER)]
 #: paths whose matched sites the export must find in this program order
 PATH_SITE_ORDER = {"X": [(m, p) for m, p, _ in whisper_sites(WHISPER)]}
-#: sites of the zoo paths L, B and A: an attention and two norms a layer
-#: (no q/k norms in these configs) and the final norm; A's router and
-#: shared expert, like E's MoE, and L's projector match nothing
+#: sites of the zoo paths L, B, A, G and N: an attention and two norms a
+#: layer (no q/k norms in these configs) and the final norm; A's router
+#: and shared expert, like E's MoE, and L's projector match nothing
 PATH_ZOO_SITES = {
     label: [("softmax_attention", "cuda")] * PATH_LAYERS[arch]
     + [("rmsnorm", "cuda")] * (2 * PATH_LAYERS[arch] + 1)
@@ -1364,7 +1402,7 @@ PATHS = {
 #: timing repeats of each chromosome (after its warm-up run) on the
 #: full-depth paths, cut from 3 for the run's time: their forwards take
 #: 0.05-3 s, well above the host clock's spread
-PATH_REPEATS = dict.fromkeys("MHEFXLBA", 1)
+PATH_REPEATS = dict.fromkeys("MHEFXLBAGN", 1)
 #: paths whose all-reference and all-kernel programs phase J holds against
 #: the eager port (H at its ``PATH_LAYERS`` depth)
 J_PATHS = ("Q", "R", "W", "M", "H")
@@ -1376,7 +1414,7 @@ ROUTED = {"E": ("olmoe_1b_7b", PATH_E_PLAN),
 #: paths whose search is seeded with the forced chromosome
 #: (``Offloader.search``'s ``extra_seeds``), and on which no chromosome at
 #: all may fail with an error
-SEEDED = {"H", "E", "F", "X", "L", "B", "A"}
+SEEDED = {"H", "E", "F", "X", "L", "B", "A", "G", "N"}
 
 
 #: the kernel each pattern's ``cuda`` variant launches
@@ -1392,7 +1430,8 @@ PATH_VARIANTS = {"Q": {"d1024_l32", "d128_l16"}, "R": {"d2560_l32"},
                  "E": {"generic_l32", "d128_l32"}, "F": {"d2560_l32"},
                  "X": {"generic_l32"}, "K": {"d1024_l32"},
                  "L": {"generic_l32"}, "B": {"d2560_l32"},
-                 "A": {"generic_l32"},
+                 "A": {"generic_l32"}, "G": {"generic_l32"},
+                 "N": {"generic_l32"},
                  "V": {"d1024_l32", "d128_l16"},
                  "D": {"d1024_l32", "d128_l16"}}
 #: RMSNorm launches by variant of one forward of the forced plan, where
@@ -1410,7 +1449,8 @@ PATH_ROUTES = {"R": {"tma"}, "H": {"tma"}}
 #: path H at head dim 256: ``scalar``)
 PATH_FLASH = {"Q": "wgmma", "M": "scalar", "H": "scalar", "E": "scalar",
               "X": "scalar", "K": "scalar", "V": "wgmma", "D": "wgmma",
-              "L": "scalar", "B": "scalar", "A": "scalar"}
+              "L": "scalar", "B": "scalar", "A": "scalar", "G": "scalar",
+              "N": "scalar"}
 
 
 def sub_counts() -> dict:
@@ -1941,7 +1981,7 @@ def bf16_diagnostic(dev, label: str, make_model, n_sites: int,
 
 #: each serving phase's label in phase J
 SERVE_LABEL = {"M": "S", "H": "SH", "E": "SE", "F": "SF", "X": "SW",
-               "L": "SL", "B": "SB", "A": "SA"}
+               "L": "SL", "B": "SB", "A": "SA", "G": "SG", "N": "SN"}
 
 
 def serve_phase(dev, label: str, make_model, new_tokens: int,
@@ -3949,7 +3989,13 @@ def where_time_goes(fn, args, iters: int, warmup: int = None) -> dict:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in events) / iters / 1e3
+    # a graph replay's kernels can be missing from the trace while its
+    # copies are there: a trace that holds no kernel did not see the
+    # program, and its device time is None, as an empty trace's is
+    saw_kernels = any(not e.key.startswith(("Memcpy", "Memset"))
+                      for e in events)
+    device_ms = sum(e.self_device_time_total for e in events) / iters / 1e3 \
+        if saw_kernels else 0.0
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     return {"wall_ms": wall_ms, "event_ms": event_ms,
             "device_ms": device_ms or None,
@@ -4636,14 +4682,13 @@ def phase_mesh(dev, scratch: Path) -> dict:
 
 def main(argv: list) -> int:
     """The full run with no arguments.  ``--only K`` runs the build and
-    phase K alone; ``--only Z`` the build and paths L, B and A with their
-    serving (and its phase J entries); ``--only V`` runs the build, path M
-    (through the
-    planning service, then on this thread for comparison), serve M (with
-    V3) and phase V; ``--only D`` the build and phase D; ``--only C`` the build,
-    phase C2 and phase C3 (its children started first); the last line of
-    each says so (``phase K alone: ok``, ...), not the full run's contract
-    line.  ``--warm-child STORE`` is phase V2's child, ``--c3-trace ARCH
+    phase K alone; ``--only Z`` the build and paths L, B, A, G and N with
+    their serving (and its phase J entries); ``--only V`` runs the build,
+    path M (through the planning service, then on this thread for
+    comparison), serve M (with V3) and phase V; ``--only D`` the build and
+    phase D; ``--only C`` the build, phase C2 and phase C3 (its children
+    started first); the last line of each says so (``phase K alone: ok``,
+    ...), not the full run's contract line.  ``--warm-child STORE`` is phase V2's child, ``--c3-trace ARCH
     OUT`` one of phase C3's."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4771,9 +4816,9 @@ def run_all(only, m_store: Path, c3_dir: Path, children: list) -> int:
               f"{v_s['V1, V2']:.1f} s, V3 {v_s['V3']:.1f} s)", flush=True)
 
     def run_zoo():
-        """Paths L, B and A, each alone on the card, then served (SL, SB,
-        SA; their decode steps in phase J), the Server casting the f32
-        draw to its plan's bf16 once."""
+        """Paths L, B, A, G and N, each alone on the card, then served (SL,
+        SB, SA, SG, SN; their decode steps in phase J), the Server casting
+        the f32 draw to its plan's bf16 once."""
         for label, arch in ZOO.items():
             free_models()
             run_path(label)
@@ -4864,8 +4909,8 @@ def run_all(only, m_store: Path, c3_dir: Path, children: list) -> int:
     serve_phase(dev, "X", lambda d, _: whisper_model(d, torch.float32),
                 SERVE_NEW, True, prompt_len=SERVE_PROMPT_X)
     done("serve X")
-    # the zoo configs no other path runs: LLaVA-NeXT-Mistral-7B, Qwen1.5-4B
-    # and Llama-4 Scout
+    # the zoo configs no other path runs: LLaVA-NeXT-Mistral-7B,
+    # Qwen1.5-4B, Llama-4 Scout, Gemma-7B and TinyLlama-1.1B
     run_zoo()
     # phase C3's dry-run children trace beside phases T and C2
     c3_procs = c3_start(c3_dir, ("h100x1",))

@@ -1,4 +1,4 @@
-"""Three zoo configs held to the JAX reference on the CPU, at small widths
+"""Five zoo configs held to the JAX reference on the CPU, at small widths
 that keep what makes each distinct, every leaf the reference initialises
 to zero drawn nonzero (the QKV biases, the projector's biases, the norm
 scales), weights carried across by ``model_from_jax``:
@@ -8,13 +8,20 @@ scales), weights carried across by ``model_from_jax``:
 * B, Qwen1.5-4B: QKV bias, MHA;
 * A, Llama-4 Scout: 10 query heads over 2 KV heads (a group of 5, which
   ``reduced()`` loses), top-1 routing, one shared expert, a capacity that
-  drops tokens.
+  drops tokens;
+* G, Gemma-7B: d_model 48 under 4 heads of 16 (a query width of 64 that
+  differs from d_model, as Gemma's 4096 differs from its 3072), GeGLU, a
+  tied embedding scaled by sqrt(d_model);
+* N, TinyLlama-1.1B: 8 query heads over 1 KV head (a group of 8, which
+  ``reduced()`` loses), an untied head.
 
 Each is checked for (a) the prefill's logits and every state leaf, (b) the
 export frontend's sites, (c) the forced all-kernel substituted program
 (the wrappers take their plain versions on the CPU) against the
 reference's forward, and (d) ``Server.generate``'s greedy tokens against
-the reference's ``Server``, patch features included.  Run:
+the reference's ``Server``, patch features included.  Apart from the
+fixture, the scaled embedding in bf16 is held to the reference's bit for
+bit at d 48 and at Gemma's 3072, where sqrt(d) is not a bf16 value.  Run:
 
     PYTHONPATH=src python -m pytest tests/test_torch_zoo_paths.py -q
 """
@@ -30,12 +37,14 @@ import numpy as np  # noqa: E402
 
 from repro.configs import base as jbase  # noqa: E402
 from repro.models import build_model as jbuild_model  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
 from repro.models import plan as jplan  # noqa: E402
 from repro.runtime.serve import Server as JServer  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.core.offload import OffloadConfig, Offloader  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import OFFLOAD_PLAN, REFERENCE_PLAN, build_model  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.convert import model_from_jax  # noqa: E402
 from repro_torch.models.moe import Router  # noqa: E402
 from repro_torch.runtime.serve import Server  # noqa: E402
@@ -46,7 +55,8 @@ SMALL = dict(attn_q_chunk=16, attn_kv_chunk=16, rglru_chunk=16,
 TOL = 1e-4
 #: each path's plan, f32: the reference plan, and for A the production
 #: MoE (capacity-limited dispatch), as ``chip_smoke.py`` plans them
-PATH_PLAN = {"L": {}, "B": {}, "A": {"moe_impl": "scatter_ep"}}
+PATH_PLAN = {"L": {}, "B": {}, "A": {"moe_impl": "scatter_ep"}, "G": {},
+             "N": {}}
 PLANS = {"reference": (REFERENCE_PLAN, jplan.REFERENCE_PLAN),
          "offload": (OFFLOAD_PLAN.replace(**SMALL),
                      jplan.OFFLOAD_PLAN.replace(**SMALL))}
@@ -62,6 +72,13 @@ def _small(base, label: str):
                                    vision_patches=16, vision_dim=32)
     if label == "B":
         return base.get_config("qwen1_5_4b").reduced()
+    if label == "G":
+        return dataclasses.replace(base.get_config("gemma_7b").reduced(),
+                                   d_model=48)
+    if label == "N":
+        return dataclasses.replace(
+            base.get_config("tinyllama_1_1b").reduced(), n_heads=8,
+            n_kv_heads=1)
     cfg = base.get_config("llama4_scout_17b_a16e").reduced()
     return dataclasses.replace(cfg, n_heads=10, n_kv_heads=2,
                                moe=dataclasses.replace(cfg.moe,
@@ -83,7 +100,7 @@ def _nonzero(tree, seed: int):
     return jax.tree_util.tree_unflatten(treedef, out), redrawn
 
 
-@pytest.fixture(scope="module", params=["L", "B", "A"])
+@pytest.fixture(scope="module", params=["L", "B", "A", "G", "N"])
 def zoo(request):
     label = request.param
     jcfg, cfg = _small(jbase, label), _small(tbase, label)
@@ -126,7 +143,7 @@ def _kv_pairs(state, jstate):
 def test_zero_initialised_leaves_are_drawn_nonzero(zoo):
     """The leaves the reference starts at zero are the ones each config
     makes distinct (and every norm scale): all redrawn, none left zero in
-    the port's parameters."""
+    the port's parameters.  G's head is the tied table: no ``lm_head``."""
     label, cfg, _, params, _, _, _, redrawn = zoo
     names = {r.split("'")[-2] for r in redrawn}
     want = {"ln1", "ln2", "final_norm"}
@@ -134,6 +151,30 @@ def test_zero_initialised_leaves_are_drawn_nonzero(zoo):
     want |= {"vis_b1", "vis_b2"} if label == "L" else set()
     assert want <= names, (want, names)
     assert all(p.detach().abs().sum() > 0 for p in params.parameters())
+    assert (params.lm_head is None) == cfg.tie_embeddings == (label == "G")
+
+
+@pytest.mark.parametrize("d", [48, 3072])
+def test_scaled_embedding_in_bf16_equals_the_reference_bit_for_bit(d):
+    """``embed_tokens`` in bf16 with Gemma's scale: the lookup cast to
+    bf16, times sqrt(d) rounded to bf16 first (at d 48 6.9375 for
+    6.9282, at 3072 55.5 for 55.4256), bit for bit as the reference
+    computes it.  The unrounded f32 scale gives other values here."""
+    rng = np.random.default_rng(d)
+    table = rng.normal(size=(16, d)).astype(np.float32)
+    tokens = rng.integers(0, 16, size=(2, 24)).astype(np.int32)
+    plan = REFERENCE_PLAN.replace(compute_dtype="bfloat16")
+    got = layers.embed_tokens(torch.from_numpy(tokens),
+                              torch.from_numpy(table), plan, True)
+    want = jlayers.embed_tokens(
+        jnp.asarray(tokens), jnp.asarray(table),
+        jplan.REFERENCE_PLAN.replace(compute_dtype="bfloat16"), True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+    looked = torch.from_numpy(table)[torch.from_numpy(tokens).long()]
+    unrounded = (looked.to(torch.bfloat16) * np.sqrt(d)).float().numpy()
+    assert (unrounded != np.asarray(want, np.float32)).any()
 
 
 @pytest.mark.parametrize("which", ["reference", "offload"])
